@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits nonzero):
+
+1. the card's name and power limit, the torch and CUDA versions;
+2. build the CUDA kernels from `src/repro_torch/csrc/` (one nvcc each,
+   all at once) and print each kernel's ptxas report;
+3. calibrate the paper fleet and clone it to
+   `synthetic_fleet(10_000, hours=48, seed=0)` (and a W = 130 tail fleet);
+4. hold each kernel against its plain PyTorch version on the card, at the
+   main path's shapes (W = 10,000, T = 48) and at W = 130 (a tail block),
+   and time both with CUDA events;
+5. the main path: solve CR1(1.45) and CR2(0.78) at their default steps
+   through the kernels (launch counts reset just before and read just
+   after), then with `use_kernel=False`, and compare;
+6. print the kernels' JSON line and, last, the device line.
+
+Imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+W_MAIN, T_MAIN, W_TAIL = 10_000, 48, 130
+# Reduced calibration of the penalty models (see the printed line): the
+# EDD simulations are a pure-Python loop on the host.
+CAL_SAMPLES, CAL_JOBS = 32, 1000
+H100_BYTES_PER_S = 3.35e12   # HBM3, SXM data sheet
+H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
+PP_TOL = 0.05                # fused vs generic, percentage points
+PRESERVATION_TOL = 1e-3
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# Inputs (numpy, seeded) for the kernel checks
+# ---------------------------------------------------------------------------
+def feature_inputs(np, W, T, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(0.0, 1.0, (W, T))
+    u = np.abs(rng.normal(2.0, 0.3, (W, T))) + 0.5
+    j = np.abs(rng.normal(1.0, 0.2, (W, T))) + 0.1
+    # Hinge-crossing rows: running sums cross zero mid-horizon, both ways.
+    up_down = np.r_[np.full(T // 2, 0.7), np.full(T - T // 2, -0.9)]
+    d[0], d[1] = up_down, -up_down
+    u[:2], j[:2] = 2.0, 1.5
+    return d, u, j
+
+
+def al_step_inputs(np, p, *, mode, seed, rts_only=True, stable=False,
+                   per_row_cvec=False, tiny_v=False, at_bounds=False):
+    """(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal) in the kernel's
+    packed layout, from the rows of fleet `p`, drawn as the JAX package's
+    kernel tests draw them (`tests/test_al_step.py`): `rts_only` recasts
+    batch rows as smooth cubic RTS rows (no hinge); `stable` starts every
+    batch hinge clearly on its active side. Two differences: every row
+    steps (rowp col 11 = 1, as on the main path), and v >= m², a state
+    Adam can reach. `tiny_v` draws v as those tests do, |N(0, 1e-4)|,
+    mostly below m²: there the step m/√v is ill-conditioned. `at_bounds`
+    spreads x over the whole box, many hours at a bound, and zeroes the
+    batch betas so no hinge enters the gradient: the day projection then
+    has bounds to fix."""
+    W, T = p.usage.shape
+    rng = np.random.default_rng(seed)
+    usage = p.usage.astype(np.float32)
+    E = p.entitlement.astype(np.float32)[:, None]
+    isb = np.zeros(W, bool) if rts_only else p.is_batch.astype(bool)
+    rts = np.where(p.is_batch[:, None], [[2e-4, 1.5e-3, 0.04]],
+                   p.rts_coeffs) if rts_only else p.rts_coeffs
+    hi = np.minimum(np.float32(p.max_curtail_frac) * E, usage)
+    lo = np.where(isb[:, None], -(E - usage), np.float32(0.0))
+    if at_bounds:
+        x = np.clip(rng.normal(0.0, 0.6, (W, T)) * usage, lo, hi)
+    elif stable:
+        x = np.clip(0.25 * usage + 0.01, lo, hi)
+    else:
+        x = np.clip(rng.normal(0.0, 0.3, (W, T)), lo, hi)
+    m = rng.normal(0.0, 0.01, (W, T))
+    v = np.abs(rng.normal(0.0, 1e-4, (W, T)))
+    if not tiny_v:
+        v = v + m ** 2
+    rowp = np.zeros((W, 12))
+    rowp[:, 0:3] = rts
+    rowp[:, 3:6] = 0.0 if rts_only or at_bounds else p.betas
+    rowp[:, 6] = p.k
+    rowp[:, 7] = p.x2_kind
+    rowp[:, 8] = isb
+    if mode == "cr2":
+        rowp[:, 9] = np.abs(rng.normal(1.0, 0.2, W))
+        rowp[:, 10] = rng.normal(0.0, 0.5, W)
+    rowp[:, 11] = 1.0
+    cvec = rng.normal(-0.5, 0.2, (W if per_row_cvec else 1, T))
+    scal = np.array([[1.45, 10.0, 0.8, 0.02, 3.0, 0.0, 0.0, 0.0]])
+    return (x, m, v, usage, p.jobs, lo, hi, rowp, cvec, scal)
+
+
+# ---------------------------------------------------------------------------
+# Timing
+# ---------------------------------------------------------------------------
+def kernel_ms(torch, fn, reps=50):
+    """Median device time of one call, from CUDA events. A spin kernel
+    queued first keeps the host's launch overhead out of the window."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def plain_ms(torch, fn, reps=10):
+    """Median time of one call of a plain version from an idle stream to
+    its end, launch gaps included, from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def al_step_ops(np, rowp, T, k_steps, mode):
+    """Float operations one call needs, counted from csrc/al_step.cu per
+    hour and step: an RTS hour 36 (8 more for CR2's penalty sum), a batch
+    hour 46 (cumsums, hinges, gradient, Adam, clip) and 10 for one pass of
+    the day projection (held value, three sums, shift, two overshoots,
+    final clip). One pass is the least an exact projection needs; the
+    passes that fix hours are data-dependent and left out, so the bound
+    stays a lower bound."""
+    n_batch = int((rowp[:, 8] > 0.5).sum())
+    n_rts = rowp.shape[0] - n_batch
+    rts = 36 + (8 if mode == "cr2" else 0)
+    return k_steps * T * (n_rts * rts + n_batch * (46 + 10))
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    log(f"[build] {', '.join(build.KERNELS)} built in "
+        f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def check_close(torch, got, want, rtol, atol, what):
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
+    require(ok, f"{what}: max |kernel - plain| = {err:.3e} beyond "
+                f"rtol = atol = {rtol:g}/{atol:g}")
+    return err
+
+
+def phase_dr_features(np, torch):
+    from repro_torch.kernels.dr_features.kernel import dr_features_cuda
+    from repro_torch.kernels.dr_features.ref import dr_features_ref
+    dev = torch.device("cuda")
+    errs, rec = [], {}
+    for W in (W_MAIN, W_TAIL):
+        d, u, j = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                   for a in feature_inputs(np, W, T_MAIN, seed=W))
+        got = dr_features_cuda(d, u, j)
+        torch.cuda.synchronize()
+        errs.append(check_close(torch, got, dr_features_ref(d, u, j), 2e-4,
+                                2e-4, f"dr_features W={W}"))
+        if W == W_MAIN:
+            rec["ms"] = kernel_ms(torch, lambda: dr_features_cuda(d, u, j),
+                                  reps=100)
+            rec["plain_ms"] = plain_ms(torch,
+                                       lambda: dr_features_ref(d, u, j))
+            nbytes = 3 * d.numel() * 4 + W * 4 * 4
+            ops = 20 * d.numel()
+    rec["max_abs_err"] = max(errs)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[check] dr_features: max abs err {rec['max_abs_err']:.3e} "
+        f"(rtol = atol = 2e-4) at W = {W_MAIN}, {W_TAIL}; kernel "
+        f"{rec['ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} us, "
+        f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+    return rec
+
+
+def phase_al_step(np, torch, fleets):
+    from repro_torch.kernels.al_step.kernel import al_step_cuda
+    from repro_torch.kernels.al_step.ref import al_step_ref
+    dev = torch.device("cuda")
+
+    def to_dev(arrs, bf16):
+        out = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in arrs]
+        if bf16:
+            out[1], out[2] = out[1].bfloat16(), out[2].bfloat16()
+        return out
+
+    def compare(args, mode, k, bf16, what, tol=1e-5):
+        got = al_step_cuda(*args, mode=mode, k_steps=k)
+        want = al_step_ref(*args, mode=mode, k_steps=k)
+        torch.cuda.synchronize()
+        # f32: 1e-5 as the JAX package's kernel tests. bf16 moments are
+        # rounded once per call in both, so they agree to one bf16 ulp.
+        mtol = 2.0 ** -7 if bf16 else tol
+        err = check_close(torch, got[0], want[0], tol, tol, f"{what} x")
+        merr = max(check_close(torch, got[1], want[1], mtol, tol,
+                               f"{what} m"),
+                   check_close(torch, got[2], want[2], mtol, tol,
+                               f"{what} v"))
+        if bf16:
+            bf16_errs.append(merr)
+            return err
+        return max(err, merr)
+
+    errs, bf16_errs, ill_errs, n = [], [], [], 0
+    for p in fleets:
+        W = p.W
+        for mode in ("cr1", "cr2"):
+            for k in (1, 8):
+                for bf16 in (False, True):
+                    for per_row in (False, True):
+                        arrs = al_step_inputs(np, p, mode=mode, seed=W + k,
+                                              per_row_cvec=per_row)
+                        errs.append(compare(
+                            to_dev(arrs, bf16), mode, k, bf16,
+                            f"al_step RTS W={W} {mode} k={k} "
+                            f"bf16={bf16} cvec={'WT' if per_row else '1T'}"))
+                        n += 1
+            arrs = al_step_inputs(np, p, mode=mode, seed=W, rts_only=False,
+                                  stable=True)
+            errs.append(compare(to_dev(arrs, False), mode, 1, False,
+                                f"al_step mixed W={W} {mode} k=1"))
+            # The cold start: x = 0 puts every hinge on an exact tie.
+            cold = to_dev(arrs, False)
+            for i in (0, 1, 2):
+                cold[i] = torch.zeros_like(cold[i])
+            cold[9][0, 4] = 0.0
+            errs.append(compare(cold, mode, 1, False,
+                                f"al_step cold start W={W} {mode} k=1"))
+            # Ill-conditioned: v drawn below m² as the JAX package's tests
+            # draw it. 1e-4: such inputs put the two float32 orders 1.18e-5
+            # apart on one element of 480,000 in an earlier run (W = 10,000,
+            # cr2); m/√v magnifies ulp-level gradient differences there.
+            arrs = al_step_inputs(np, p, mode=mode, seed=W, rts_only=False,
+                                  stable=True, tiny_v=True)
+            ill_errs.append(compare(to_dev(arrs, False), mode, 1, False,
+                                    f"al_step tiny v W={W} {mode} k=1",
+                                    tol=1e-4))
+            arrs = al_step_inputs(np, p, mode=mode, seed=W, rts_only=False,
+                                  at_bounds=True)
+            errs.append(compare(to_dev(arrs, False), mode, 8, False,
+                                f"al_step at bounds W={W} {mode} k=8"))
+            n += 4
+    # Timing at the main path's call: the fleet's rows, k = 8, f32 moments.
+    arrs = al_step_inputs(np, fleets[0], mode="cr2", seed=1, rts_only=False,
+                          stable=True)
+    args = to_dev(arrs, False)
+    rec = {"max_abs_err": max(errs)}
+    for mode in ("cr1", "cr2"):
+        rec[f"ms_{mode}"] = kernel_ms(
+            torch, lambda: al_step_cuda(*args, mode=mode, k_steps=8))
+        rec[f"plain_ms_{mode}"] = plain_ms(
+            torch, lambda: al_step_ref(*args, mode=mode, k_steps=8))
+    rec["ms"], rec["plain_ms"] = rec["ms_cr2"], rec["plain_ms_cr2"]
+    nbytes = 10 * W_MAIN * T_MAIN * 4 + W_MAIN * 12 * 4 + T_MAIN * 4 + 32
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = al_step_ops(np, arrs[7], T_MAIN, 8, "cr2") \
+        / H100_F32_OPS_PER_S * 1e3
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[check] al_step: {n} cases, max abs err {rec['max_abs_err']:.3e} "
+        f"(rtol = atol = 1e-5; bf16 moments {max(bf16_errs):.3e}, to one "
+        f"bf16 ulp; tiny v {max(ill_errs):.3e} at 1e-4); k=8 at W = "
+        f"{W_MAIN}: kernel "
+        f"cr1 {rec['ms_cr1'] * 1e3:.2f} us, cr2 {rec['ms_cr2'] * 1e3:.2f} "
+        f"us; plain cr1 {rec['plain_ms_cr1'] * 1e3:.2f} us, cr2 "
+        f"{rec['plain_ms_cr2'] * 1e3:.2f} us; bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+    return rec
+
+
+def phase_fleet():
+    """The paper fleet (calibrated on this host and card), cloned to the
+    main path's W = 10,000 and to the W = 130 tail fleet."""
+    from repro_torch.core.fleet_solver import synthetic_fleet
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    t0 = time.perf_counter()
+    fleet = cached_paper_fleet(hours=T_MAIN, num_samples=CAL_SAMPLES,
+                               num_jobs=CAL_JOBS, device="cuda")
+    log(f"[fleet] paper fleet calibrated in {time.perf_counter() - t0:.2f} s")
+    log(f"[fleet] reduced calibration: num_samples={CAL_SAMPLES} "
+        f"num_jobs={CAL_JOBS} (the default is 160 and 10000)")
+    p = synthetic_fleet(W_MAIN, hours=T_MAIN, seed=0, templates=fleet)
+    log(f"[fleet] synthetic_fleet: W = {p.W}, T = {p.T}, "
+        f"{int(p.is_batch.sum())} batch rows")
+    return p, synthetic_fleet(W_TAIL, hours=T_MAIN, seed=1, templates=fleet)
+
+
+def phase_main_path(np, torch, p):
+    from repro_torch.core.api import CR1, CR2, SolveContext, solve
+    from repro_torch.kernels.al_step.kernel import al_step_cuda
+    from repro_torch.kernels.dr_features.kernel import dr_features_cuda
+
+    policies = (CR1(lam=1.45), CR2(cap_frac=0.78))
+    for pol in policies:                       # warm-up, not timed
+        solve(p, pol, ctx=SolveContext(steps=8))
+    torch.cuda.synchronize()
+
+    dr_features_cuda.launches = 0
+    al_step_cuda.launches = 0
+    fused = {}
+    for pol in policies:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = solve(p, pol)
+        torch.cuda.synchronize()
+        fused[pol.name] = (r, time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated())
+    launches = {"al_step": al_step_cuda.launches,
+                "dr_features": dr_features_cuda.launches}
+    want = {"al_step": 600 // 8 + CR2.outer * (400 // 8),
+            "dr_features": 1 + (1 + CR2.outer + 1)}
+    log(f"[main] launches on the main path: {launches} (expected {want})")
+    require(launches == want, f"kernel launches {launches} != {want}")
+
+    for pol in policies:
+        r, wall, mem = fused[pol.name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = solve(p, pol, ctx=SolveContext(use_kernel=False))
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t0
+        gmem = torch.cuda.max_memory_allocated()
+        log(f"[main] {pol.name} fused: carbon {r.carbon_reduction_pct:.4f} %, "
+            f"penalty {r.total_penalty_pct:.4f} %, preservation "
+            f"{r.preservation_violation:.3e}, wall {wall:.4f} s, peak "
+            f"{mem / 2**20:.1f} MiB")
+        log(f"[main] {pol.name} generic: carbon {g.carbon_reduction_pct:.4f} "
+            f"%, penalty {g.total_penalty_pct:.4f} %, preservation "
+            f"{g.preservation_violation:.3e}, wall {gwall:.4f} s, peak "
+            f"{gmem / 2**20:.1f} MiB")
+        for res in (r, g):
+            require(bool(np.isfinite(res.D).all())
+                    and res.D.shape == (p.W, p.T),
+                    f"{pol.name}: plan not finite or not (W, T)")
+        dc = abs(r.carbon_reduction_pct - g.carbon_reduction_pct)
+        dp = abs(r.total_penalty_pct - g.total_penalty_pct)
+        require(dc < PP_TOL and dp < PP_TOL,
+                f"{pol.name}: fused vs generic differ by {dc:.4f} pp carbon,"
+                f" {dp:.4f} pp penalty (limit {PP_TOL})")
+        require(r.preservation_violation < PRESERVATION_TOL,
+                f"{pol.name}: preservation violation "
+                f"{r.preservation_violation:.3e} >= {PRESERVATION_TOL}")
+    return launches
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found next to this script",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    smi = phase_device(torch)
+    phase_build()
+    fleets = phase_fleet()
+    dr = phase_dr_features(np, torch)
+    al = phase_al_step(np, torch, fleets)
+    log("[check] kernels held against their plain versions on the card: "
+        "dr_features, al_step")
+    launches = phase_main_path(np, torch, fleets[0])
+    kernels = []
+    for name, rec, line in (("dr_features", dr, 26), ("al_step", al, 41)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

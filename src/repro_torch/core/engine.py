@@ -1,0 +1,168 @@
+"""Projected Adam on an augmented Lagrangian: the fleet solvers' engine.
+
+`al_minimize` runs `outer_steps` rounds of multiplier updates around
+`inner_steps` of bias-corrected Adam, projecting after every step. Box
+bounds and batch day-preservation are the caller's projection (both cheap
+closed forms); equality residuals h(x) = 0 and inequality residuals
+g(x) >= 0 get AL multiplier + quadratic terms with a growing penalty
+weight mu. The generic inner step differentiates the Lagrangian with
+`torch.autograd.grad`; `fused_inner` hands the whole inner loop to a
+caller's implementation (the `al_step` kernel).
+
+Warm starts: `init` (an `EngineState`, the (x, lam_eq, lam_in, mu) carry
+of a previous solve) replaces the cold start, and the final state is
+returned in `aux["state"]`. Multipliers and mu stay device tensors; the
+loop never reads a device value on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+Tensor = torch.Tensor
+# objective(x, hyper) -> scalar; residual(x, hyper) -> (n,) vector.
+Objective = Callable[[Tensor, Any], Tensor]
+Residual = Callable[[Tensor, Any], Tensor]
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Knobs for the projected-Adam / augmented-Lagrangian loop."""
+
+    inner_steps: int = 400     # Adam steps per multiplier round
+    outer_steps: int = 1       # multiplier rounds (1 = plain projected Adam)
+    lr: float = 0.05           # step size, scaled by the caller's step_scale
+    mu0: float = 10.0          # initial quadratic constraint weight
+    mu_growth: float = 2.0     # mu multiplier per outer round
+    mu_max: float = 1e6        # cap: keeps chained warm re-solves finite
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    # Storage dtype of the Adam moments: "float32" or "bfloat16". x stays
+    # a float32 master copy and all arithmetic runs in float32.
+    moment_dtype: str = "float32"
+    # Not ported yet: non-finite guards and in-solve telemetry.
+    sanitize: bool = False
+    telemetry_every: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineState:
+    """Reusable solver carry: primal point + AL multipliers + penalty
+    weight, all tensors on the solve's device."""
+
+    x: Tensor           # primal iterate (the previous solution)
+    lam_eq: Tensor      # (n_eq,) equality multipliers
+    lam_in: Tensor      # (n_in,) inequality multipliers (>= 0)
+    mu: Tensor          # scalar quadratic penalty weight
+
+    @classmethod
+    def cold(cls, x0: Tensor, n_eq: int = 0, n_in: int = 0,
+             mu0: float = EngineConfig.mu0) -> "EngineState":
+        """Zero-multiplier start: the classic cold solve."""
+        kw = dict(dtype=x0.dtype, device=x0.device)
+        return cls(x=x0, lam_eq=torch.zeros((n_eq,), **kw),
+                   lam_in=torch.zeros((n_in,), **kw),
+                   mu=torch.full((), mu0, **kw))
+
+    def shifted(self, hours: int = 1, fill: float = 0.0) -> "EngineState":
+        """Roll the primal along its trailing (time) axis by `hours`, the
+        rolling-horizon warm start. Vacated trailing hours get `fill`;
+        multipliers and mu attach to workloads, not hours, and carry."""
+        x = torch.roll(self.x, -hours, dims=-1)
+        if hours > 0:
+            x[..., -hours:] = fill
+        return dataclasses.replace(self, x=x)
+
+
+def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
+                x0: Tensor, *, hyper: Any = None,
+                eq_residual: Residual | None = None,
+                ineq_residual: Residual | None = None,
+                step_scale: Tensor | float = 1.0,
+                grad_transform: Callable[[Tensor], Tensor] | None = None,
+                cfg: EngineConfig = EngineConfig(),
+                init: EngineState | None = None,
+                fused_inner: Callable[[Tensor, Tensor, Tensor, Tensor],
+                                      Tensor] | None = None,
+                ) -> tuple[Tensor, dict[str, Any]]:
+    """Minimize objective(x, hyper) s.t. eq(x)=0, ineq(x)>=0, x = project(x).
+
+    Returns (x, aux) with the final multipliers in aux and `aux["state"]`,
+    an `EngineState` to warm-start the next solve. `init` warm-starts the
+    whole carry (x0 is then ignored and `init.x` projected); without it the
+    residual sizes come from one evaluation at x0.
+
+    `fused_inner(x, lam_eq, lam_in, mu) -> x` replaces the generic inner
+    Adam loop; it must run exactly `cfg.inner_steps` projected-Adam steps
+    from zero moments. The multiplier updates between rounds stay here.
+    """
+    if cfg.sanitize or cfg.telemetry_every:
+        raise NotImplementedError(
+            "EngineConfig.sanitize and telemetry_every are not ported yet")
+
+    def eq_vec(x: Tensor) -> Tensor:
+        return torch.atleast_1d(eq_residual(x, hyper)).reshape(-1)
+
+    def ineq_vec(x: Tensor) -> Tensor:
+        return torch.atleast_1d(ineq_residual(x, hyper)).reshape(-1)
+
+    if init is None:
+        with torch.no_grad():
+            n_eq = 0 if eq_residual is None else eq_vec(x0).numel()
+            n_in = 0 if ineq_residual is None else ineq_vec(x0).numel()
+        init = EngineState.cold(x0, n_eq, n_in, cfg.mu0)
+    n_eq, n_in = init.lam_eq.numel(), init.lam_in.numel()
+
+    def lagrangian(x, lam_eq, lam_in, mu):
+        val = objective(x, hyper)
+        if n_eq:
+            h = eq_vec(x)
+            val = val + lam_eq @ h + 0.5 * mu * (h @ h)
+        if n_in:
+            # AL for g(x) >= 0: (mu/2)·[max(0, lam/mu − g)² − (lam/mu)²]
+            g = ineq_vec(x)
+            s = torch.maximum(lam_in / mu - g, torch.zeros_like(g))
+            val = val + 0.5 * mu * (s @ s - (lam_in / mu) @ (lam_in / mu))
+        return val
+
+    mdt = getattr(torch, cfg.moment_dtype)
+    dt = init.x.dtype
+    with torch.no_grad():
+        x = project(init.x)
+        lam_eq, lam_in = init.lam_eq.to(dt), init.lam_in.to(dt)
+        mu = torch.as_tensor(init.mu, dtype=dt, device=x.device)
+    b1 = torch.tensor(cfg.beta1, dtype=dt, device=x.device)
+    b2 = torch.tensor(cfg.beta2, dtype=dt, device=x.device)
+
+    for _ in range(cfg.outer_steps):
+        if fused_inner is not None:
+            with torch.no_grad():
+                x = fused_inner(x, lam_eq, lam_in, mu)
+        else:
+            m = torch.zeros(x.shape, dtype=mdt, device=x.device)
+            v = torch.zeros(x.shape, dtype=mdt, device=x.device)
+            for t in range(1, cfg.inner_steps + 1):
+                xg = x.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    (g,) = torch.autograd.grad(
+                        lagrangian(xg, lam_eq, lam_in, mu), xg)
+                with torch.no_grad():
+                    if grad_transform is not None:
+                        g = grad_transform(g)
+                    m = cfg.beta1 * m.to(dt) + (1.0 - cfg.beta1) * g
+                    v = cfg.beta2 * v.to(dt) + (1.0 - cfg.beta2) * g * g
+                    mhat = m / (1.0 - b1 ** t)
+                    vhat = v / (1.0 - b2 ** t)
+                    x = project(x - cfg.lr * step_scale * mhat
+                                / (torch.sqrt(vhat) + cfg.eps))
+                    m, v = m.to(mdt), v.to(mdt)
+        with torch.no_grad():
+            if n_eq:
+                lam_eq = lam_eq + mu * eq_vec(x)
+            if n_in:
+                lam_in = torch.clamp(lam_in - mu * ineq_vec(x), min=0.0)
+            mu = torch.clamp(mu * cfg.mu_growth, max=cfg.mu_max)
+    state = EngineState(x=x, lam_eq=lam_eq, lam_in=lam_in, mu=mu)
+    return x, {"lam_eq": lam_eq, "lam_in": lam_in, "mu": mu, "state": state}

@@ -1,0 +1,320 @@
+"""Fleet-scale DR data model and the plumbing the policies share.
+
+Every workload's penalty model is stacked into arrays,
+
+  RTS:    C_i = k_i Σ_t f(a_i; d/U)            (cubic polynomial)
+  batch:  C_i = (k_i (β₀ + β₁ x₁ + β₂ x₂))⁺    (Table-IV features)
+
+so the whole fleet evaluates as a handful of (W, T) tensor ops, with the
+Table-IV features from the `dr_features` kernel on the card.
+
+`FleetProblem` holds numpy fields, as in the JAX package. A solve makes
+its float32 tensors once, on the chosen device (`device_view`); the
+functions here take either form and compute on the device of the tensors
+they are given (numpy fields count as the CPU).
+
+Only the single-region part is ported: a problem with a (R, T) carbon
+signal raises `NotImplementedError` at the solve (R = 1 is canonicalized
+to the single-region form first, as in the JAX package).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import EngineState
+from repro_torch.core.penalty import PenaltyModel
+from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
+
+Tensor = torch.Tensor
+f32 = torch.float32
+
+# Initial AL penalty weights per policy.
+CR1_MU0 = 10.0
+CR2_MU0 = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetProblem:
+    """Stacked-workload DR instance.
+
+    Single-region fleets have `mci: (T,)` and `region is None`; a (R, T)
+    signal with per-workload `region` ids is a multi-region fleet, which
+    this port does not solve yet.
+    """
+    usage: np.ndarray          # (W, T)
+    entitlement: np.ndarray    # (W,)
+    k: np.ndarray              # (W,)
+    rts_coeffs: np.ndarray     # (W, 3) a3,a2,a1 (zeros for batch)
+    betas: np.ndarray          # (W, 3) β0,β1,β2 (zeros for RTS)
+    x2_kind: np.ndarray        # (W,) 0=num_jobs_delayed, 1=waiting_sq
+    jobs: np.ndarray           # (W, T)
+    is_batch: np.ndarray       # (W,) bool
+    mci: np.ndarray            # (T,) or (R, T) per-region
+    day_hours: int = 24
+    max_curtail_frac: float = 0.5
+    names: tuple[str, ...] | None = None
+    # Optional (W, T) operational cap on curtailment, intersected with the
+    # entitlement/usage box.
+    upper: np.ndarray | None = None
+    region: np.ndarray | None = None
+
+    @property
+    def W(self) -> int:
+        return self.usage.shape[0]
+
+    @property
+    def T(self) -> int:
+        return self.usage.shape[1]
+
+    @property
+    def is_multiregion(self) -> bool:
+        return np.ndim(self.mci) == 2
+
+
+DATA_FIELDS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
+               "x2_kind", "jobs", "is_batch", "mci", "upper", "region")
+
+
+def device_view(p: FleetProblem, device: torch.device) -> FleetProblem:
+    """The same problem with float32 tensor fields on `device` (bool
+    `is_batch`, int64 `region`), made once per solve; `names` dropped."""
+    def conv(name, a):
+        if a is None:
+            return None
+        dtype = {"is_batch": torch.bool, "region": torch.int64}.get(name, f32)
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return dataclasses.replace(
+        p, names=None, **{n: conv(n, getattr(p, n)) for n in DATA_FIELDS})
+
+
+def single_region_view(p: FleetProblem) -> FleetProblem:
+    """Canonicalize the degenerate R = 1 problem to the single-region form;
+    raise for R > 1, which this port does not solve yet."""
+    if not p.is_multiregion:
+        return p
+    if np.asarray(p.mci).shape[0] == 1:
+        return dataclasses.replace(p, mci=np.asarray(p.mci)[0], region=None)
+    raise NotImplementedError(
+        "multi-region fleets (mci (R, T), R > 1) are not ported yet")
+
+
+def from_models(models: Sequence[PenaltyModel], mci: np.ndarray,
+                day_hours: int = 24, max_curtail_frac: float = 0.5,
+                ) -> FleetProblem:
+    W = len(models)
+    T = mci.shape[0]
+    usage = np.stack([m.usage for m in models])
+    ent = np.asarray([m.entitlement for m in models])
+    k = np.asarray([m.k for m in models])
+    rts = np.zeros((W, 3))
+    betas = np.zeros((W, 3))
+    x2k = np.zeros(W)
+    jobs = np.ones((W, T))
+    is_batch = np.zeros(W, bool)
+    for i, m in enumerate(models):
+        if m.kind == "realtime":
+            rts[i] = m.params
+        else:
+            is_batch[i] = True
+            betas[i] = m.params
+            jobs[i] = m.jobs
+            x2k[i] = 1.0 if m.feature_names[1] == "waiting_time_squared" \
+                else 0.0
+    return FleetProblem(usage=usage, entitlement=ent, k=k, rts_coeffs=rts,
+                        betas=betas, x2_kind=x2k, jobs=jobs,
+                        is_batch=is_batch, mci=mci, day_hours=day_hours,
+                        max_curtail_frac=max_curtail_frac,
+                        names=tuple(m.name for m in models))
+
+
+def synthetic_fleet(num: int, hours: int = 48, seed: int = 0,
+                    templates: dict[str, PenaltyModel] | None = None,
+                    device: str | torch.device | None = None,
+                    ) -> FleetProblem:
+    """Clone the calibrated paper models into a fleet of `num` workloads
+    with randomized scales/mix, the scaling benchmarks' input. Without
+    `templates`, the paper fleet is built (or read from the cache) on
+    `device`."""
+    from repro_torch.core.carbon import caiso_2021
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    templates = templates or cached_paper_fleet(hours=hours, device=device)
+    rng = np.random.default_rng(seed)
+    names = list(templates)
+    models = []
+    for i in range(num):
+        base = templates[names[i % len(names)]]
+        scale = float(rng.uniform(0.2, 3.0))
+        models.append(dataclasses.replace(
+            base, name=f"{base.name}-{i}", usage=base.usage * scale,
+            entitlement=base.entitlement * scale,
+            jobs=None if base.jobs is None else base.jobs * scale))
+    return from_models(models, caiso_2021(hours).mci)
+
+
+def _features(d: Tensor, usage: Tensor, jobs: Tensor,
+              use_kernel: bool) -> Tensor:
+    """(W, 4): wait_jobs, wait_power, wait_sq, njobs (Table IV). The plain
+    path uses `torch.maximum` for JAX's 0.5 tie gradient."""
+    if use_kernel:
+        from repro_torch.kernels.dr_features.ops import dr_features
+        return dr_features(d, usage, jobs)
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    rate = jobs * d / usage
+    wait_jobs = torch.maximum(torch.cumsum(rate, dim=1), zero).sum(1)
+    wait_power = torch.maximum(torch.cumsum(d, dim=1), zero).sum(1)
+    rate_sq = jobs * d * torch.abs(d) / usage
+    wait_sq = torch.maximum(torch.cumsum(rate_sq, dim=1), zero).sum(1)
+    njobs = (jobs * torch.maximum(d, zero) / usage).sum(1)
+    return torch.stack([wait_jobs, wait_power, wait_sq, njobs], dim=1)
+
+
+def fleet_penalties(p: FleetProblem, D: Tensor,
+                    use_kernel: bool | None = None) -> Tensor:
+    """(W,) calibrated penalties, fully vectorized, on D's device."""
+    use_kernel = resolve_use_kernel(use_kernel, D.device)
+
+    def t(a, dtype=f32):
+        return torch.as_tensor(a, dtype=dtype, device=D.device)
+
+    usage = t(p.usage)
+    delta = D / usage
+    rts = t(p.rts_coeffs)
+    a3, a2, a1 = (rts[:, i:i + 1] for i in range(3))
+    f_rts = (a3 * delta**3 + a2 * delta**2 + a1 * delta).sum(dim=1)
+    X = _features(D, usage, t(p.jobs), use_kernel)
+    x1 = X[:, 1]
+    x2 = torch.where(t(p.x2_kind) > 0.5, X[:, 2], X[:, 3])
+    b = t(p.betas)
+    z = b[:, 0] + b[:, 1] * x1 + b[:, 2] * x2
+    f_batch = torch.maximum(z, torch.zeros_like(z))
+    raw = torch.where(t(p.is_batch, torch.bool), f_batch, f_rts)
+    return t(p.k) * raw
+
+
+def cr2_reference_fleet(p: FleetProblem, cap_frac: float,
+                        device: str | torch.device | None = None,
+                        ) -> np.ndarray:
+    """C_i under a hypothetical equal power cap at cap_frac·E: CR2's
+    fairness targets. The cap is taken in float64 numpy, the penalties in
+    float32 on `device` (None = the CUDA device; the kernel runs there)."""
+    device = resolve_device(device)
+    L = cap_frac * np.asarray(p.entitlement)[:, None]
+    d_cap = np.maximum(np.asarray(p.usage) - L, 0.0)
+    D = torch.as_tensor(d_cap, dtype=f32, device=device)
+    return fleet_penalties(p, D).cpu().numpy()
+
+
+def _enter_tick(state: EngineState, shift: int, reset_mu: bool,
+                mu0: float) -> EngineState:
+    """Streaming-tick entry: roll the plan `shift` hours and restart the
+    mu schedule at the policy's mu0 (multipliers keep their prices)."""
+    if shift:
+        state = state.shifted(shift)
+    if reset_mu:
+        state = dataclasses.replace(state, mu=torch.full_like(state.mu, mu0))
+    return state
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetSolveResult:
+    """Uniform result of one fleet policy solve."""
+    D: np.ndarray
+    carbon_reduction_pct: float
+    total_penalty_pct: float
+    iters: int
+    preservation_violation: float
+    # Reusable engine carry for warm-started re-solves (rolling horizon).
+    state: EngineState | None = None
+    extras: dict = dataclasses.field(default_factory=dict)
+
+
+def _bounds(p: FleetProblem) -> tuple[Tensor, Tensor]:
+    """Box bounds: curtail ≤ min(frac·E, U); batch may boost to U−d ≤ E.
+    An operational `p.upper` cap tightens the curtail side further."""
+    usage = torch.as_tensor(p.usage, dtype=f32)
+    E = torch.as_tensor(p.entitlement, dtype=f32, device=usage.device)[:, None]
+    hi = torch.minimum(p.max_curtail_frac * E, usage)
+    if p.upper is not None:
+        hi = torch.minimum(hi, torch.as_tensor(p.upper, dtype=f32,
+                                               device=usage.device))
+    isb = torch.as_tensor(p.is_batch, dtype=torch.bool, device=usage.device)
+    lo = torch.where(isb[:, None], -(E - usage), torch.zeros_like(usage))
+    return lo, hi
+
+
+def _day_shift(Y: Tensor, L: Tensor, H: Tensor) -> Tensor:
+    """The shift τ, (..., 1), with Σ clip(Y − τ, L, H) = 0 along the last
+    axis. The sum falls piecewise-linearly in τ: past a kink Y − H an hour
+    leaves its upper bound, past Y − L it reaches its lower one, and in
+    between the sum falls by the number of free hours per unit of τ. The
+    sorted kinks give the segment where the sum crosses zero; τ is then
+    solved on that segment's free hours. A day whose bounds cannot sum to
+    zero ends with every hour at its upper or every hour at its lower
+    bound (the clip then saturates whatever τ is)."""
+    n = Y.shape[-1]
+    B, idx = torch.sort(torch.cat([Y - H, Y - L], dim=-1), dim=-1)
+    n_free = torch.cumsum(torch.where(idx < n, 1, -1), dim=-1)
+    drop = torch.cumsum(n_free[..., :-1] * torch.diff(B, dim=-1), dim=-1)
+    G = H.sum(-1, keepdim=True) - torch.cat(
+        [torch.zeros_like(drop[..., :1]), drop], dim=-1)
+    k = ((G >= 0).sum(-1, keepdim=True) - 1).clamp(0, 2 * n - 2)
+    mid = 0.5 * (B.gather(-1, k) + B.gather(-1, k + 1))
+    at_hi, at_lo = Y - H >= mid, Y - L <= mid
+    held = torch.where(at_hi, H, torch.where(at_lo, L, Y))
+    cnt = (~(at_hi | at_lo)).sum(-1, keepdim=True)
+    return torch.where(cnt > 0, held.sum(-1, keepdim=True)
+                       / cnt.clamp(min=1).to(Y.dtype), B.gather(-1, k))
+
+
+def project_days(x: Tensor, lo: Tensor, hi: Tensor, is_batch: Tensor,
+                 day_hours: int) -> Tensor:
+    """Euclidean projection onto the box ∩ {every whole day of a batch row
+    sums to 0}: clip(x − τ, lo, hi) with one shift τ per batch row and day
+    (`_day_shift`). RTS rows (`is_batch` (W,) false), and hours past the
+    last whole day, are only clipped; a horizon under a day is one day."""
+    W, T = x.shape
+    day_hours = min(day_hours, T)
+    n_days = T // day_hours
+    span = n_days * day_hours
+    y, L, H = (a[:, :span].reshape(W, n_days, day_hours)
+               for a in (x, lo, hi))
+    tau = torch.where(is_batch.reshape(W, 1, 1), _day_shift(y, L, H),
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    days = torch.clamp(y - tau, L, H).reshape(W, span)
+    return torch.cat([days, torch.clamp(x[:, span:], lo[:, span:],
+                                        hi[:, span:])], dim=1)
+
+
+def _projection(p: FleetProblem, lo: Tensor, hi: Tensor):
+    """The projection after every step (`project_days`). The JAX package
+    takes a box clip and 3 rounds of day-mean removal instead, which stops
+    short of the day sums where bounds are active."""
+    is_batch = torch.as_tensor(p.is_batch, dtype=torch.bool,
+                               device=lo.device)
+    return lambda D: project_days(D, lo, hi, is_batch, p.day_hours)
+
+
+def _report(p: FleetProblem, D: np.ndarray, pens: np.ndarray,
+            iters: int, state: EngineState | None = None,
+            extras: dict | None = None) -> FleetSolveResult:
+    """Carbon reduction, penalty and preservation of a plan, in float64
+    numpy on the host (single-region problems)."""
+    mci = np.asarray(p.mci)
+    carbon_base = float((np.asarray(p.usage).sum(0) * mci).sum())
+    car = float((D @ mci).sum())
+    n_days = max(1, p.T // p.day_hours)
+    span = n_days * p.day_hours
+    sums = D[:, :span].reshape(p.W, n_days, p.day_hours).sum(-1)
+    is_batch = np.asarray(p.is_batch)
+    viol = float(np.abs(sums[is_batch]).max()) if is_batch.any() else 0.0
+    return FleetSolveResult(
+        D=D, carbon_reduction_pct=100 * car / carbon_base,
+        total_penalty_pct=100 * float(pens.sum())
+        / float(np.asarray(p.entitlement).sum()),
+        iters=iters, preservation_violation=viol, state=state,
+        extras=extras or {})

@@ -1,0 +1,85 @@
+"""Launcher of the hand-written Hopper kernel `csrc/al_step.cu`.
+
+Replaces the Pallas TPU kernel `_al_step_kernel`
+(`src/repro/kernels/al_step/kernel.py:41`): `k_steps` fused projected-
+Adam steps of the CR1/CR2 augmented Lagrangian, with x and the Adam
+moments held in registers between steps (hinge ties and the exact day
+projection as in `ref.al_step_ref`). One warp holds one row, so
+there is no padding copy. `scal` stays on the device and the kernel reads
+it, so mu and t0 never sync the host. `al_step_cuda.launches` counts the
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.al_step.ref import MODES
+
+_MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.cache
+def _launch_fn():
+    lib = build.load("al_step")
+    fn = lib.al_step_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([p] * 9 + [i] + [p] * 4 + [i] * 5 + [f] * 5 + [i, p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def al_step_cuda(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, *,
+                 mode: str, k_steps: int, beta1: float = 0.9,
+                 beta2: float = 0.999, eps: float = 1e-8,
+                 day_hours: int = 24):
+    """`k_steps` fused AL inner steps on CUDA tensors; returns new
+    (x, m, v). Same arguments and semantics as `ref.al_step_ref`."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be cr1|cr2, got {mode!r}")
+    if x.device.type != "cuda":
+        raise ValueError(f"al_step_cuda needs CUDA tensors; got {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (W, T); got shape {tuple(x.shape)}")
+    W, T = x.shape
+    build.check_hours(T)
+    if m.dtype not in _MOMENT_DTYPES or v.dtype != m.dtype:
+        raise ValueError(f"moments must both be float32 or bfloat16; got "
+                         f"{m.dtype}, {v.dtype}")
+    if k_steps < 1 or day_hours < 1:
+        raise ValueError("k_steps and day_hours must be >= 1")
+    dev = x.device
+    for name, t in (("x", x), ("usage", usage), ("jobs", jobs), ("lo", lo),
+                    ("hi", hi)):
+        build.check_operand(name, t, torch.float32, (W, T), dev)
+    build.check_operand("m", m, m.dtype, (W, T), dev)
+    build.check_operand("v", v, m.dtype, (W, T), dev)
+    build.check_operand("rowp", rowp, torch.float32, (W, 12), dev)
+    cvec_rows = 1 if cvec.shape[0] == 1 else W
+    build.check_operand("cvec", cvec, torch.float32, (cvec_rows, T), dev)
+    cvec_stride = 0 if cvec_rows == 1 else T
+    build.check_operand("scal", scal, torch.float32, (1, 8), dev)
+    x_out = torch.empty_like(x)
+    m_out = torch.empty_like(m)
+    v_out = torch.empty_like(v)
+    if W == 0:
+        return x_out, m_out, v_out
+    lib, fn = _launch_fn()
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), m.data_ptr(), v.data_ptr(), usage.data_ptr(),
+                 jobs.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                 rowp.data_ptr(), cvec.data_ptr(), cvec_stride,
+                 scal.data_ptr(), x_out.data_ptr(), m_out.data_ptr(),
+                 v_out.data_ptr(), W, T, MODES.index(mode), k_steps,
+                 day_hours, beta1, beta2, 1.0 - beta1, 1.0 - beta2, eps,
+                 int(m.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "al_step")
+    al_step_cuda.launches += 1
+    return x_out, m_out, v_out
+
+
+al_step_cuda.launches = 0

@@ -1,0 +1,181 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device and skips without one; the file
+imports no JAX, so it runs on a machine with the card alone:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances and inputs as in `chip_smoke.py`: dr_features 2e-4 on random
+rows; al_step 1e-5 on the rows of the chip_smoke fleet, hinge-free
+(RTS-only) or hinge-stable.
+"""
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.al_step.kernel import al_step_cuda
+from repro_torch.kernels.al_step.ref import al_step_ref
+from repro_torch.kernels.dr_features.kernel import dr_features_cuda
+from repro_torch.kernels.dr_features.ops import dr_features
+from repro_torch.kernels.dr_features.ref import dr_features_ref
+
+T = 48
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _f32(a, dev):
+    return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def _feature_rows(W, seed, dev):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(0.0, 1.0, (W, T))
+    u = np.abs(rng.normal(2.0, 0.3, (W, T))) + 0.5
+    j = np.abs(rng.normal(1.0, 0.2, (W, T))) + 0.1
+    up_down = np.r_[np.full(T // 2, 0.7), np.full(T // 2, -0.9)]
+    d[:2] = np.stack([up_down, -up_down])[:W]
+    return [_f32(a, dev) for a in (d, u, j)]
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def fleets(tmp_path_factory):
+    """chip_smoke.py's fleets: the paper fleet at its reduced calibration,
+    cloned to W = 10,000 and to a W = 130 tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    from repro_torch.core.fleet_solver import synthetic_fleet
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    fleet = cached_paper_fleet(num_samples=32, num_jobs=1000, device="cuda",
+                               cache_dir=tmp_path_factory.mktemp("fleet"))
+    return {W: synthetic_fleet(W, hours=T, seed=s, templates=fleet)
+            for W, s in ((10_000, 0), (130, 1))}
+
+
+def _al_inputs(fleets, W, mode, seed, dev, **kw):
+    """The kernel-check inputs of chip_smoke.py, on the card."""
+    arrs = _load_chip_smoke().al_step_inputs(np, fleets[W], mode=mode,
+                                             seed=seed, **kw)
+    return [_f32(a, dev) for a in arrs]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("W", [1, 130, 10_000])
+def test_dr_features_kernel_matches_plain(dev, W):
+    d, u, j = _feature_rows(W, W, dev)
+    before = dr_features_cuda.launches
+    _close(dr_features(d, u, j), dr_features_ref(d, u, j), 2e-4)
+    assert dr_features_cuda.launches == before + 1
+
+
+def test_dr_features_kernel_rejects_long_rows(dev):
+    d = torch.zeros((4, 65), device=dev)
+    with pytest.raises(ValueError, match="T <= 64"):
+        dr_features_cuda(d, d, d)
+
+
+@pytest.mark.parametrize("T_", [20, 24, 64])
+def test_dr_features_kernel_other_horizons(dev, T_):
+    d, u, j = (a[:, :T_].contiguous() for a in _feature_rows(33, 3, dev))
+    _close(dr_features_cuda(d, u, j), dr_features_ref(d, u, j), 2e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k_steps", [1, 8])
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+@pytest.mark.parametrize("W", [130, 10_000])
+def test_al_step_kernel_matches_plain_rts(dev, fleets, W, mode, k_steps,
+                                         bf16):
+    args = _al_inputs(fleets, W, mode, seed=W + k_steps, dev=dev)
+    if bf16:
+        args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    kw = dict(mode=mode, k_steps=k_steps)
+    got, want = al_step_cuda(*args, **kw), al_step_ref(*args, **kw)
+    _close(got[0], want[0], 1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   rtol=2.0 ** -7 if bf16 else 1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_kernel_matches_plain_mixed(dev, fleets, mode, cold):
+    """One step from a hinge-stable point, or from the cold start x = 0
+    where every hinge ties exactly."""
+    args = _al_inputs(fleets, 10_000, mode, seed=3, dev=dev, rts_only=False,
+                      stable=True)
+    if cold:
+        args[0], args[1], args[2] = (torch.zeros_like(a) for a in args[:3])
+        args[9][0, 4] = 0.0
+    kw = dict(mode=mode, k_steps=1)
+    for g, w in zip(al_step_cuda(*args, **kw), al_step_ref(*args, **kw)):
+        _close(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_kernel_ill_conditioned_tiny_v(dev, fleets, mode):
+    """v drawn below m², as the JAX package's kernel tests draw it: m/√v
+    magnifies ulp-level gradient differences, so 1e-4 (one element of
+    480,000 once came 1.18e-5 apart on such inputs)."""
+    args = _al_inputs(fleets, 10_000, mode, seed=3, dev=dev, rts_only=False,
+                      stable=True, tiny_v=True)
+    kw = dict(mode=mode, k_steps=1)
+    for g, w in zip(al_step_cuda(*args, **kw), al_step_ref(*args, **kw)):
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_kernel_projection_at_bounds(dev, fleets, mode):
+    """Batch days with many hours at a bound: the kernel's day projection
+    against its plain version, and the days it leaves sum to zero."""
+    args = _al_inputs(fleets, 10_000, mode, seed=4, dev=dev, rts_only=False,
+                      at_bounds=True)
+    got = al_step_cuda(*args, mode=mode, k_steps=8)
+    for g, w in zip(got, al_step_ref(*args, mode=mode, k_steps=8)):
+        _close(g, w, 1e-5)
+    isb = args[7][:, 8] > 0.5
+    x, lo, hi = got[0], args[5], args[6]
+    assert ((x == lo) | (x == hi))[isb].float().mean() > 0.05
+    assert float(x[isb].reshape(-1, 2, 24).sum(-1).abs().max()) < 1e-3
+
+
+def test_al_step_kernel_per_row_cvec_and_other_horizons(dev, fleets):
+    args = _al_inputs(fleets, 130, "cr2", seed=5, dev=dev)
+    args[8] = torch.randn((130, T), device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+    for g, w in zip(al_step_cuda(*args, mode="cr2", k_steps=4),
+                    al_step_ref(*args, mode="cr2", k_steps=4)):
+        _close(g, w, 1e-5)
+    for T_, dh in ((20, 24), (24, 24), (30, 10), (48, 16)):
+        a = [t[:, :T_].contiguous() if t.dim() == 2 and t.shape[1] == T
+             else t for t in _al_inputs(fleets, 130, "cr1", seed=T_,
+                                        dev=dev, rts_only=False,
+                                        stable=True)]
+        kw = dict(mode="cr1", k_steps=1, day_hours=dh)
+        for g, w in zip(al_step_cuda(*a, **kw), al_step_ref(*a, **kw)):
+            _close(g, w, 1e-5)

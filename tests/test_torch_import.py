@@ -1,0 +1,121 @@
+"""The port stands alone: no module of `repro_torch`, and not
+`chip_smoke.py`, imports JAX or the JAX package; entry points want the
+card unless the caller asks for the CPU."""
+import ast
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.api import CR1, solve
+from repro_torch.core.fleet_solver import FleetProblem
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def _is_foreign(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_importing_every_port_module_loads_no_jax_or_reference():
+    mods = _port_modules()
+    assert "repro_torch.core.api" in mods
+    assert "repro_torch.kernels.al_step.kernel" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(repr(bad))\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_source_imports_jax_or_reference(path):
+    """Static check, so imports inside functions count too."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert [n for n in names if _is_foreign(n)] == []
+
+
+def _tiny_problem():
+    T = 48
+    return FleetProblem(
+        usage=np.full((2, T), 2.0), entitlement=np.array([3.0, 3.0]),
+        k=np.array([1.0, 1.0]), rts_coeffs=np.array([[6.3, -13.0, 51.6],
+                                                     [0.0, 0.0, 0.0]]),
+        betas=np.array([[0.0, 0.0, 0.0], [0.1, 0.02, 0.01]]),
+        x2_kind=np.zeros(2), jobs=np.ones((2, T)),
+        is_batch=np.array([False, True]), mci=np.linspace(300, 400, T))
+
+
+def test_solve_wants_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve(_tiny_problem(), CR1())
+
+
+@pytest.mark.parametrize("entry", ["cr2_reference_fleet", "fit_lasso_cv"])
+def test_other_entry_points_want_the_card_by_default(entry):
+    """Entry points below `solve` take the card too when no device is
+    named, and raise without one rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    from repro_torch.core.fleet_solver import cr2_reference_fleet
+    from repro_torch.core.lasso import fit_lasso_cv
+    rng = np.random.default_rng(0)
+    calls = {
+        "cr2_reference_fleet": lambda: cr2_reference_fleet(_tiny_problem(),
+                                                           0.78),
+        "fit_lasso_cv": lambda: fit_lasso_cv(rng.normal(size=(20, 3)),
+                                             rng.normal(size=20)),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_solve_on_cpu_when_asked():
+    from repro_torch.core.api import SolveContext
+    r = solve(_tiny_problem(), CR1(), ctx=SolveContext(device="cpu",
+                                                       steps=5))
+    assert r.D.shape == (2, 48) and np.isfinite(r.D).all()
+
+
+def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
+    """Alone in a directory, or on a machine without CUDA, chip_smoke.py
+    exits nonzero and prints no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    runs = [subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                           capture_output=True, text=True, timeout=300)]
+    if not torch.cuda.is_available():
+        runs.append(subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+            capture_output=True, text=True, timeout=300))
+    for r in runs:
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout

@@ -1,0 +1,278 @@
+"""The port's kernel modules against the JAX package's on the CPU.
+
+On the CPU the port's wrappers take their kernels' plain PyTorch versions;
+these are held against the JAX kernels (Pallas in interpret mode) and
+their oracles on the same numpy inputs. The CUDA kernels themselves are
+held against the plain versions on the card: by `chip_smoke.py` and by
+`tests/test_torch_cuda.py`.
+
+Tolerances: dr_features forward 2e-4 (rtol and atol; sums of ~50 terms
+in another order), its gradient 1e-4 (as the JAX package's own test),
+al_step 1e-5 (as `tests/test_al_step.py`), on hinge-free (RTS-only) or
+hinge-stable inputs, where the two formulations cannot flip an indicator.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import EngineConfig as JEngineConfig
+from repro.kernels.al_step import ops as jops
+from repro.kernels.al_step.ref import al_step_ref as j_al_step_ref
+from repro.kernels.dr_features.ops import dr_features as j_dr_features
+from repro.kernels.dr_features.ref import dr_features_ref as j_dr_ref
+from repro_torch.core.engine import EngineConfig
+from repro_torch.kernels import build
+from repro_torch.kernels.al_step import ops as tops
+from repro_torch.kernels.al_step.kernel import al_step_cuda
+from repro_torch.kernels.al_step.ref import al_step_ref
+from repro_torch.kernels.dr_features.kernel import dr_features_cuda
+from repro_torch.kernels.dr_features.ops import dr_features
+from repro_torch.kernels.dr_features.ref import dr_features_ref
+
+T = 48
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _np(a):
+    return np.asarray(a.detach().float() if isinstance(a, torch.Tensor)
+                      else jnp.asarray(a, jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# dr_features
+# ---------------------------------------------------------------------------
+def _feature_rows(W, seed, hinge_rows=True):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(0.0, 1.0, (W, T)).astype(np.float32)
+    d[np.abs(d) < 1e-3] += 0.01              # keep off measure-zero ties
+    u = (np.abs(rng.normal(2.0, 0.3, d.shape)) + 0.5).astype(np.float32)
+    j = (np.abs(rng.normal(1.0, 0.2, d.shape)) + 0.1).astype(np.float32)
+    if hinge_rows:
+        # Running sums cross zero mid-horizon, both ways, never on a tie.
+        up_down = np.r_[np.full(T // 2, 0.7), np.full(T // 2, -0.9)]
+        d[0], d[1] = up_down, -up_down
+        u[:2], j[:2] = 2.0, 1.5
+    return d, u, j
+
+
+@pytest.mark.parametrize("W", [6, 130])
+def test_dr_features_plain_matches_jax(W):
+    d, u, j = _feature_rows(W, seed=W)
+    ours = dr_features(_t(d), _t(u), _t(j))
+    assert ours.shape == (W, 4)
+    np.testing.assert_allclose(_np(dr_features_ref(_t(d), _t(u), _t(j))),
+                               _np(ours), rtol=0, atol=0)
+    for theirs in (j_dr_features(d, u, j, interpret=True),
+                   j_dr_ref(d, u, j)):
+        np.testing.assert_allclose(_np(ours), _np(theirs), rtol=2e-4,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("hinge_rows", [False, True])
+def test_dr_features_grad_matches_jax_vjp(hinge_rows):
+    """The autograd.Function's backward (torch ops, strict `>`) against
+    `jax.vjp` of the JAX package's custom-VJP `dr_features`."""
+    d, u, j = _feature_rows(6, seed=7, hinge_rows=hinge_rows)
+    ct = np.random.default_rng(1).normal(size=(6, 4)).astype(np.float32)
+    _, vjp = jax.vjp(lambda dd: j_dr_features(dd, u, j, interpret=True),
+                     jnp.asarray(d))
+    (want,) = vjp(jnp.asarray(ct))
+    dt = _t(d).requires_grad_(True)
+    (got,) = torch.autograd.grad(dr_features(dt, _t(u), _t(j)), dt, _t(ct))
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_dr_features_cuda_wrapper_refuses_cpu_tensors():
+    d, u, j = (_t(a) for a in _feature_rows(4, seed=0))
+    before = dr_features_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        dr_features_cuda(d, u, j)
+    assert dr_features_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# al_step
+# ---------------------------------------------------------------------------
+def _fleet_rows(W, seed, rts_only):
+    """Per-row penalty parameters of a random fleet: half batch rows
+    unless `rts_only` (hinge-free: the smooth cubic penalty only)."""
+    rng = np.random.default_rng(seed)
+    usage = np.abs(rng.normal(2.0, 0.5, (W, T))) + 0.5
+    E = usage.max(1) * 1.3
+    isb = np.zeros(W, bool) if rts_only else np.arange(W) % 2 == 1
+    rts = np.where(isb[:, None], 0.0, [[6.3, -13.0, 51.6]])
+    if rts_only:
+        rts[1::2] = [2e-4, 1.5e-3, 0.04]
+    betas = np.where(isb[:, None], [[0.3, 0.05, 0.02]], 0.0)
+    x2k = (np.arange(W) % 4 == 1).astype(float)
+    jobs = np.where(isb[:, None], np.abs(rng.normal(3.0, 1.0, (W, T))), 1.0)
+    k = rng.uniform(0.01, 0.05, W)
+    hi = np.minimum(0.5 * E[:, None], usage)
+    lo = np.where(isb[:, None], -(E[:, None] - usage), 0.0)
+    return dict(usage=usage, jobs=jobs, lo=lo, hi=hi, rts=rts, betas=betas,
+                k=k, x2k=x2k, isb=isb)
+
+
+def _al_inputs(W, mode, seed, rts_only=True, stable=False):
+    """(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal) as numpy f32, with
+    `rowp` packed by the JAX package's `pack_rows`."""
+    f = _fleet_rows(W, seed, rts_only)
+    rng = np.random.default_rng(seed + 100)
+    if stable:
+        x = np.clip(0.25 * f["usage"] + 0.01, f["lo"], f["hi"])
+    else:
+        x = np.clip(rng.normal(0.0, 0.3, f["lo"].shape), f["lo"], f["hi"])
+    m = rng.normal(0.0, 0.01, x.shape)
+    v = np.abs(rng.normal(0.0, 1e-4, x.shape))
+    refs = np.abs(rng.normal(1.0, 0.2, W)) if mode == "cr2" else None
+    row10 = np.asarray(jops.pack_rows(
+        jnp.asarray(f["rts"]), jnp.asarray(f["betas"]), jnp.asarray(f["k"]),
+        jnp.asarray(f["x2k"]), jnp.asarray(f["isb"]),
+        refs=None if refs is None else jnp.asarray(refs)))
+    lam = rng.normal(0.0, 0.5, (W, 1)) if mode == "cr2" else np.zeros((W, 1))
+    rowp = np.concatenate([row10, lam, np.ones((W, 1))], axis=1)
+    cvec = rng.normal(-0.5, 0.2, (1, T))
+    scal = np.array([[1.45, 10.0, 0.8, 0.02, 3.0, 0, 0, 0]])
+    return [np.asarray(a, np.float32) for a in
+            (x, m, v, f["usage"], f["jobs"], f["lo"], f["hi"], rowp, cvec,
+             scal)]
+
+
+def _compare(args, mode, k_steps, tol=1e-5, bf16=False):
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [_t(a) for a in args]
+    if bf16:
+        jargs[1], jargs[2] = (a.astype(jnp.bfloat16) for a in jargs[1:3])
+        targs[1], targs[2] = targs[1].bfloat16(), targs[2].bfloat16()
+    theirs = j_al_step_ref(*jargs, mode=mode, k_steps=k_steps)
+    ours = tops.al_step(*targs, mode=mode, k_steps=k_steps)
+    for o, r, name in zip(ours, theirs, "xmv"):
+        np.testing.assert_allclose(_np(o), np.asarray(r, np.float32),
+                                   rtol=tol, atol=tol, err_msg=name)
+    return ours
+
+
+def test_pack_rows_matches_jax():
+    f = _fleet_rows(9, seed=3, rts_only=False)
+    refs = np.linspace(0.5, 1.5, 9)
+    want = jops.pack_rows(*(jnp.asarray(f[n]) for n in
+                            ("rts", "betas", "k", "x2k", "isb")),
+                          refs=jnp.asarray(refs))
+    got = tops.pack_rows(*(torch.as_tensor(f[n]) for n in
+                           ("rts", "betas", "k", "x2k", "isb")),
+                         refs=torch.as_tensor(refs))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+@pytest.mark.parametrize("k_steps", [1, 4, 7])
+def test_al_step_rts_matches_jax(mode, k_steps):
+    """Hinge-free multi-step parity on the iterate and both moments."""
+    _compare(_al_inputs(12, mode, seed=k_steps), mode, k_steps)
+
+
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_batch_rows_single_step(mode):
+    """Mixed RTS + batch rows, one step from a hinge-stable point."""
+    _compare(_al_inputs(12, mode, seed=5, rts_only=False, stable=True), mode,
+             1)
+
+
+@pytest.mark.parametrize("W", [5, 130])
+def test_al_step_widths(W):
+    out = _compare(_al_inputs(W, "cr1", seed=0), "cr1", 2)
+    assert out[0].shape == (W, T)
+
+
+def test_al_step_bf16_moments():
+    """bf16 moments: both up-cast on load and round once on store."""
+    out = _compare(_al_inputs(8, "cr1", seed=3), "cr1", 4, bf16=True)
+    assert out[1].dtype == out[2].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_per_row_cvec(mode):
+    args = _al_inputs(8, mode, seed=9)
+    args[8] = np.random.default_rng(2).normal(
+        -0.5, 0.2, (8, T)).astype(np.float32)
+    _compare(args, mode, 3)
+
+
+def test_al_step_tie_convention_at_the_cold_start():
+    """At x = 0 every hinge sits on an exact tie. The port's al_step takes
+    autodiff's one half there, so its first step equals the generic
+    engine's: projected Adam on the autodiff gradient of the same
+    Lagrangian (CR1: coef0·Σpen + cvec·x)."""
+    args = [_t(a) for a in _al_inputs(10, "cr1", seed=4, rts_only=False)]
+    x, m, v, u, j, lo, hi, rowp, cvec, scal = args
+    x, m, v = torch.zeros_like(x), torch.zeros_like(m), torch.zeros_like(v)
+    scal[0, 4] = 0.0
+    ours = al_step_ref(x, m, v, u, j, lo, hi, rowp, cvec, scal, mode="cr1",
+                       k_steps=1)
+    from repro_torch.core.fleet_solver import (FleetProblem, _projection,
+                                               fleet_penalties)
+    isb = rowp[:, 8] > 0.5
+    p = FleetProblem(usage=u, entitlement=torch.ones(10), k=rowp[:, 6],
+                     rts_coeffs=rowp[:, 0:3], betas=rowp[:, 3:6],
+                     x2_kind=rowp[:, 7], jobs=j, is_batch=isb,
+                     mci=torch.zeros(T))
+    xg = x.clone().requires_grad_(True)
+    L = scal[0, 0] * fleet_penalties(p, xg, False).sum() + (cvec * xg).sum()
+    (g,) = torch.autograd.grad(L, xg)
+    assert (g != cvec).any()                 # the ties carry gradient
+    step = scal[0, 3] * g / (g.abs() + 1e-8)  # Adam's first step
+    want = _projection(p, lo, hi)(x - step)
+    np.testing.assert_allclose(_np(ours[0]), _np(want), rtol=1e-5, atol=1e-5)
+
+
+def test_al_step_rejects_bad_mode():
+    args = [_t(a) for a in _al_inputs(4, "cr1", seed=0)]
+    with pytest.raises(ValueError, match="cr1|cr2"):
+        al_step_ref(*args, mode="cr3", k_steps=1)
+    with pytest.raises(ValueError, match="cr1|cr2"):
+        al_step_cuda(*args, mode="cr3", k_steps=1)
+
+
+def test_al_step_cuda_wrapper_refuses_cpu_tensors_and_long_rows():
+    args = [_t(a) for a in _al_inputs(4, "cr1", seed=0)]
+    before = al_step_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        al_step_cuda(*args, mode="cr1", k_steps=1)
+    with pytest.raises(ValueError, match="T <= 64"):
+        build.check_hours(65)
+    assert al_step_cuda.launches == before
+
+
+@pytest.mark.parametrize("steps,k_steps", [(13, 5), (8, 8), (6, 16)])
+def test_fused_inner_chunking_matches_jax(steps, k_steps):
+    """`make_fused_inner` runs full chunks, then the remainder, carrying
+    t0: uneven splits, exact fits, and k_steps > inner_steps."""
+    f = _fleet_rows(8, seed=6, rts_only=True)
+    mci = np.linspace(250.0, 420.0, T)
+    cvec = (-0.01 * mci[None, :]).astype(np.float32)
+    jrow = jops.pack_rows(*(jnp.asarray(f[n]) for n in
+                            ("rts", "betas", "k", "x2k", "isb")))
+    jfi = jops.make_fused_inner(
+        *(jnp.asarray(f[n], jnp.float32) for n in ("usage", "jobs", "lo",
+                                                   "hi")),
+        jrow, jnp.asarray(cvec), mode="cr1",
+        cfg=JEngineConfig(inner_steps=steps, outer_steps=1), step_scale=1.0,
+        coef0=1.45, k_steps=k_steps, use_ref=True)
+    tfi = tops.make_fused_inner(
+        *(_t(f[n]) for n in ("usage", "jobs", "lo", "hi")),
+        tops.pack_rows(*(torch.as_tensor(f[n]) for n in
+                         ("rts", "betas", "k", "x2k", "isb"))),
+        _t(cvec), mode="cr1", cfg=EngineConfig(inner_steps=steps),
+        step_scale=1.0, coef0=1.45, k_steps=k_steps)
+    zl = np.zeros(0, np.float32)
+    want = jfi(jnp.zeros((8, T)), jnp.asarray(zl), jnp.asarray(zl),
+               jnp.asarray(10.0))
+    got = tfi(torch.zeros(8, T), _t(zl), _t(zl), torch.tensor(10.0))
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

@@ -10,13 +10,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    all at once) and print each kernel's ptxas report;
 3. calibrate the paper fleet and clone it to
    `synthetic_fleet(10_000, hours=48, seed=0)` (and a W = 130 tail fleet);
-4. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (W = 10,000, T = 48) and at W = 130 (a tail block),
-   and time both with CUDA events;
-5. the main path: solve CR1(1.45) and CR2(0.78) at their default steps
+4. hold each kernel against its plain PyTorch version on the card and
+   time both with CUDA events: the fleet kernels at the main path's
+   shapes (W = 10,000, T = 48) and at W = 130 (a tail block); rmsnorm at
+   stablelm-3b's prefill and decode rows; flash attention at its prefill
+   and at cases for causal/non-causal, GQA, tails, Dv != Dh and q_offset;
+5. the fleet path: solve CR1(1.45) and CR2(0.78) at their default steps
    through the kernels (launch counts reset just before and read just
    after), then with `use_kernel=False`, and compare;
-6. print the kernels' JSON line and, last, the device line.
+6. the serving path: stablelm-3b at full width (random weights from a
+   seeded generator on the card) serves 16 requests of 120-token prompts
+   and 16 new tokens at max_batch 8, then 4 (launch counts reset just
+   before and read just after), then its prefill logits through the
+   kernels are held against those through the plain versions;
+7. print the kernels' JSON line and, last, the device line.
 
 Imports nothing of the JAX package.
 """
@@ -36,8 +43,30 @@ W_MAIN, T_MAIN, W_TAIL = 10_000, 48, 130
 CAL_SAMPLES, CAL_JOBS = 32, 1000
 H100_BYTES_PER_S = 3.35e12   # HBM3, SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12  # bfloat16, tensor cores, dense
 PP_TOL = 0.05                # fused vs generic, percentage points
 PRESERVATION_TOL = 1e-3
+# The serving path: stablelm-3b, 16 requests at the two admission limits
+# of the power knob (examples/serve_rts.py).
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 16, 120, 16, 136
+SERVE_BATCHES = (8, 4)
+# Prefill logits through the kernels vs through the plain versions, in
+# bfloat16 over 32 layers of random weights: relative L2 error and the
+# share of positions whose top-1 token agrees.
+LOGITS_REL_TOL, TOP1_MIN = 0.05, 0.9
+RMSNORM_ROWS = ((960, 2560), (8, 2560))    # prefill 8 x 120, decode 8
+# Flash-attention cases (B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset,
+# bfloat16); the first is stablelm-3b's prefill at max_batch 8.
+FA_CASES = (
+    (8, 120, 120, 32, 32, 80, 80, True, 0, True),
+    (2, 120, 120, 32, 32, 80, 80, False, 0, True),     # non-causal
+    (2, 200, 200, 8, 2, 64, 64, True, 0, True),        # GQA, tail
+    (1, 64, 256, 8, 1, 128, 128, False, 0, True),      # MQA cross, Dh 128
+    (2, 70, 70, 4, 2, 64, 32, True, 0, True),          # Dv != Dh
+    (1, 24, 80, 4, 2, 80, 80, True, 56, True),         # q_offset
+    (1, 17, 33, 2, 1, 32, 48, True, 16, False),        # float32, Dv > Dh
+    (1, 50, 50, 4, 2, 30, 30, True, 0, True),          # Dh = 30: scalar loads
+)
 
 
 def log(*a):
@@ -111,6 +140,23 @@ def al_step_inputs(np, p, *, mode, seed, rts_only=True, stable=False,
     return (x, m, v, usage, p.jobs, lo, hi, rowp, cvec, scal)
 
 
+def fa_inputs(torch, case, seed, dev):
+    B, Sq, Skv, H, KV, Dh, Dv, _, _, bf16 = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+                 for shape in ((B, Sq, H, Dh), (B, Skv, KV, Dh),
+                               (B, Skv, KV, Dv)))
+
+
+def fa_live_pairs(Sq, Skv, causal, q_offset):
+    """(query, key) pairs the causal mask leaves: the work this call's
+    data needs."""
+    if not causal:
+        return Sq * Skv
+    return sum(max(0, min(Skv, q_offset + i + 1)) for i in range(Sq))
+
+
 # ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
@@ -147,6 +193,15 @@ def plain_ms(torch, fn, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate for their type."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def al_step_ops(np, rowp, T, k_steps, mode):
@@ -217,10 +272,7 @@ def phase_dr_features(np, torch):
             nbytes = 3 * d.numel() * 4 + W * 4 * 4
             ops = 20 * d.numel()
     rec["max_abs_err"] = max(errs)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
-    rec["bound_ms"] = max(t_bytes, t_ops)
-    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, H100_F32_OPS_PER_S)
     log(f"[check] dr_features: max abs err {rec['max_abs_err']:.3e} "
         f"(rtol = atol = 2e-4) at W = {W_MAIN}, {W_TAIL}; kernel "
         f"{rec['ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} us, "
@@ -308,11 +360,8 @@ def phase_al_step(np, torch, fleets):
             torch, lambda: al_step_ref(*args, mode=mode, k_steps=8))
     rec["ms"], rec["plain_ms"] = rec["ms_cr2"], rec["plain_ms_cr2"]
     nbytes = 10 * W_MAIN * T_MAIN * 4 + W_MAIN * 12 * 4 + T_MAIN * 4 + 32
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = al_step_ops(np, arrs[7], T_MAIN, 8, "cr2") \
-        / H100_F32_OPS_PER_S * 1e3
-    rec["bound_ms"] = max(t_bytes, t_ops)
-    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes, al_step_ops(np, arrs[7], T_MAIN, 8, "cr2"), H100_F32_OPS_PER_S)
     log(f"[check] al_step: {n} cases, max abs err {rec['max_abs_err']:.3e} "
         f"(rtol = atol = 1e-5; bf16 moments {max(bf16_errs):.3e}, to one "
         f"bf16 ulp; tiny v {max(ill_errs):.3e} at 1e-4); k=8 at W = "
@@ -401,6 +450,197 @@ def phase_main_path(np, torch, p):
     return launches
 
 
+def phase_rmsnorm(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs, rec = [], {}
+    for N, d in RMSNORM_ROWS:
+        x = (1.5 * torch.randn((N, d), generator=gen, device=dev)).bfloat16()
+        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        got = rmsnorm_cuda(x, scale)
+        torch.cuda.synchronize()
+        # One bf16 ulp of the output: the f32 sums run in another order.
+        errs.append(check_close(torch, got, rmsnorm_ref(x, scale), 2.0 ** -7,
+                                1e-6, f"rmsnorm ({N}, {d})"))
+        if (N, d) == RMSNORM_ROWS[0]:
+            rec["ms"] = kernel_ms(torch, lambda: rmsnorm_cuda(x, scale),
+                                  reps=100)
+            rec["plain_ms"] = plain_ms(torch, lambda: rmsnorm_ref(x, scale))
+            # The fused library call wants the weight in x's dtype.
+            w = scale.bfloat16()
+            rec["library_ms"] = kernel_ms(
+                torch, lambda: F.rms_norm(x, (d,), w, 1e-6), reps=100)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                2 * x.numel() * 2 + d * 4, 4 * x.numel(), H100_F32_OPS_PER_S)
+    rec["max_abs_err"] = max(errs)
+    N, d = RMSNORM_ROWS[0]
+    log(f"[check] rmsnorm: max abs err {rec['max_abs_err']:.3e} (rtol 2^-7, "
+        f"one bf16 ulp) at {RMSNORM_ROWS} bf16; at ({N}, {d}): kernel "
+        f"{rec['ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} us, "
+        f"F.rms_norm {rec['library_ms'] * 1e3:.2f} us, bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+    return rec
+
+
+def phase_flash_attention(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev = torch.device("cuda")
+    errs, rec = [], {}
+    for n, case in enumerate(FA_CASES):
+        B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset, bf16 = case
+        q, k, v = fa_inputs(torch, case, seed=n, dev=dev)
+        got = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+        torch.cuda.synchronize()
+        # bf16: 2e-2 as the JAX package's kernel tests; f32: sums in
+        # another order.
+        tol = 2e-2 if bf16 else 1e-4
+        errs.append(check_close(
+            torch, got, attention_ref(q, k, v, causal=causal,
+                                      q_offset=q_offset),
+            tol, tol, f"flash_attention {case}"))
+        if n == 0:
+            rec["ms"] = kernel_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, causal=causal))
+            rec["plain_ms"] = plain_ms(
+                torch, lambda: attention_ref(q, k, v, causal=causal))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            rec["library_ms"] = kernel_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal))
+            pairs = B * H * fa_live_pairs(Sq, Skv, causal, q_offset)
+            nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * 2
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes, pairs * 2 * (Dh + Dv), H100_BF16_OPS_PER_S)
+    rec["max_abs_err"] = max(errs)
+    log(f"[check] flash_attention: {len(FA_CASES)} cases, max abs err "
+        f"{rec['max_abs_err']:.3e} (rtol = atol = 2e-2 bf16, 1e-4 f32); at "
+        f"{FA_CASES[0]}: kernel {rec['ms'] * 1e3:.2f} us, plain "
+        f"{rec['plain_ms'] * 1e3:.2f} us, SDPA {rec['library_ms'] * 1e3:.2f} "
+        f"us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, bf16 "
+        f"peak)")
+    return rec
+
+
+def phase_serve(np, torch):
+    """stablelm-3b at full width through `serve_requests`, the path a user
+    calls; the kernels' launch counts are reset just before and read just
+    after. Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("stablelm-3b")
+    t0 = time.perf_counter()
+    masters = tf.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(masters))
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; {n_params} parameters, f32 masters "
+        f"{n_params * 4 / 2**30:.2f} GiB + one {cfg.dtype} copy per batch, "
+        f"drawn in {time.perf_counter() - t0:.2f} s")
+    require(n_params == cfg.param_count(), "parameter count")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT),
+                           dtype=np.int64).astype(np.int32)
+    serve.greedy_decode(masters, cfg, prompts[:2, :8], 2, 10)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    rmsnorm_cuda.launches = 0
+    flash_attention_cuda.launches = 0
+    runs = {}
+    for mb in SERVE_BATCHES:
+        reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=SERVE_NEW)
+                for i in range(SERVE_REQUESTS)]
+        stats = serve.serve_requests(masters, cfg, reqs, max_batch=mb,
+                                     max_len=SERVE_MAX_LEN)
+        runs[mb] = (stats, reqs)
+    launches = {"rmsnorm": rmsnorm_cuda.launches,
+                "flash_attention": flash_attention_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    batches = sum(-(-SERVE_REQUESTS // mb) for mb in SERVE_BATCHES)
+    L = cfg.num_layers
+    want = {"rmsnorm": (2 * L + 1) * (1 + SERVE_PROMPT + SERVE_NEW - 1)
+            * batches, "flash_attention": L * batches}
+    log(f"[serve] launches on the serving path: {launches} (expected "
+        f"{want}: rmsnorm (2L+1) x (1 forward + {SERVE_PROMPT} replayed + "
+        f"{SERVE_NEW - 1} decode steps), flash_attention L per prefill, "
+        f"{batches} batches)")
+    require(launches == want, f"serving launches {launches} != {want}")
+    for mb, (stats, reqs) in runs.items():
+        for r in reqs:
+            require(len(r.tokens) == SERVE_NEW
+                    and all(0 <= t < cfg.vocab_size for t in r.tokens),
+                    f"request {r.rid} at max_batch {mb}: bad tokens")
+        require(bool(np.isfinite(stats.latencies_s).all()),
+                "latencies not finite")
+        log(f"[serve] max_batch {mb}: p50 {stats.p(50):.4f} s, p95 "
+            f"{stats.p(95):.4f} s, {stats.throughput_tok_s:.2f} tokens/s")
+    same = sum(a.tokens == b.tokens for a, b in
+               zip(*(runs[mb][1] for mb in SERVE_BATCHES)))
+    log(f"[serve] {same} of {SERVE_REQUESTS} requests give the same tokens "
+        f"at max_batch {SERVE_BATCHES[0]} and {SERVE_BATCHES[1]} (bf16 "
+        f"products depend on the batch: reported, not required); peak "
+        f"memory {peak / 2**30:.2f} GiB")
+
+    params = tf.compute_params(masters, cfg)
+    del masters
+    toks = torch.as_tensor(prompts[:SERVE_BATCHES[0]], dtype=torch.long,
+                           device="cuda")
+    kern = tf.forward(params, cfg, {"tokens": toks})
+    plain = tf.forward(params, cfg, {"tokens": toks}, use_kernel=False)
+    require(tuple(kern.shape) == (SERVE_BATCHES[0], SERVE_PROMPT,
+                                  cfg.vocab_size)
+            and bool(torch.isfinite(kern).all()),
+            "prefill logits not finite or of the wrong shape")
+    rel = float((kern - plain).norm() / plain.norm())
+    top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"[serve] prefill logits, kernel vs plain path: relative error "
+        f"{rel:.3e} (bound {LOGITS_REL_TOL}), top-1 agreement {top1:.4f} "
+        f"(bound {TOP1_MIN})")
+    require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
+            "prefill logits: kernel path too far from the plain path")
+
+    def wall_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    cache = tf.init_cache(cfg, SERVE_BATCHES[0], SERVE_MAX_LEN)
+    step = toks[:, :1]
+    pre = wall_ms(lambda: tf.forward(params, cfg, {"tokens": toks}))
+    dec = wall_ms(lambda: tf.decode_step(params, cfg, cache, step,
+                                         SERVE_PROMPT))
+    log(f"[serve] prefill of {SERVE_BATCHES[0]} x {SERVE_PROMPT} tokens "
+        f"{pre:.3f} ms; decode step at batch {SERVE_BATCHES[0]}, "
+        f"{SERVE_PROMPT} cached, {dec:.3f} ms (host clock, median of 5)")
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -415,13 +655,19 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     fleets = phase_fleet()
-    dr = phase_dr_features(np, torch)
-    al = phase_al_step(np, torch, fleets)
+    recs = {"dr_features": phase_dr_features(np, torch),
+            "al_step": phase_al_step(np, torch, fleets),
+            "rmsnorm": phase_rmsnorm(torch),
+            "flash_attention": phase_flash_attention(torch)}
     log("[check] kernels held against their plain versions on the card: "
-        "dr_features, al_step")
+        + ", ".join(recs))
     launches = phase_main_path(np, torch, fleets[0])
+    launches.update(phase_serve(np, torch))
     kernels = []
-    for name, rec, line in (("dr_features", dr, 26), ("al_step", al, 41)):
+    for name, line in (("dr_features", 26), ("al_step", 41), ("rmsnorm", 20),
+                       ("flash_attention", 28)):
+        rec = recs[name]
+        require(launches[name] > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -429,7 +675,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None})
+            "library_ms": rec.get("library_ms")})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,35 @@
+"""Registry of the ported architectures and the reduced CPU-test configs.
+
+`get_config(arch_id)` returns the full config; `reduced(cfg)` shrinks it
+as the JAX package's `repro.configs.reduced` does for a dense model.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.configs.base import ArchConfig  # noqa: F401
+
+_MODULES = {"stablelm-3b": "stablelm_3b"}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown or unported arch {arch_id!r}; ported: "
+                       f"{ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG
+
+
+def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
+            vocab: int = 256) -> ArchConfig:
+    """Same-family tiny config, with the JAX package's reduction rules:
+    2-4 heads, 1-2 kv heads, d_ff = 2·d_model, float32 throughout."""
+    heads = max(2, min(4, cfg.num_heads))
+    return dataclasses.replace(
+        cfg, num_layers=layers, d_model=d_model, num_heads=heads,
+        num_kv_heads=max(1, min(2, cfg.num_kv_heads)),
+        head_dim=d_model // heads, d_ff=d_model * 2, vocab_size=vocab,
+        dtype="float32", param_dtype="float32")

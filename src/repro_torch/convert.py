@@ -6,6 +6,11 @@ Typical use, with `p` a reference `FleetProblem`:
 
     fields = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
     problem = fleet_problem_from_arrays(**fields)
+
+and, with `tree` the reference's `transformer.init_params` output mapped
+through `np.asarray`:
+
+    params = transformer_params_from_arrays(tree, device="cpu")
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 from repro_torch.core.engine import EngineState
 from repro_torch.core.fleet_solver import DATA_FIELDS, FleetProblem
 from repro_torch.core.penalty import PenaltyModel
+from repro_torch.kernels.dispatch import resolve_device
 
 
 def fleet_problem_from_arrays(*, topology=None, **fields) -> FleetProblem:
@@ -52,3 +58,43 @@ def engine_state_from_arrays(x, lam_eq, lam_in, mu,
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     return EngineState(x=t(x), lam_eq=t(lam_eq), lam_in=t(lam_in), mu=t(mu))
+
+
+# The dense decoder's parameter tree (`repro.models.transformer`): the
+# keys each level may hold. Anything else (biases, qk-norm, MoE, SSM, MLA,
+# MTP) belongs to a path the port does not have yet.
+_PARAM_KEYS = {
+    "": {"embed", "blocks", "ln_f", "unembed"},   # untied embeddings
+    "embed": {"table"}, "unembed": {"table"}, "ln_f": {"scale"},
+    "blocks": {"l0"}, "l0": {"ln1", "attn", "ln2", "ffn"},
+    "ln1": {"scale"}, "ln2": {"scale"},
+    "attn": {"wq", "wk", "wv", "wo"},
+    "wq": {"w"}, "wk": {"w"}, "wv": {"w"}, "wo": {"w"},
+    "ffn": {"w_gate", "w_up", "w_down"},
+    "w_gate": {"w"}, "w_up": {"w"}, "w_down": {"w"},
+}
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes, which torch cannot read
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def transformer_params_from_arrays(tree: dict, device=None) -> dict:
+    """The port's parameters (same tree, same dtypes, on `device`, the
+    card by default) from the reference's dense `init_params` tree."""
+    dev = resolve_device(device)
+
+    def walk(node, name):
+        extra = set(node) - _PARAM_KEYS.get(name, set())
+        if extra:
+            raise NotImplementedError(
+                f"parameters {sorted(extra)} under {name or 'the root'!r} "
+                "belong to a model path the port does not have")
+        return {k: walk(v, k) if isinstance(v, dict) else _to_tensor(v, dev)
+                for k, v in node.items()}
+
+    return walk(tree, "")

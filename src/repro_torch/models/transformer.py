@@ -1,0 +1,147 @@
+"""Model assembly for the dense decoder LM: the dense path of
+`repro/models/transformer.py`.
+
+Parameters keep the reference's tree: every per-layer leaf is stacked on
+a leading layer axis under `blocks["l0"]` (the reference scans over it;
+the port loops over layers in Python and takes views). The KV cache is
+stacked the same way. Public entry points:
+
+  init_params(cfg, seed, device)                  -> param tree
+  compute_params(params, cfg)                     -> matrices in cfg.dtype
+  forward(params, cfg, batch)                     -> f32 logits
+  init_cache(cfg, batch, max_len, device)         -> decode cache tree
+  decode_step(params, cfg, cache, token, length)  -> (logits, cache)
+  prefill(params, cfg, tokens)                    -> f32 logits
+
+Entry points that make tensors run on the card unless the caller names
+another device; the others run where their inputs lie.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import common
+from repro_torch.models.common import dtype_of
+
+
+def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
+    """-> (mixer, ffn) for a layer index. The port has the dense family
+    only: every layer is GQA attention and a SwiGLU FFN."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    return "attn", "dense"
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer i's views of a stacked tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters in cfg.param_dtype, drawn from a generator seeded
+    with `seed` on `device` (the card by default; the `meta` device draws
+    nothing and gives the shapes alone)."""
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
+    pdtype = dtype_of(cfg.param_dtype)
+    L, d = cfg.num_layers, cfg.d_model
+    blocks = {"l0": {
+        "ln1": common.rmsnorm_init(d, pdtype, dev, (L,)),
+        "attn": attn.gqa_init(gen, cfg, pdtype, dev, (L,)),
+        "ln2": common.rmsnorm_init(d, pdtype, dev, (L,)),
+        "ffn": common.swiglu_init(gen, d, cfg.d_ff, pdtype, dev, (L,)),
+    }}
+    return {
+        "embed": common.embedding_init(gen, cfg.vocab_size, d, pdtype, dev),
+        "blocks": blocks,
+        "ln_f": common.rmsnorm_init(d, pdtype, dev),
+        "unembed": common.embedding_init(gen, cfg.vocab_size, d, pdtype, dev),
+    }
+
+
+def compute_params(params: dict, cfg: ArchConfig) -> dict:
+    """The tree with every matrix (linear weights, embedding tables) in
+    cfg.dtype and the norm scales as they are. The reference casts each
+    weight to the activation dtype at every use; casting once gives the
+    same numbers (the casts commute with the gathers and products) and
+    keeps the f32 masters out of every step."""
+    adtype = dtype_of(cfg.dtype)
+
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict)
+                else (v if k == "scale" else v.to(adtype))
+                for k, v in tree.items()}
+
+    return cast(params)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill without a cache)
+# ---------------------------------------------------------------------------
+def _apply_layer(p: dict, x, cfg: ArchConfig, positions, use_kernel):
+    h = common.rmsnorm(p["ln1"], x, use_kernel=use_kernel)
+    x = x + attn.gqa_attend(p["attn"], h, cfg, positions,
+                            use_kernel=use_kernel)
+    h = common.rmsnorm(p["ln2"], x, use_kernel=use_kernel)
+    return x + common.swiglu(p["ffn"], h)
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict,
+            use_kernel: bool | None = None) -> torch.Tensor:
+    """batch: {tokens (B, S)} -> f32 logits (B, S, V). `use_kernel=False`
+    takes the kernels' plain versions on the card."""
+    adtype = dtype_of(cfg.dtype)
+    x = common.embed(params["embed"], batch["tokens"], adtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for i in range(cfg.num_layers):
+        x = _apply_layer(_layer(params["blocks"]["l0"], i), x, cfg,
+                         positions, use_kernel)
+    x = common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
+    return common.lm_head(params["unembed"], x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / decode / prefill
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed (L, B, max_len, KV, Dh) k and v caches in cfg.dtype."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.dh)
+    adtype = dtype_of(cfg.dtype)
+    return {"l0": {"k": torch.zeros(shape, dtype=adtype, device=dev),
+                   "v": torch.zeros(shape, dtype=adtype, device=dev)}}
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict,
+                token: torch.Tensor, length: int,
+                ) -> tuple[torch.Tensor, dict]:
+    """token: (B, 1) int; `length` = tokens already cached. Returns
+    (f32 logits (B, 1, V), the cache with the token's k/v written in)."""
+    adtype = dtype_of(cfg.dtype)
+    x = common.embed(params["embed"], token, adtype)
+    blocks, layers = params["blocks"]["l0"], cache["l0"]
+    for i in range(cfg.num_layers):
+        p = _layer(blocks, i)
+        h = common.rmsnorm(p["ln1"], x)
+        h, _ = attn.gqa_decode(p["attn"], h, cfg, _layer(layers, i), length)
+        x = x + h
+        h = common.rmsnorm(p["ln2"], x)
+        x = x + common.swiglu(p["ffn"], h)
+    x = common.rmsnorm(params["ln_f"], x)
+    return common.lm_head(params["unembed"], x), cache
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+            ) -> torch.Tensor:
+    """Prefill logits (the cacheless scoring path, as the reference's)."""
+    return forward(params, cfg, {"tokens": tokens})

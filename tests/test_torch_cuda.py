@@ -6,7 +6,11 @@ imports no JAX, so it runs on a machine with the card alone:
 
 Tolerances and inputs as in `chip_smoke.py`: dr_features 2e-4 on random
 rows; al_step 1e-5 on the rows of the chip_smoke fleet, hinge-free
-(RTS-only) or hinge-stable.
+(RTS-only) or hinge-stable; rmsnorm one bf16 ulp of the output (rtol
+2^-7) and 1e-5 in float32; flash attention 2e-2 in bfloat16 (as the JAX
+package's kernel tests) and 1e-4 in float32; the reduced stablelm's
+bfloat16 logits through the kernels within 0.05 of those through the
+plain versions.
 """
 import importlib.util
 import pathlib
@@ -20,6 +24,10 @@ from repro_torch.kernels.al_step.ref import al_step_ref
 from repro_torch.kernels.dr_features.kernel import dr_features_cuda
 from repro_torch.kernels.dr_features.ops import dr_features
 from repro_torch.kernels.dr_features.ref import dr_features_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 T = 48
 pytestmark = pytest.mark.cuda
@@ -179,3 +187,91 @@ def test_al_step_kernel_per_row_cvec_and_other_horizons(dev, fleets):
         kw = dict(mode="cr1", k_steps=1, day_hours=dh)
         for g, w in zip(al_step_cuda(*a, **kw), al_step_ref(*a, **kw)):
             _close(g, w, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm and flash attention (the serving path)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N,d,bf16", [(960, 2560, True), (8, 2560, True),
+                                      (5, 100, True), (33, 128, False),
+                                      (3, 8192, False)])
+def test_rmsnorm_kernel_matches_plain(dev, N, d, bf16):
+    gen = torch.Generator(device=dev).manual_seed(N + d)
+    x = 1.5 * torch.randn((N, d), generator=gen, device=dev)
+    x = x.bfloat16() if bf16 else x
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    before = rmsnorm_cuda.launches
+    got = rmsnorm_cuda(x, scale)
+    assert rmsnorm_cuda.launches == before + 1
+    assert got.dtype == x.dtype
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), rmsnorm_ref(x, scale).float().cpu().numpy(),
+        rtol=2.0 ** -7 if bf16 else 1e-5, atol=1e-6 if bf16 else 1e-5)
+
+
+def test_rmsnorm_kernel_unaligned_rows_and_bad_operands(dev):
+    """A view 2 bytes off a 16-byte boundary takes the scalar loop."""
+    d = 256
+    flat = torch.randn(4 * d + 1, device=dev).bfloat16()
+    x = flat[1:].view(4, d)
+    scale = torch.rand(d, device=dev) + 0.5
+    np.testing.assert_allclose(
+        rmsnorm_cuda(x, scale).float().cpu().numpy(),
+        rmsnorm_ref(x, scale).float().cpu().numpy(), rtol=2.0 ** -7,
+        atol=1e-6)
+    with pytest.raises(ValueError, match="float32"):
+        rmsnorm_cuda(x, scale.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        rmsnorm_cuda(x, scale[:-1])
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_flash_attention_kernel_matches_plain(dev, case):
+    """chip_smoke.py's cases: causal and not, GQA and MQA, tails, Dv != Dh,
+    q_offset, float32, and a head width of no whole 16-byte vector."""
+    assert len(_load_chip_smoke().FA_CASES) == 8
+    c = _load_chip_smoke().FA_CASES[case]
+    causal, q_offset, bf16 = c[7], c[8], c[9]
+    q, k, v = _load_chip_smoke().fa_inputs(torch, c, seed=case, dev=dev)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    assert flash_attention_cuda.launches == before + 1
+    tol = 2e-2 if bf16 else 1e-4
+    _close(got, attention_ref(q, k, v, causal=causal, q_offset=q_offset),
+           tol)
+
+
+def test_flash_attention_kernel_rejects_bad_shapes(dev):
+    q = torch.zeros((1, 8, 4, 32), device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q, q[:, :, :3], q[:, :, :3].contiguous())
+    big = torch.zeros((1, 8, 1, 160), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_cuda(q, q.bfloat16(), q.bfloat16())
+
+
+def test_reduced_stablelm_kernel_path_matches_plain_path(dev):
+    """The whole serving path on the card at a reduced bf16 stablelm:
+    prefill logits through the kernels against the plain versions, and
+    the launches a greedy decode makes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(
+        reduced(get_config("stablelm-3b"), layers=2, d_model=160, vocab=512),
+        dtype="bfloat16")                       # 4 heads of Dh = 40
+    params = tf.compute_params(tf.init_params(cfg, seed=0, device=dev), cfg)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 512, (3, 70)),
+                           device=dev)
+    kern = tf.forward(params, cfg, {"tokens": toks})
+    plain = tf.forward(params, cfg, {"tokens": toks}, use_kernel=False)
+    _close(kern, plain, 0.05)
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    out = serve.greedy_decode(params, cfg, toks.cpu().numpy()[:, :9], 4, 13)
+    assert out.shape == (3, 4)
+    assert rmsnorm_cuda.launches - r0 == (2 * 2 + 1) * (1 + 9 + 3)
+    assert flash_attention_cuda.launches - f0 == 2

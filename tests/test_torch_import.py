@@ -31,8 +31,10 @@ def _is_foreign(name: str) -> bool:
 
 def test_importing_every_port_module_loads_no_jax_or_reference():
     mods = _port_modules()
-    assert "repro_torch.core.api" in mods
-    assert "repro_torch.kernels.al_step.kernel" in mods
+    for m in ("core.api", "kernels.al_step.kernel", "kernels.rmsnorm.ops",
+              "kernels.flash_attention.ops", "configs.stablelm_3b",
+              "models.transformer", "launch.serve"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -79,20 +81,30 @@ def test_solve_wants_the_card_by_default():
         solve(_tiny_problem(), CR1())
 
 
-@pytest.mark.parametrize("entry", ["cr2_reference_fleet", "fit_lasso_cv"])
+@pytest.mark.parametrize("entry", [
+    "cr2_reference_fleet", "fit_lasso_cv", "init_params", "init_cache",
+    "transformer_params_from_arrays"])
 def test_other_entry_points_want_the_card_by_default(entry):
-    """Entry points below `solve` take the card too when no device is
-    named, and raise without one rather than run on the CPU."""
+    """Entry points below `solve`, and the model's, take the card too when
+    no device is named, and raise without one rather than run on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is valid")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import transformer_params_from_arrays
     from repro_torch.core.fleet_solver import cr2_reference_fleet
     from repro_torch.core.lasso import fit_lasso_cv
+    from repro_torch.models import transformer as tf
     rng = np.random.default_rng(0)
+    cfg = reduced(get_config("stablelm-3b"))
     calls = {
         "cr2_reference_fleet": lambda: cr2_reference_fleet(_tiny_problem(),
                                                            0.78),
         "fit_lasso_cv": lambda: fit_lasso_cv(rng.normal(size=(20, 3)),
                                              rng.normal(size=20)),
+        "init_params": lambda: tf.init_params(cfg),
+        "init_cache": lambda: tf.init_cache(cfg, 2, 8),
+        "transformer_params_from_arrays": lambda: (
+            transformer_params_from_arrays({"ln_f": {"scale": np.ones(4)}})),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -9,7 +9,10 @@ held against the plain versions on the card: by `chip_smoke.py` and by
 Tolerances: dr_features forward 2e-4 (rtol and atol; sums of ~50 terms
 in another order), its gradient 1e-4 (as the JAX package's own test),
 al_step 1e-5 (as `tests/test_al_step.py`), on hinge-free (RTS-only) or
-hinge-stable inputs, where the two formulations cannot flip an indicator.
+hinge-stable inputs, where the two formulations cannot flip an indicator;
+rmsnorm and flash attention 1e-5 in float32 (sums in another order) and,
+in bfloat16, rmsnorm rtol 2^-7 (one bf16 ulp of the output) and flash
+attention 2e-2 (as `tests/test_kernels.py`).
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,13 @@ from repro.kernels.al_step import ops as jops
 from repro.kernels.al_step.ref import al_step_ref as j_al_step_ref
 from repro.kernels.dr_features.ops import dr_features as j_dr_features
 from repro.kernels.dr_features.ref import dr_features_ref as j_dr_ref
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ops import \
+    flash_attention as j_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+from repro.kernels.rmsnorm.ops import rmsnorm as j_rmsnorm
+from repro.kernels.rmsnorm.ref import rmsnorm_ref as j_rmsnorm_ref
+from repro.models.attention import flash_attention_jnp
 from repro_torch.core.engine import EngineConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.al_step import ops as tops
@@ -30,6 +40,12 @@ from repro_torch.kernels.al_step.ref import al_step_ref
 from repro_torch.kernels.dr_features.kernel import dr_features_cuda
 from repro_torch.kernels.dr_features.ops import dr_features
 from repro_torch.kernels.dr_features.ref import dr_features_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 T = 48
 
@@ -276,3 +292,121 @@ def test_fused_inner_chunking_matches_jax(steps, k_steps):
     got = tfi(torch.zeros(8, T), _t(zl), _t(zl), torch.tensor(10.0))
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+def _bf16_to_np(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor)
+                      else jnp.asarray(a, jnp.float32))
+
+
+def _to_jax(a, bf16):
+    return jnp.asarray(a, jnp.bfloat16 if bf16 else jnp.float32)
+
+
+def _to_torch(a, bf16):
+    t = torch.as_tensor(np.asarray(a, np.float32))
+    return t.bfloat16() if bf16 else t
+
+
+@pytest.mark.parametrize("shape,bf16", [
+    ((4, 37, 128), False),      # ragged rows
+    ((3, 2560), False),         # stablelm-3b's width
+    ((2, 7, 2560), True),
+    ((5, 100), True),           # a width that is no whole 16-byte vector
+    ((1, 1, 128), False),
+])
+def test_rmsnorm_plain_matches_jax(shape, bf16):
+    """Against the JAX oracle and the Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(len(shape) * 1000 + shape[-1])
+    x = rng.normal(0.0, 1.5, shape)
+    s = rng.normal(1.0, 0.1, shape[-1])
+    got = rms_ops.rmsnorm(_to_torch(x, bf16), torch.as_tensor(
+        s, dtype=torch.float32))
+    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert torch.equal(got, rmsnorm_ref(_to_torch(x, bf16), torch.as_tensor(
+        s, dtype=torch.float32)))
+    jx, js = _to_jax(x, bf16), jnp.asarray(s, jnp.float32)
+    tol = dict(rtol=2.0 ** -7, atol=1e-6) if bf16 else dict(rtol=1e-5,
+                                                            atol=1e-5)
+    for want in (j_rmsnorm_ref(jx, js), j_rmsnorm(jx, js)):
+        np.testing.assert_allclose(_bf16_to_np(got), _bf16_to_np(want),
+                                   **tol)
+
+
+def test_rmsnorm_cuda_wrapper_refuses_cpu_tensors():
+    x, s = torch.ones(4, 8), torch.ones(8)
+    before = rmsnorm_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(x, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        rms_ops.rmsnorm(x, s, use_kernel=True)
+    assert rmsnorm_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+FA_CASES = [
+    # (B, Sq, Skv, H, KV, Dh, Dv, causal, bf16, Pallas block)
+    (2, 120, 120, 4, 4, 80, 80, True, False, 64),    # stablelm: Dh 80, tail
+    (1, 120, 120, 4, 2, 80, 80, True, True, 64),     # GQA, bf16
+    (2, 64, 100, 4, 1, 32, 32, False, False, 32),    # MQA cross-attention
+    (1, 70, 70, 4, 2, 64, 32, True, False, 32),      # Dv != Dh
+]
+
+
+def _fa_inputs(case, seed):
+    B, Sq, Skv, H, KV, Dh, Dv, _, _, _ = case
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Sq, H, Dh)), rng.normal(size=(B, Skv, KV, Dh)),
+            rng.normal(size=(B, Skv, KV, Dv)))
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_plain_matches_jax(case):
+    """Against the JAX oracle and the Pallas kernel (interpret mode)."""
+    causal, bf16, blk = case[7], case[8], case[9]
+    q, k, v = _fa_inputs(case, seed=sum(case[:7]))
+    got = fa_ops.flash_attention(*(_to_torch(a, bf16) for a in (q, k, v)),
+                                 causal=causal)
+    assert got.shape == case[:2] + (case[3], case[6])
+    jq, jk, jv = (_to_jax(a, bf16) for a in (q, k, v))
+    tol = 2e-2 if bf16 else 1e-5
+    for want in (j_attention_ref(jq, jk, jv, causal=causal),
+                 j_flash_attention(jq, jk, jv, causal=causal, block_q=blk,
+                                   block_k=blk)):
+        np.testing.assert_allclose(_bf16_to_np(got), _bf16_to_np(want),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("q_offset", [0, 7, 50])
+def test_flash_attention_q_offset_matches_jax(q_offset):
+    """A query block at an offset against a longer key sequence: the JAX
+    model's chunked path and the Pallas kernel (interpret mode), which
+    take `q_offset` where the JAX oracle does not."""
+    case = (1, 24, 80, 4, 2, 80, 80, True, False, 32)
+    q, k, v = _fa_inputs(case, seed=q_offset)
+    got = fa_ops.flash_attention(*(_to_torch(a, False) for a in (q, k, v)),
+                                 causal=True, q_offset=q_offset)
+    jq, jk, jv = (jnp.asarray(a, jnp.float32) for a in (q, k, v))
+    chunked = flash_attention_jnp(jq, jk, jv, causal=True, chunk=32,
+                                  q_offset=q_offset)
+    pallas = flash_attention_pallas(
+        *(a.transpose(0, 2, 1, 3) for a in (jq, jk, jv)), causal=True,
+        block_q=32, block_k=32, q_offset=q_offset, interpret=True)
+    for want in (chunked, pallas.transpose(0, 2, 1, 3)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_attention_cuda_wrapper_refuses_cpu_tensors():
+    q = torch.ones(1, 8, 4, 16)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_ops.flash_attention(q, q, q, use_kernel=True)
+    assert flash_attention_cuda.launches == before

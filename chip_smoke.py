@@ -13,16 +13,21 @@ Phases, each of which raises on failure (the script then exits nonzero):
 4. hold each kernel against its plain PyTorch version on the card and
    time both with CUDA events: the fleet kernels at the main path's
    shapes (W = 10,000, T = 48) and at W = 130 (a tail block); rmsnorm at
-   stablelm-3b's prefill and decode rows; flash attention at its prefill
+   stablelm-3b's prefill and decode rows and mamba2-780m's prefill rows
+   (d 1536 and the gated norm's 3072); flash attention at its prefill
    and at cases for causal/non-causal, GQA, tails, Dv != Dh and q_offset;
+   ssd_scan at mamba2-780m's prefill, a long prefill, the JAX package's
+   test dims and two tail cases;
 5. the fleet path: solve CR1(1.45) and CR2(0.78) at their default steps
    through the kernels (launch counts reset just before and read just
    after), then with `use_kernel=False`, and compare;
-6. the serving path: stablelm-3b at full width (random weights from a
-   seeded generator on the card) serves 16 requests of 120-token prompts
-   and 16 new tokens at max_batch 8, then 4 (launch counts reset just
-   before and read just after), then its prefill logits through the
-   kernels are held against those through the plain versions;
+6. the serving paths, each at full width (random weights from a seeded
+   generator on the card), through `serve_requests` at max_batch 8, then
+   4 (launch counts reset just before and read just after each path),
+   then the prefill logits through the kernels are held against those
+   through the plain versions: stablelm-3b serves 16 requests of
+   120-token prompts, mamba2-780m 8 requests of 384-token prompts, each
+   with 16 new tokens;
 7. print the kernels' JSON line and, last, the device line.
 
 Imports nothing of the JAX package.
@@ -46,15 +51,31 @@ H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12  # bfloat16, tensor cores, dense
 PP_TOL = 0.05                # fused vs generic, percentage points
 PRESERVATION_TOL = 1e-3
-# The serving path: stablelm-3b, 16 requests at the two admission limits
-# of the power knob (examples/serve_rts.py).
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 16, 120, 16, 136
+# The serving paths, at the two admission limits of the power knob
+# (examples/serve_rts.py): (arch, requests, prompt tokens, new tokens,
+# max_len). mamba2-780m's prompts of 384 make each prefill's ssd_chunked
+# two chunks of 256 with a padded tail of 128.
+SERVE_PATHS = (("stablelm-3b", 16, 120, 16, 136),
+               ("mamba2-780m", 8, 384, 16, 400))
 SERVE_BATCHES = (8, 4)
 # Prefill logits through the kernels vs through the plain versions, in
-# bfloat16 over 32 layers of random weights: relative L2 error and the
-# share of positions whose top-1 token agrees.
+# bfloat16 over 32 or 48 layers of random weights: relative L2 error and
+# the share of positions whose top-1 token agrees.
 LOGITS_REL_TOL, TOP1_MIN = 0.05, 0.9
-RMSNORM_ROWS = ((960, 2560), (8, 2560))    # prefill 8 x 120, decode 8
+# stablelm-3b prefill 8 x 120 and decode 8; mamba2-780m prefill 8 x 384
+# at d 1536 (ln1, ln_f) and d_in 3072 (the gated norm).
+RMSNORM_ROWS = ((960, 2560), (8, 2560), (3072, 1536), (3072, 3072))
+# ssd_scan cases (B, NC, H, P, N); the first is mamba2-780m's prefill at
+# max_batch 8 (S 384 in chunks of 256), the second a long prefill (1 x
+# 8192), then the JAX package's test dims (tests/test_kernels.py), a
+# P·N of no whole float4 (the scalar kernel) and a partial last block.
+SSD_CASES = (
+    (8, 2, 48, 64, 128),
+    (1, 32, 48, 64, 128),
+    (2, 6, 4, 16, 32), (1, 12, 2, 8, 16), (3, 3, 8, 32, 64),
+    (2, 5, 3, 5, 7),
+    (1, 7, 3, 24, 43),
+)
 # Flash-attention cases (B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset,
 # bfloat16); the first is stablelm-3b's prefill at max_batch 8.
 FA_CASES = (
@@ -456,15 +477,23 @@ def phase_rmsnorm(torch):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs, rec = [], {}
+    errs, rec, other = [], {}, []
     for N, d in RMSNORM_ROWS:
         x = (1.5 * torch.randn((N, d), generator=gen, device=dev)).bfloat16()
         scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
         got = rmsnorm_cuda(x, scale)
         torch.cuda.synchronize()
-        # One bf16 ulp of the output: the f32 sums run in another order.
+        # One bf16 ulp of the output, as the JAX package's tests hold the
+        # oracle (kernel and plain version sum in f64 and round once, so
+        # they agree but for rare rows).
         errs.append(check_close(torch, got, rmsnorm_ref(x, scale), 2.0 ** -7,
                                 1e-6, f"rmsnorm ({N}, {d})"))
+        if N > 8 and (N, d) != RMSNORM_ROWS[0]:
+            ms = kernel_ms(torch, lambda: rmsnorm_cuda(x, scale), reps=100)
+            b_ms, _ = bound(2 * x.numel() * 2 + d * 4, 4 * x.numel(),
+                            H100_F32_OPS_PER_S)
+            other.append(f"({N}, {d}) kernel {ms * 1e3:.2f} us, bound "
+                         f"{b_ms * 1e3:.2f} us")
         if (N, d) == RMSNORM_ROWS[0]:
             rec["ms"] = kernel_ms(torch, lambda: rmsnorm_cuda(x, scale),
                                   reps=100)
@@ -481,7 +510,8 @@ def phase_rmsnorm(torch):
         f"one bf16 ulp) at {RMSNORM_ROWS} bf16; at ({N}, {d}): kernel "
         f"{rec['ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} us, "
         f"F.rms_norm {rec['library_ms'] * 1e3:.2f} us, bound "
-        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
+        + "; ".join(other))
     return rec
 
 
@@ -527,71 +557,123 @@ def phase_flash_attention(torch):
     return rec
 
 
-def phase_serve(np, torch):
-    """stablelm-3b at full width through `serve_requests`, the path a user
+def phase_ssd_scan(torch):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs, rec, timed = [], {}, []
+    for n, dims in enumerate(SSD_CASES):
+        states = torch.randn(dims, generator=gen, device=dev)
+        dec = torch.rand(dims[:3], generator=gen, device=dev)   # in (0, 1)
+        got = ssd_scan_cuda(states, dec)
+        torch.cuda.synchronize()
+        want = ssd_scan_ref(states, dec)
+        # 1e-5 as the JAX package's tests; the kernel rounds the product
+        # and the sum as the plain version does, so they agree exactly.
+        errs += [check_close(torch, g, w, 1e-5, 1e-5, f"ssd_scan {dims} {o}")
+                 for g, w, o in zip(got, want, ("h_prev", "h_last"))]
+        if n > 1:
+            continue
+        B, NC, H, P, N = dims
+        # Read states and decays once, write h_prev and h_last once; one
+        # multiply and one add per state element and chunk.
+        nbytes = 4 * (2 * states.numel() + dec.numel() + B * H * P * N)
+        b_ms, b_by = bound(nbytes, 2 * states.numel(), H100_F32_OPS_PER_S)
+        ms = kernel_ms(torch, lambda: ssd_scan_cuda(states, dec), reps=100)
+        pms = plain_ms(torch, lambda: ssd_scan_ref(states, dec))
+        timed.append(f"{dims}: kernel {ms * 1e3:.2f} us, plain "
+                     f"{pms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+                     f"({b_by}, {nbytes / 1e6:.1f} MB)")
+        if n == 0:
+            rec.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)      # no PyTorch call computes it
+    rec["max_abs_err"] = max(errs)
+    log(f"[check] ssd_scan: {len(SSD_CASES)} cases, max abs err "
+        f"{rec['max_abs_err']:.3e} (rtol = atol = 1e-5); " + "; ".join(timed))
+    return rec
+
+
+def expected_serve_launches(cfg, requests, prompt, new):
+    """Launches of each serving kernel at both admission limits: per batch
+    one forward and prompt + new - 1 decode steps, each with 2L + 1
+    RMSNorms (ln1 and ln2, or ln1 and the SSM's gated norm, per layer,
+    and ln_f); flash attention (dense) or ssd_scan (ssm) once per layer
+    of the forward."""
+    batches = sum(-(-requests // mb) for mb in SERVE_BATCHES)
+    L = cfg.num_layers
+    per_forward = L * batches
+    return {"rmsnorm": (2 * L + 1) * (1 + prompt + new - 1) * batches,
+            "flash_attention": per_forward if cfg.family == "dense" else 0,
+            "ssd_scan": per_forward if cfg.family == "ssm" else 0}
+
+
+def phase_serve(np, torch, arch, requests, prompt, new, max_len):
+    """One model at full width through `serve_requests`, the path a user
     calls; the kernels' launch counts are reset just before and read just
     after. Returns the counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
-    cfg = get_config("stablelm-3b")
+    wall0 = time.perf_counter()
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     masters = tf.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(masters))
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.num_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}; {n_params} parameters, f32 masters "
-        f"{n_params * 4 / 2**30:.2f} GiB + one {cfg.dtype} copy per batch, "
-        f"drawn in {time.perf_counter() - t0:.2f} s")
+    log(f"[serve] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}; {n_params} parameters, "
+        f"f32 masters {n_params * 4 / 2**30:.2f} GiB + one {cfg.dtype} copy "
+        f"per batch, drawn in {time.perf_counter() - t0:.2f} s")
     require(n_params == cfg.param_count(), "parameter count")
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT),
+    prompts = rng.integers(0, cfg.vocab_size, (requests, prompt),
                            dtype=np.int64).astype(np.int32)
     serve.greedy_decode(masters, cfg, prompts[:2, :8], 2, 10)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    rmsnorm_cuda.launches = 0
-    flash_attention_cuda.launches = 0
+    kernels = {"rmsnorm": rmsnorm_cuda,
+               "flash_attention": flash_attention_cuda,
+               "ssd_scan": ssd_scan_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
     runs = {}
     for mb in SERVE_BATCHES:
-        reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=SERVE_NEW)
-                for i in range(SERVE_REQUESTS)]
+        reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=new)
+                for i in range(requests)]
         stats = serve.serve_requests(masters, cfg, reqs, max_batch=mb,
-                                     max_len=SERVE_MAX_LEN)
+                                     max_len=max_len)
         runs[mb] = (stats, reqs)
-    launches = {"rmsnorm": rmsnorm_cuda.launches,
-                "flash_attention": flash_attention_cuda.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    batches = sum(-(-SERVE_REQUESTS // mb) for mb in SERVE_BATCHES)
-    L = cfg.num_layers
-    want = {"rmsnorm": (2 * L + 1) * (1 + SERVE_PROMPT + SERVE_NEW - 1)
-            * batches, "flash_attention": L * batches}
-    log(f"[serve] launches on the serving path: {launches} (expected "
-        f"{want}: rmsnorm (2L+1) x (1 forward + {SERVE_PROMPT} replayed + "
-        f"{SERVE_NEW - 1} decode steps), flash_attention L per prefill, "
-        f"{batches} batches)")
-    require(launches == want, f"serving launches {launches} != {want}")
+    want = expected_serve_launches(cfg, requests, prompt, new)
+    log(f"[serve] {arch}: launches on the serving path: {launches} "
+        f"(expected {want}: rmsnorm (2L+1) x (1 forward + {prompt} replayed "
+        f"+ {new - 1} decode steps), L flash_attention or ssd_scan per "
+        f"prefill, {sum(-(-requests // mb) for mb in SERVE_BATCHES)} "
+        f"batches)")
+    require(launches == want, f"{arch} serving launches {launches} != {want}")
     for mb, (stats, reqs) in runs.items():
         for r in reqs:
-            require(len(r.tokens) == SERVE_NEW
+            require(len(r.tokens) == new
                     and all(0 <= t < cfg.vocab_size for t in r.tokens),
-                    f"request {r.rid} at max_batch {mb}: bad tokens")
+                    f"{arch} request {r.rid} at max_batch {mb}: bad tokens")
         require(bool(np.isfinite(stats.latencies_s).all()),
                 "latencies not finite")
-        log(f"[serve] max_batch {mb}: p50 {stats.p(50):.4f} s, p95 "
+        log(f"[serve] {arch} max_batch {mb}: p50 {stats.p(50):.4f} s, p95 "
             f"{stats.p(95):.4f} s, {stats.throughput_tok_s:.2f} tokens/s")
     same = sum(a.tokens == b.tokens for a, b in
                zip(*(runs[mb][1] for mb in SERVE_BATCHES)))
-    log(f"[serve] {same} of {SERVE_REQUESTS} requests give the same tokens "
-        f"at max_batch {SERVE_BATCHES[0]} and {SERVE_BATCHES[1]} (bf16 "
-        f"products depend on the batch: reported, not required); peak "
-        f"memory {peak / 2**30:.2f} GiB")
+    log(f"[serve] {arch}: {same} of {requests} requests give the same "
+        f"tokens at max_batch {SERVE_BATCHES[0]} and {SERVE_BATCHES[1]} "
+        f"(bf16 products depend on the batch: reported, not required); "
+        f"peak memory {peak / 2**30:.2f} GiB")
 
     params = tf.compute_params(masters, cfg)
     del masters
@@ -599,17 +681,17 @@ def phase_serve(np, torch):
                            device="cuda")
     kern = tf.forward(params, cfg, {"tokens": toks})
     plain = tf.forward(params, cfg, {"tokens": toks}, use_kernel=False)
-    require(tuple(kern.shape) == (SERVE_BATCHES[0], SERVE_PROMPT,
-                                  cfg.vocab_size)
+    require(tuple(kern.shape) == (SERVE_BATCHES[0], prompt, cfg.vocab_size)
             and bool(torch.isfinite(kern).all()),
-            "prefill logits not finite or of the wrong shape")
+            f"{arch} prefill logits not finite or of the wrong shape")
     rel = float((kern - plain).norm() / plain.norm())
     top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-    log(f"[serve] prefill logits, kernel vs plain path: relative error "
-        f"{rel:.3e} (bound {LOGITS_REL_TOL}), top-1 agreement {top1:.4f} "
-        f"(bound {TOP1_MIN})")
+    log(f"[serve] {arch} prefill logits, kernel vs plain path: relative "
+        f"error {rel:.3e} (bound {LOGITS_REL_TOL}), top-1 agreement "
+        f"{top1:.4f} (bound {TOP1_MIN})")
     require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
-            "prefill logits: kernel path too far from the plain path")
+            f"{arch} prefill logits: kernel path too far from the plain path")
+    del kern, plain
 
     def wall_ms(fn, reps=5):
         fn()
@@ -622,14 +704,14 @@ def phase_serve(np, torch):
             times.append((time.perf_counter() - t) * 1e3)
         return statistics.median(times)
 
-    cache = tf.init_cache(cfg, SERVE_BATCHES[0], SERVE_MAX_LEN)
+    cache = tf.init_cache(cfg, SERVE_BATCHES[0], max_len)
     step = toks[:, :1]
     pre = wall_ms(lambda: tf.forward(params, cfg, {"tokens": toks}))
-    dec = wall_ms(lambda: tf.decode_step(params, cfg, cache, step,
-                                         SERVE_PROMPT))
-    log(f"[serve] prefill of {SERVE_BATCHES[0]} x {SERVE_PROMPT} tokens "
-        f"{pre:.3f} ms; decode step at batch {SERVE_BATCHES[0]}, "
-        f"{SERVE_PROMPT} cached, {dec:.3f} ms (host clock, median of 5)")
+    dec = wall_ms(lambda: tf.decode_step(params, cfg, cache, step, prompt))
+    log(f"[serve] {arch}: prefill of {SERVE_BATCHES[0]} x {prompt} tokens "
+        f"{pre:.3f} ms; decode step at batch {SERVE_BATCHES[0]}, {prompt} "
+        f"cached, {dec:.3f} ms (host clock, median of 5); phase wall "
+        f"{time.perf_counter() - wall0:.2f} s")
     return launches
 
 
@@ -652,20 +734,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    wall0 = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
     fleets = phase_fleet()
     recs = {"dr_features": phase_dr_features(np, torch),
             "al_step": phase_al_step(np, torch, fleets),
             "rmsnorm": phase_rmsnorm(torch),
-            "flash_attention": phase_flash_attention(torch)}
+            "flash_attention": phase_flash_attention(torch),
+            "ssd_scan": phase_ssd_scan(torch)}
     log("[check] kernels held against their plain versions on the card: "
         + ", ".join(recs))
     launches = phase_main_path(np, torch, fleets[0])
-    launches.update(phase_serve(np, torch))
+    for path in SERVE_PATHS:
+        for name, n in phase_serve(np, torch, *path).items():
+            launches[name] = launches.get(name, 0) + n
     kernels = []
     for name, line in (("dr_features", 26), ("al_step", 41), ("rmsnorm", 20),
-                       ("flash_attention", 28)):
+                       ("flash_attention", 28), ("ssd_scan", 24)):
         rec = recs[name]
         require(launches[name] > 0, f"{name} never launched on its path")
         kernels.append({
@@ -676,6 +762,7 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms")})
+    log(f"[done] chip_smoke wall {time.perf_counter() - wall0:.2f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving path goes on the card.
 
-    python3 scripts/port_serve_profile.py
+    python3 scripts/port_serve_profile.py [stablelm-3b|mamba2-780m]
 
-Draws stablelm-3b at full width (seeded random weights, as chip_smoke.py
-does), casts it to bfloat16 once, warms up, then runs under
-`torch.profiler` (CPU and CUDA activities) the two steps `greedy_decode`
-is made of, at chip_smoke.py's serving shapes: the prefill of 8 prompts
-of 120 tokens, and one decode step at batch 8 with 120 tokens cached.
+Draws the model (stablelm-3b by default) at full width (seeded random
+weights, as chip_smoke.py does), casts it to bfloat16 once, warms up,
+then runs under `torch.profiler` (CPU and CUDA activities) the two steps
+`greedy_decode` is made of, at chip_smoke.py's serving shapes: the
+prefill of 8 prompts (of 120 tokens for stablelm-3b, 384 for
+mamba2-780m), and one decode step at batch 8 with the prompt cached.
 For each it prints the wall time, the device-busy time (the union of the
 traced kernel and copy intervals), the device idle share 1 - busy / wall
 and the device time by kernel name, with the card's name and power limit.
@@ -24,7 +25,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "scripts"))
 
-BATCH, PROMPT, MAX_LEN = 8, 120, 136
+BATCH = 8
+# (prompt tokens, max_len) of chip_smoke.py's serving path for each model
+SHAPES = {"stablelm-3b": (120, 136), "mamba2-780m": (384, 400)}
 
 
 def main() -> int:
@@ -43,18 +46,20 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = get_config("stablelm-3b")
+    arch = sys.argv[1] if len(sys.argv) > 1 else "stablelm-3b"
+    prompt, max_len = SHAPES[arch]
+    cfg = get_config(arch)
     params = tf.compute_params(tf.init_params(cfg, seed=0, device="cuda"),
                                cfg)
     rng = np.random.default_rng(0)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)),
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, prompt)),
                            device="cuda")
-    cache = tf.init_cache(cfg, BATCH, MAX_LEN)
+    cache = tf.init_cache(cfg, BATCH, max_len)
     steps = {
-        f"prefill {BATCH} x {PROMPT}":
+        f"prefill {BATCH} x {prompt}":
             lambda: tf.forward(params, cfg, {"tokens": toks}),
-        f"decode step, batch {BATCH}, {PROMPT} cached":
-            lambda: tf.decode_step(params, cfg, cache, toks[:, :1], PROMPT),
+        f"decode step, batch {BATCH}, {prompt} cached":
+            lambda: tf.decode_step(params, cfg, cache, toks[:, :1], prompt),
     }
     for fn in steps.values():
         fn()

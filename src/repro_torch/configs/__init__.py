@@ -1,16 +1,17 @@
 """Registry of the ported architectures and the reduced CPU-test configs.
 
 `get_config(arch_id)` returns the full config; `reduced(cfg)` shrinks it
-as the JAX package's `repro.configs.reduced` does for a dense model.
+as the JAX package's `repro.configs.reduced` does for a dense or an SSM
+model.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ArchConfig  # noqa: F401
+from repro_torch.configs.base import ArchConfig, SSMConfig  # noqa: F401
 
-_MODULES = {"stablelm-3b": "stablelm_3b"}
+_MODULES = {"stablelm-3b": "stablelm_3b", "mamba2-780m": "mamba2_780m"}
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -26,10 +27,17 @@ def get_config(arch_id: str) -> ArchConfig:
 def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
             vocab: int = 256) -> ArchConfig:
     """Same-family tiny config, with the JAX package's reduction rules:
-    2-4 heads, 1-2 kv heads, d_ff = 2·d_model, float32 throughout."""
+    2-4 heads, 1-2 kv heads (0 for SSM), d_ff = 2·d_model (0 where the
+    model has no FFN), SSM d_state 16, head_dim 16 and chunk 8, float32
+    throughout."""
     heads = max(2, min(4, cfg.num_heads))
-    return dataclasses.replace(
-        cfg, num_layers=layers, d_model=d_model, num_heads=heads,
-        num_kv_heads=max(1, min(2, cfg.num_kv_heads)),
-        head_dim=d_model // heads, d_ff=d_model * 2, vocab_size=vocab,
-        dtype="float32", param_dtype="float32")
+    updates = dict(
+        num_layers=layers, d_model=d_model, num_heads=heads,
+        num_kv_heads=0 if cfg.family == "ssm"
+        else max(1, min(2, cfg.num_kv_heads)),
+        head_dim=d_model // heads, d_ff=0 if cfg.d_ff == 0 else d_model * 2,
+        vocab_size=vocab, dtype="float32", param_dtype="float32")
+    if cfg.ssm is not None:
+        updates["ssm"] = dataclasses.replace(cfg.ssm, d_state=16,
+                                             head_dim=16, chunk=8)
+    return dataclasses.replace(cfg, **updates)

@@ -60,18 +60,22 @@ def engine_state_from_arrays(x, lam_eq, lam_in, mu,
     return EngineState(x=t(x), lam_eq=t(lam_eq), lam_in=t(lam_in), mu=t(mu))
 
 
-# The dense decoder's parameter tree (`repro.models.transformer`): the
-# keys each level may hold. Anything else (biases, qk-norm, MoE, SSM, MLA,
+# The decoder's parameter tree (`repro.models.transformer`) on the ported
+# paths, dense and SSM: the keys each level may hold (`unembed` only where
+# the embeddings are untied). Anything else (biases, qk-norm, MoE, MLA,
 # MTP) belongs to a path the port does not have yet.
 _PARAM_KEYS = {
-    "": {"embed", "blocks", "ln_f", "unembed"},   # untied embeddings
+    "": {"embed", "blocks", "ln_f", "unembed"},
     "embed": {"table"}, "unembed": {"table"}, "ln_f": {"scale"},
-    "blocks": {"l0"}, "l0": {"ln1", "attn", "ln2", "ffn"},
+    "blocks": {"l0"}, "l0": {"ln1", "attn", "ln2", "ffn", "ssm"},
     "ln1": {"scale"}, "ln2": {"scale"},
     "attn": {"wq", "wk", "wv", "wo"},
     "wq": {"w"}, "wk": {"w"}, "wv": {"w"}, "wo": {"w"},
     "ffn": {"w_gate", "w_up", "w_down"},
     "w_gate": {"w"}, "w_up": {"w"}, "w_down": {"w"},
+    "ssm": {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
+            "out_proj"},
+    "in_proj": {"w"}, "out_proj": {"w"}, "norm": {"scale"},
 }
 
 
@@ -85,7 +89,8 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def transformer_params_from_arrays(tree: dict, device=None) -> dict:
     """The port's parameters (same tree, same dtypes, on `device`, the
-    card by default) from the reference's dense `init_params` tree."""
+    card by default) from the reference's dense or SSM `init_params`
+    tree."""
     dev = resolve_device(device)
 
     def walk(node, name):

@@ -3,8 +3,14 @@
 // Replaces the Pallas TPU kernel `_rmsnorm_kernel`
 // (src/repro/kernels/rmsnorm/kernel.py:20): for each row of x (N, d),
 //   y = (x * rsqrt(mean(x^2) + eps)) * scale
-// with x upcast to f32, the mean of squares accumulated in f32, and y cast
-// back to x's type. scale is (d,) f32 (the model's norm scales stay f32).
+// with x upcast to f32 and y cast back to x's type. scale is (d,) f32 (the
+// model's norm scales stay f32). The mean of squares is summed in f64 (each
+// f32 square is exact there; the sum's relative error is ~1e-13 at these
+// widths) and rounded to f32 once, so it does not depend on the order of
+// the sum: the kernel agrees with its plain version (kernels/rmsnorm/ref.py,
+// the same rule) bit for bit, whatever the width and the threads per row,
+// but where the exact mean lies within that error of an f32 rounding
+// boundary. The reference sums in f32; its mean differs by about an ulp.
 //
 // Bound: bytes. A row is read from device memory once and written once;
 // there are 4 operations per element, far below the card's balance point.
@@ -39,13 +45,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // Sum over the block; every thread gets the total.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+__device__ __forceinline__ double block_sum(double v, double* red) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = (blockDim.x + 31) >> 5;
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  v = lane < warps ? red[lane] : 0.f;
+  v = lane < warps ? red[lane] : 0.0;
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
@@ -54,13 +60,13 @@ template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                T* __restrict__ y, int d, float eps, int vectorised) {
-  __shared__ float red[32];
+  __shared__ double red[32];
   constexpr int V = 16 / sizeof(T);
   const size_t row = blockIdx.x;
   const T* xr = x + row * d;
   T* yr = y + row * d;
 
-  float ss = 0.f;
+  double ss = 0.0;
   if (vectorised) {
     const uint4* xv = reinterpret_cast<const uint4*>(xr);
     for (int i = threadIdx.x; i < d / V; i += blockDim.x) {
@@ -68,17 +74,18 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        const float f = to_f32(e[k]);
-        ss = fmaf(f, f, ss);
+        const double f = to_f32(e[k]);
+        ss = fma(f, f, ss);
       }
     }
   } else {
     for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float f = to_f32(xr[i]);
-      ss = fmaf(f, f, ss);
+      const double f = to_f32(xr[i]);
+      ss = fma(f, f, ss);
     }
   }
-  const float r = rsqrtf(block_sum(ss, red) / static_cast<float>(d) + eps);
+  const float var = static_cast<float>(block_sum(ss, red) / d);
+  const float r = rsqrtf(var + eps);
 
   if (vectorised) {
     const uint4* xv = reinterpret_cast<const uint4*>(xr);

@@ -23,7 +23,8 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-KERNELS = ("dr_features", "al_step", "rmsnorm", "flash_attention")
+KERNELS = ("dr_features", "al_step", "rmsnorm", "flash_attention",
+           "ssd_scan")
 MAX_HOURS = 64  # one warp per row, hours l and l + 32 on lane l
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

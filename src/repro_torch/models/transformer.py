@@ -1,10 +1,13 @@
-"""Model assembly for the dense decoder LM: the dense path of
+"""Model assembly for the decoder LMs: the dense and SSM paths of
 `repro/models/transformer.py`.
 
 Parameters keep the reference's tree: every per-layer leaf is stacked on
 a leading layer axis under `blocks["l0"]` (the reference scans over it;
-the port loops over layers in Python and takes views). The KV cache is
-stacked the same way. Public entry points:
+the port loops over layers in Python and takes views). The decode cache
+is stacked the same way: k/v for attention layers, the SSM state and
+conv tail for Mamba-2 layers. A model with tied embeddings has no
+`unembed` leaf and reads the logits off the input table. Public entry
+points:
 
   init_params(cfg, seed, device)                  -> param tree
   compute_params(params, cfg)                     -> matrices in cfg.dtype
@@ -23,15 +26,21 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, ssm
 from repro_torch.models.common import dtype_of
+
+# Leaves that keep their dtype in `compute_params`: the norm scales (the
+# kernels take them in f32) and the SSM's f32 parameters, which the
+# reference uses in f32 (`repro/models/ssm.py:160-162,196-197,205`).
+F32_LEAVES = frozenset({"scale", "A_log", "D", "dt_bias"})
 
 
 def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
-    """-> (mixer, ffn) for a layer index. The port has the dense family
-    only: every layer is GQA attention and a SwiGLU FFN."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    """-> (mixer, ffn) for a layer index: the dense family has GQA
+    attention and a SwiGLU FFN in every layer, the ssm family a Mamba-2
+    mixer and no FFN."""
+    if cfg.family == "ssm":
+        return "ssm", "none"
     return "attn", "dense"
 
 
@@ -53,31 +62,37 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
         torch.Generator(device=dev).manual_seed(seed)
     pdtype = dtype_of(cfg.param_dtype)
     L, d = cfg.num_layers, cfg.d_model
-    blocks = {"l0": {
-        "ln1": common.rmsnorm_init(d, pdtype, dev, (L,)),
-        "attn": attn.gqa_init(gen, cfg, pdtype, dev, (L,)),
-        "ln2": common.rmsnorm_init(d, pdtype, dev, (L,)),
-        "ffn": common.swiglu_init(gen, d, cfg.d_ff, pdtype, dev, (L,)),
-    }}
-    return {
-        "embed": common.embedding_init(gen, cfg.vocab_size, d, pdtype, dev),
-        "blocks": blocks,
-        "ln_f": common.rmsnorm_init(d, pdtype, dev),
-        "unembed": common.embedding_init(gen, cfg.vocab_size, d, pdtype, dev),
-    }
+    mixer, ffn = layer_kind(cfg, 0)
+    block = {"ln1": common.rmsnorm_init(d, pdtype, dev, (L,))}
+    if mixer == "attn":
+        block["attn"] = attn.gqa_init(gen, cfg, pdtype, dev, (L,))
+    else:
+        block["ssm"] = ssm.ssm_init(gen, cfg, pdtype, dev, (L,))
+    if ffn != "none":
+        block["ln2"] = common.rmsnorm_init(d, pdtype, dev, (L,))
+        block["ffn"] = common.swiglu_init(gen, d, cfg.d_ff, pdtype, dev,
+                                          (L,))
+    params = {"embed": common.embedding_init(gen, cfg.vocab_size, d, pdtype,
+                                             dev),
+              "blocks": {"l0": block},
+              "ln_f": common.rmsnorm_init(d, pdtype, dev)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = common.embedding_init(gen, cfg.vocab_size, d,
+                                                  pdtype, dev)
+    return params
 
 
 def compute_params(params: dict, cfg: ArchConfig) -> dict:
-    """The tree with every matrix (linear weights, embedding tables) in
-    cfg.dtype and the norm scales as they are. The reference casts each
-    weight to the activation dtype at every use; casting once gives the
-    same numbers (the casts commute with the gathers and products) and
-    keeps the f32 masters out of every step."""
+    """The tree with every matrix (linear weights, embedding tables, the
+    SSM's conv) in cfg.dtype and the `F32_LEAVES` as they are. The
+    reference casts each weight to the activation dtype at every use;
+    casting once gives the same numbers (the casts commute with the
+    gathers and products) and keeps the f32 masters out of every step."""
     adtype = dtype_of(cfg.dtype)
 
     def cast(tree):
         return {k: cast(v) if isinstance(v, dict)
-                else (v if k == "scale" else v.to(adtype))
+                else (v if k in F32_LEAVES else v.to(adtype))
                 for k, v in tree.items()}
 
     return cast(params)
@@ -86,10 +101,18 @@ def compute_params(params: dict, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 # Forward (prefill without a cache)
 # ---------------------------------------------------------------------------
-def _apply_layer(p: dict, x, cfg: ArchConfig, positions, use_kernel):
+def _apply_layer(p: dict, x, cfg: ArchConfig, layer: int, positions,
+                 use_kernel):
+    mixer, ffn = layer_kind(cfg, layer)
     h = common.rmsnorm(p["ln1"], x, use_kernel=use_kernel)
-    x = x + attn.gqa_attend(p["attn"], h, cfg, positions,
+    if mixer == "attn":
+        h = attn.gqa_attend(p["attn"], h, cfg, positions,
                             use_kernel=use_kernel)
+    else:
+        h = ssm.ssm_apply(p["ssm"], h, cfg, use_kernel=use_kernel)
+    x = x + h
+    if ffn == "none":
+        return x
     h = common.rmsnorm(p["ln2"], x, use_kernel=use_kernel)
     return x + common.swiglu(p["ffn"], h)
 
@@ -103,10 +126,10 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for i in range(cfg.num_layers):
-        x = _apply_layer(_layer(params["blocks"]["l0"], i), x, cfg,
+        x = _apply_layer(_layer(params["blocks"]["l0"], i), x, cfg, i,
                          positions, use_kernel)
     x = common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
-    return common.lm_head(params["unembed"], x)
+    return common.lm_head(params.get("unembed", params["embed"]), x)
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +137,15 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Zeroed (L, B, max_len, KV, Dh) k and v caches in cfg.dtype."""
+    """Zeroed caches stacked over the L layers: attention layers
+    (B, max_len, KV, Dh) k and v in cfg.dtype; SSM layers the f32 state
+    h (B, H, P, N) and the conv tail (B, K-1, conv_dim) in cfg.dtype."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.dh)
     adtype = dtype_of(cfg.dtype)
+    if layer_kind(cfg, 0)[0] == "ssm":
+        return {"l0": ssm.ssm_init_state(cfg, batch, adtype, dev,
+                                         (cfg.num_layers,))}
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.dh)
     return {"l0": {"k": torch.zeros(shape, dtype=adtype, device=dev),
                    "v": torch.zeros(shape, dtype=adtype, device=dev)}}
 
@@ -126,19 +154,32 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 token: torch.Tensor, length: int,
                 ) -> tuple[torch.Tensor, dict]:
     """token: (B, 1) int; `length` = tokens already cached. Returns
-    (f32 logits (B, 1, V), the cache with the token's k/v written in)."""
+    (f32 logits (B, 1, V), the cache with the token written in: its k/v,
+    or the SSM layers' new state)."""
     adtype = dtype_of(cfg.dtype)
     x = common.embed(params["embed"], token, adtype)
     blocks, layers = params["blocks"]["l0"], cache["l0"]
     for i in range(cfg.num_layers):
-        p = _layer(blocks, i)
-        h = common.rmsnorm(p["ln1"], x)
-        h, _ = attn.gqa_decode(p["attn"], h, cfg, _layer(layers, i), length)
-        x = x + h
-        h = common.rmsnorm(p["ln2"], x)
-        x = x + common.swiglu(p["ffn"], h)
+        x = _decode_layer(_layer(blocks, i), x, cfg, i, _layer(layers, i),
+                          length)
     x = common.rmsnorm(params["ln_f"], x)
-    return common.lm_head(params["unembed"], x), cache
+    return common.lm_head(params.get("unembed", params["embed"]), x), cache
+
+
+def _decode_layer(p: dict, x, cfg: ArchConfig, layer: int, cache: dict,
+                  length: int):
+    """One layer of a decode step; writes the layer's cache in place."""
+    mixer, ffn = layer_kind(cfg, layer)
+    h = common.rmsnorm(p["ln1"], x)
+    if mixer == "attn":
+        h, _ = attn.gqa_decode(p["attn"], h, cfg, cache, length)
+    else:
+        h, _ = ssm.ssm_decode(p["ssm"], h, cfg, cache)
+    x = x + h
+    if ffn == "none":
+        return x
+    h = common.rmsnorm(p["ln2"], x)
+    return x + common.swiglu(p["ffn"], h)
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

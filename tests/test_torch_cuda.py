@@ -8,9 +8,10 @@ Tolerances and inputs as in `chip_smoke.py`: dr_features 2e-4 on random
 rows; al_step 1e-5 on the rows of the chip_smoke fleet, hinge-free
 (RTS-only) or hinge-stable; rmsnorm one bf16 ulp of the output (rtol
 2^-7) and 1e-5 in float32; flash attention 2e-2 in bfloat16 (as the JAX
-package's kernel tests) and 1e-4 in float32; the reduced stablelm's
-bfloat16 logits through the kernels within 0.05 of those through the
-plain versions.
+package's kernel tests) and 1e-4 in float32; ssd_scan 1e-5 (as the JAX
+package's kernel tests); the reduced stablelm's and mamba2's bfloat16
+logits through the kernels within 0.05 of those through the plain
+versions.
 """
 import importlib.util
 import pathlib
@@ -28,6 +29,9 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 T = 48
 pytestmark = pytest.mark.cuda
@@ -194,7 +198,8 @@ def test_al_step_kernel_per_row_cvec_and_other_horizons(dev, fleets):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("N,d,bf16", [(960, 2560, True), (8, 2560, True),
                                       (5, 100, True), (33, 128, False),
-                                      (3, 8192, False)])
+                                      (3, 8192, False), (3072, 1536, True),
+                                      (3072, 3072, True)])
 def test_rmsnorm_kernel_matches_plain(dev, N, d, bf16):
     gen = torch.Generator(device=dev).manual_seed(N + d)
     x = 1.5 * torch.randn((N, d), generator=gen, device=dev)
@@ -275,3 +280,73 @@ def test_reduced_stablelm_kernel_path_matches_plain_path(dev):
     assert out.shape == (3, 4)
     assert rmsnorm_cuda.launches - r0 == (2 * 2 + 1) * (1 + 9 + 3)
     assert flash_attention_cuda.launches - f0 == 2
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan and the mamba2 serving path
+# ---------------------------------------------------------------------------
+def _scan_inputs(dims, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(dims, generator=gen, device=dev),
+            torch.rand(dims[:3], generator=gen, device=dev))
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_ssd_scan_kernel_matches_plain(dev, case):
+    """chip_smoke.py's cases: mamba2-780m's prefill, a long prefill, the
+    JAX package's test dims, a P·N of no whole float4, a partial block."""
+    assert len(_load_chip_smoke().SSD_CASES) == 7
+    dims = _load_chip_smoke().SSD_CASES[case]
+    states, dec = _scan_inputs(dims, case, dev)
+    before = ssd_scan_cuda.launches
+    got = ssd_ops.ssd_scan(states, dec)
+    assert ssd_scan_cuda.launches == before + 1
+    for g, w in zip(got, ssd_scan_ref(states, dec)):
+        assert g.dtype == torch.float32
+        _close(g, w, 1e-5)
+
+
+def test_ssd_scan_kernel_initial_state_unaligned_and_bad_operands(dev):
+    """An initial state; a states view 4 bytes off a 16-byte boundary (the
+    scalar kernel); operands the kernel refuses."""
+    dims = (2, 3, 4, 8, 16)
+    states, dec = _scan_inputs(dims, 9, dev)
+    h0 = torch.randn((2, 4, 8, 16), device=dev)
+    for g, w in zip(ssd_scan_cuda(states, dec, h0),
+                    ssd_scan_ref(states, dec, h0)):
+        _close(g, w, 1e-5)
+    flat = torch.randn(states.numel() + 1, device=dev)
+    off = flat[1:].view(dims)
+    for g, w in zip(ssd_scan_cuda(off, dec), ssd_scan_ref(off, dec)):
+        _close(g, w, 1e-5)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan_cuda(states.bfloat16(), dec)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_scan_cuda(states, dec[:, :2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_cuda(states.transpose(3, 4), dec)
+
+
+def test_reduced_mamba2_kernel_path_matches_plain_path(dev):
+    """The whole SSM serving path on the card at a reduced bf16 mamba2:
+    prefill logits through the kernels against the plain versions, and
+    the launches a greedy decode makes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(
+        reduced(get_config("mamba2-780m"), layers=2, d_model=128, vocab=512),
+        dtype="bfloat16")
+    params = tf.compute_params(tf.init_params(cfg, seed=0, device=dev), cfg)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 512, (3, 70)),
+                           device=dev)
+    kern = tf.forward(params, cfg, {"tokens": toks})
+    plain = tf.forward(params, cfg, {"tokens": toks}, use_kernel=False)
+    _close(kern, plain, 0.05)
+    r0, s0 = rmsnorm_cuda.launches, ssd_scan_cuda.launches
+    out = serve.greedy_decode(params, cfg, toks.cpu().numpy()[:, :20], 4, 24)
+    assert out.shape == (3, 4)
+    assert rmsnorm_cuda.launches - r0 == (2 * 2 + 1) * (1 + 20 + 3)
+    assert ssd_scan_cuda.launches - s0 == 2

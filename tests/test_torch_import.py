@@ -33,7 +33,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     mods = _port_modules()
     for m in ("core.api", "kernels.al_step.kernel", "kernels.rmsnorm.ops",
               "kernels.flash_attention.ops", "configs.stablelm_3b",
-              "models.transformer", "launch.serve"):
+              "models.transformer", "launch.serve", "configs.mamba2_780m",
+              "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
+              "kernels.ssd_scan.ref", "models.ssm"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -83,7 +85,7 @@ def test_solve_wants_the_card_by_default():
 
 @pytest.mark.parametrize("entry", [
     "cr2_reference_fleet", "fit_lasso_cv", "init_params", "init_cache",
-    "transformer_params_from_arrays"])
+    "transformer_params_from_arrays", "init_params_ssm", "init_cache_ssm"])
 def test_other_entry_points_want_the_card_by_default(entry):
     """Entry points below `solve`, and the model's, take the card too when
     no device is named, and raise without one rather than run on the CPU."""
@@ -96,6 +98,7 @@ def test_other_entry_points_want_the_card_by_default(entry):
     from repro_torch.models import transformer as tf
     rng = np.random.default_rng(0)
     cfg = reduced(get_config("stablelm-3b"))
+    ssm_cfg = reduced(get_config("mamba2-780m"))
     calls = {
         "cr2_reference_fleet": lambda: cr2_reference_fleet(_tiny_problem(),
                                                            0.78),
@@ -105,6 +108,8 @@ def test_other_entry_points_want_the_card_by_default(entry):
         "init_cache": lambda: tf.init_cache(cfg, 2, 8),
         "transformer_params_from_arrays": lambda: (
             transformer_params_from_arrays({"ln_f": {"scale": np.ones(4)}})),
+        "init_params_ssm": lambda: tf.init_params(ssm_cfg),
+        "init_cache_ssm": lambda: tf.init_cache(ssm_cfg, 2, 8),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

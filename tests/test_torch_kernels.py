@@ -12,7 +12,9 @@ al_step 1e-5 (as `tests/test_al_step.py`), on hinge-free (RTS-only) or
 hinge-stable inputs, where the two formulations cannot flip an indicator;
 rmsnorm and flash attention 1e-5 in float32 (sums in another order) and,
 in bfloat16, rmsnorm rtol 2^-7 (one bf16 ulp of the output) and flash
-attention 2e-2 (as `tests/test_kernels.py`).
+attention 2e-2 (as `tests/test_kernels.py`); ssd_scan 1e-5 (as
+`tests/test_kernels.py`; the same float32 products and sums in the same
+order).
 """
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,8 @@ from repro.kernels.flash_attention.ops import \
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.kernels.rmsnorm.ops import rmsnorm as j_rmsnorm
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as j_rmsnorm_ref
+from repro.kernels.ssd_scan.ops import ssd_scan as j_ssd_scan
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as j_ssd_scan_ref
 from repro.models.attention import flash_attention_jnp
 from repro_torch.core.engine import EngineConfig
 from repro_torch.kernels import build
@@ -46,6 +50,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 T = 48
 
@@ -410,3 +417,64 @@ def test_flash_attention_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention(q, q, q, use_kernel=True)
     assert flash_attention_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+def _scan_inputs(dims, seed):
+    B, NC, H, P, N = dims
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=dims).astype(np.float32),
+            (0.5 * np.abs(rng.normal(size=(B, NC, H)))).astype(np.float32))
+
+
+@pytest.mark.parametrize("dims", [
+    (2, 6, 4, 16, 32), (1, 12, 2, 8, 16), (3, 3, 8, 32, 64),  # test_kernels
+    (2, 1, 3, 16, 32),                                        # NC = 1
+    (2, 5, 3, 5, 7),                                          # odd (P, N)
+])
+def test_ssd_scan_plain_matches_jax(dims):
+    """Against the JAX oracle and the Pallas kernel (interpret mode)."""
+    states, dec = _scan_inputs(dims, seed=sum(dims))
+    got = ssd_ops.ssd_scan(_t(states), _t(dec))
+    assert got[0].shape == dims and got[1].shape == dims[:1] + dims[2:]
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, ssd_scan_ref(_t(states), _t(dec))))
+    for want in (j_ssd_scan_ref(jnp.asarray(states), jnp.asarray(dec)),
+                 j_ssd_scan(jnp.asarray(states), jnp.asarray(dec),
+                            interpret=True)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_ssd_scan_plain_initial_state_matches_jax():
+    """An initial state, which the JAX oracle takes (the Pallas kernel
+    starts from zeros); states in bfloat16 are taken in float32."""
+    states, dec = _scan_inputs((2, 4, 3, 8, 16), seed=1)
+    h0 = np.random.default_rng(2).normal(size=(2, 3, 8, 16)).astype(
+        np.float32)
+    got = ssd_ops.ssd_scan(_t(states), _t(dec), _t(h0))
+    want = j_ssd_scan_ref(jnp.asarray(states), jnp.asarray(dec),
+                          jnp.asarray(h0))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+    bf = torch.as_tensor(states).bfloat16()
+    got = ssd_ops.ssd_scan(bf, _t(dec))
+    want = j_ssd_scan_ref(jnp.asarray(states, jnp.bfloat16), jnp.asarray(dec))
+    assert got[0].dtype == got[1].dtype == torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_ssd_scan_cuda_wrapper_refuses_cpu_tensors():
+    states, dec = (_t(a) for a in _scan_inputs((1, 2, 2, 4, 4), seed=0))
+    before = ssd_scan_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(states, dec)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_ops.ssd_scan(states, dec, use_kernel=True)
+    assert ssd_scan_cuda.launches == before

@@ -7,15 +7,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
 1. the card's name and power limit, the torch and CUDA versions;
 2. build the CUDA kernels from `src/repro_torch/csrc/` (one nvcc each,
-   all at once) and print each kernel's ptxas report;
+   all at once), print each kernel's ptxas report, and check that the
+   flash-attention library's SASS holds tensor-core instructions (HMMA);
 3. calibrate the paper fleet and clone it to
    `synthetic_fleet(10_000, hours=48, seed=0)` (and a W = 130 tail fleet);
 4. hold each kernel against its plain PyTorch version on the card and
    time both with CUDA events: the fleet kernels at the main path's
    shapes (W = 10,000, T = 48) and at W = 130 (a tail block); rmsnorm at
-   stablelm-3b's prefill and decode rows and mamba2-780m's prefill rows
-   (d 1536 and the gated norm's 3072); flash attention at its prefill
-   and at cases for causal/non-causal, GQA, tails, Dv != Dh and q_offset;
+   stablelm-3b's and mamba2-780m's prefill and decode rows (d 2560; d
+   1536 and the gated norm's 3072); flash attention at its prefill, at a
+   1024-token prefill (16 kv blocks) and at cases for causal/non-causal,
+   GQA, tails, Dv != Dh and q_offset;
    ssd_scan at mamba2-780m's prefill, a long prefill, the JAX package's
    test dims and two tail cases;
 5. the fleet path: solve CR1(1.45) and CR2(0.78) at their default steps
@@ -36,6 +38,8 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -63,8 +67,10 @@ SERVE_BATCHES = (8, 4)
 # the share of positions whose top-1 token agrees.
 LOGITS_REL_TOL, TOP1_MIN = 0.05, 0.9
 # stablelm-3b prefill 8 x 120 and decode 8; mamba2-780m prefill 8 x 384
-# at d 1536 (ln1, ln_f) and d_in 3072 (the gated norm).
-RMSNORM_ROWS = ((960, 2560), (8, 2560), (3072, 1536), (3072, 3072))
+# at d 1536 (ln1, ln_f) and d_in 3072 (the gated norm), and its decode
+# rows at both widths.
+RMSNORM_ROWS = ((960, 2560), (8, 2560), (3072, 1536), (3072, 3072),
+                (8, 1536), (8, 3072))
 # ssd_scan cases (B, NC, H, P, N); the first is mamba2-780m's prefill at
 # max_batch 8 (S 384 in chunks of 256), the second a long prefill (1 x
 # 8192), then the JAX package's test dims (tests/test_kernels.py), a
@@ -87,7 +93,9 @@ FA_CASES = (
     (1, 24, 80, 4, 2, 80, 80, True, 56, True),         # q_offset
     (1, 17, 33, 2, 1, 32, 48, True, 16, False),        # float32, Dv > Dh
     (1, 50, 50, 4, 2, 30, 30, True, 0, True),          # Dh = 30: scalar loads
+    (1, 1024, 1024, 32, 32, 80, 80, True, 0, True),    # 16 kv blocks
 )
+FA_LONG = len(FA_CASES) - 1     # timed beside the serving shape
 
 
 def log(*a):
@@ -181,21 +189,24 @@ def fa_live_pairs(Sq, Skv, causal, q_offset):
 # ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
-def kernel_ms(torch, fn, reps=50):
-    """Median device time of one call, from CUDA events. A spin kernel
-    queued first keeps the host's launch overhead out of the window."""
+def kernel_ms(torch, fn, reps=50, inner=20):
+    """Median device time of one call, from CUDA events around `inner`
+    calls back to back. A spin kernel queued first keeps the host's launch
+    overhead out of the window; a window of one call would add the events'
+    own few microseconds to it."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(10_000_000)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -263,6 +274,17 @@ def phase_build():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # The bf16 flash attention's products run on the tensor cores (HMMA),
+    # its tiles come by ldmatrix (LDSM) and asynchronous copies (LDGSTS).
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = build.library_path("flash_attention")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HMMA", "LDSM", "LDGSTS")}
+    log(f"[build] flash_attention SASS ({lib.name}): {counts}")
+    require(counts["HMMA"] > 0, "flash_attention SASS holds no HMMA: its "
+            "products do not run on the tensor cores")
 
 
 def check_close(torch, got, want, rtol, atol, what):
@@ -488,12 +510,15 @@ def phase_rmsnorm(torch):
         # they agree but for rare rows).
         errs.append(check_close(torch, got, rmsnorm_ref(x, scale), 2.0 ** -7,
                                 1e-6, f"rmsnorm ({N}, {d})"))
-        if N > 8 and (N, d) != RMSNORM_ROWS[0]:
+        if (N, d) != RMSNORM_ROWS[0]:
             ms = kernel_ms(torch, lambda: rmsnorm_cuda(x, scale), reps=100)
+            w = scale.bfloat16()
+            lib_ms = kernel_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6),
+                               reps=100)
             b_ms, _ = bound(2 * x.numel() * 2 + d * 4, 4 * x.numel(),
                             H100_F32_OPS_PER_S)
-            other.append(f"({N}, {d}) kernel {ms * 1e3:.2f} us, bound "
-                         f"{b_ms * 1e3:.2f} us")
+            other.append(f"({N}, {d}) kernel {ms * 1e3:.2f} us, F.rms_norm "
+                         f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us")
         if (N, d) == RMSNORM_ROWS[0]:
             rec["ms"] = kernel_ms(torch, lambda: rmsnorm_cuda(x, scale),
                                   reps=100)
@@ -517,8 +542,8 @@ def phase_rmsnorm(torch):
 
 def phase_flash_attention(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        bf16_blocks_per_sm, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = torch.device("cuda")
     errs, rec = [], {}
@@ -534,19 +559,23 @@ def phase_flash_attention(torch):
             torch, got, attention_ref(q, k, v, causal=causal,
                                       q_offset=q_offset),
             tol, tol, f"flash_attention {case}"))
-        if n == 0:
-            rec["ms"] = kernel_ms(torch, lambda: flash_attention_cuda(
-                q, k, v, causal=causal))
-            rec["plain_ms"] = plain_ms(
-                torch, lambda: attention_ref(q, k, v, causal=causal))
+        if n in (0, FA_LONG):
+            timed = {"ms": kernel_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, causal=causal))}
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            rec["library_ms"] = kernel_ms(
+            timed["library_ms"] = kernel_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal))
             pairs = B * H * fa_live_pairs(Sq, Skv, causal, q_offset)
             nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * 2
-            rec["bound_ms"], rec["bound_by"] = bound(
+            timed["bound_ms"], timed["bound_by"] = bound(
                 nbytes, pairs * 2 * (Dh + Dv), H100_BF16_OPS_PER_S)
+            if n == 0:
+                rec.update(timed)
+                rec["plain_ms"] = plain_ms(
+                    torch, lambda: attention_ref(q, k, v, causal=causal))
+            else:
+                long_ = timed
     rec["max_abs_err"] = max(errs)
     log(f"[check] flash_attention: {len(FA_CASES)} cases, max abs err "
         f"{rec['max_abs_err']:.3e} (rtol = atol = 2e-2 bf16, 1e-4 f32); at "
@@ -554,6 +583,11 @@ def phase_flash_attention(torch):
         f"{rec['plain_ms'] * 1e3:.2f} us, SDPA {rec['library_ms'] * 1e3:.2f} "
         f"us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, bf16 "
         f"peak)")
+    log(f"[check] flash_attention at {FA_CASES[FA_LONG]}: kernel "
+        f"{long_['ms'] * 1e3:.2f} us, SDPA {long_['library_ms'] * 1e3:.2f} "
+        f"us, bound {long_['bound_ms'] * 1e3:.2f} us ({long_['bound_by']}); "
+        f"bf16 kernel blocks per SM at Dh 80: {bf16_blocks_per_sm(80, 80)} "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     return rec
 
 

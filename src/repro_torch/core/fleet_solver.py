@@ -307,9 +307,10 @@ def _report(p: FleetProblem, D: np.ndarray, pens: np.ndarray,
     mci = np.asarray(p.mci)
     carbon_base = float((np.asarray(p.usage).sum(0) * mci).sum())
     car = float((D @ mci).sum())
-    n_days = max(1, p.T // p.day_hours)
-    span = n_days * p.day_hours
-    sums = D[:, :span].reshape(p.W, n_days, p.day_hours).sum(-1)
+    day_hours = min(p.day_hours, p.T)  # as `project_days`
+    n_days = p.T // day_hours
+    span = n_days * day_hours
+    sums = D[:, :span].reshape(p.W, n_days, day_hours).sum(-1)
     is_batch = np.asarray(p.is_batch)
     viol = float(np.abs(sums[is_batch]).max()) if is_batch.any() else 0.0
     return FleetSolveResult(

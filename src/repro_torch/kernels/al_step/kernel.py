@@ -51,6 +51,7 @@ def al_step_cuda(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, *,
                          f"{m.dtype}, {v.dtype}")
     if k_steps < 1 or day_hours < 1:
         raise ValueError("k_steps and day_hours must be >= 1")
+    day_hours = min(day_hours, T)  # a horizon under a day is one day
     dev = x.device
     for name, t in (("x", x), ("usage", usage), ("jobs", jobs), ("lo", lo),
                     ("hi", hi)):

@@ -6,7 +6,8 @@ attention with an online softmax over kv blocks, causal masking against
 `q_offset` with the blocks above the diagonal skipped, GQA, `Dv != Dh`
 and masked tails. It reads the model's (B, S, heads, D) layout in place,
 so neither the transposes nor the padding copies of the TPU wrapper
-remain. `flash_attention_cuda.launches` counts the launches.
+remain. bfloat16 runs its products on the tensor cores, float32 on the
+CUDA cores. `flash_attention_cuda.launches` counts the launches.
 """
 from __future__ import annotations
 
@@ -30,6 +31,19 @@ def _launch_fn():
     fn.argtypes = [p] * 4 + [i] * 10 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def bf16_blocks_per_sm(Dh: int, Dv: int) -> int:
+    """Blocks of the bfloat16 kernel that share one SM at these head
+    widths, as the CUDA occupancy calculator reports it."""
+    lib, _ = _launch_fn()
+    fn = lib.flash_attention_bf16_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(Dh, Dv)
+    if n < 0:
+        build.check(lib, -n, "flash_attention occupancy")
+    return n
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel `_rmsnorm_kernel`
 (`src/repro/kernels/rmsnorm/kernel.py:20`). The kernel is bound by bytes
-(each row read and written once); one block holds one row, so there is no
+(each row read and written once, the scale once per block); a warp (or a
+group of warps, for wide rows) holds one row in registers, so there is no
 row tile to pad. `rmsnorm_cuda.launches` counts the launches.
 """
 from __future__ import annotations
@@ -15,6 +16,10 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)  # index = the C dtype code
+# A row lives in the registers of at most 8 warps, 16 load units a lane: a
+# unit is a 16-byte vector (8 bf16, 4 f32), or one element where the row is
+# no whole number of aligned vectors.
+MAX_UNITS = 8 * 32 * 16
 
 
 @functools.cache
@@ -47,6 +52,10 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     vec = 16 // x.element_size()
     vectorised = int(d % vec == 0 and x.data_ptr() % 16 == 0
                      and out.data_ptr() % 16 == 0)
+    if (d // vec if vectorised else d) > MAX_UNITS:
+        raise ValueError(f"rmsnorm_cuda takes rows of at most {MAX_UNITS} "
+                         f"load units ({MAX_UNITS * vec} {x.dtype} elements "
+                         f"when 16-byte aligned); got d = {d}")
     lib, fn = _launch_fn()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), N, d, eps,

@@ -193,6 +193,21 @@ def test_al_step_kernel_per_row_cvec_and_other_horizons(dev, fleets):
             _close(g, w, 1e-5)
 
 
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_kernel_horizon_shorter_than_a_day(dev, fleets, mode):
+    """T = 12 with day_hours = 24: kernel and plain version both project
+    the horizon as one 12-hour day, whose batch sums close."""
+    a = [t[:, :12].contiguous() if t.dim() == 2 and t.shape[1] == T else t
+         for t in _al_inputs(fleets, 130, mode, seed=12, dev=dev,
+                             rts_only=False, at_bounds=True)]
+    kw = dict(mode=mode, k_steps=8, day_hours=24)
+    got = al_step_cuda(*a, **kw)
+    for g, w in zip(got, al_step_ref(*a, **kw)):
+        _close(g, w, 1e-5)
+    isb = a[7][:, 8] > 0.5
+    assert float(got[0][isb].sum(-1).abs().max()) < 1e-3
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm and flash attention (the serving path)
 # ---------------------------------------------------------------------------
@@ -214,6 +229,46 @@ def test_rmsnorm_kernel_matches_plain(dev, N, d, bf16):
         rtol=2.0 ** -7 if bf16 else 1e-5, atol=1e-6 if bf16 else 1e-5)
 
 
+@pytest.mark.parametrize("N,d,bf16", [
+    (1001, 4096, True),     # one warp's 16 vectors a lane; N % 8 = 1
+    (1001, 4104, True),     # one vector more: two warps a row
+    (37, 8192, True),       # qwen1.5-110b's width
+    (5, 8192, False),
+    (1001, 2040, False),    # float32 at 16 vectors a lane, N % 8 = 1
+    (9, 3000, True),        # decode-sized, a width of no power of two
+    (3, 777, False),        # an odd width: rows and scale one at a time
+])
+def test_rmsnorm_kernel_both_sides_of_the_warp_limit(dev, N, d, bf16):
+    """Rows in one warp's registers and rows split over a group of warps,
+    with the last block of rows partly empty."""
+    gen = torch.Generator(device=dev).manual_seed(N * d)
+    x = 1.5 * torch.randn((N, d), generator=gen, device=dev)
+    x = x.bfloat16() if bf16 else x
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    np.testing.assert_allclose(
+        rmsnorm_cuda(x, scale).float().cpu().numpy(),
+        rmsnorm_ref(x, scale).float().cpu().numpy(),
+        rtol=2.0 ** -7 if bf16 else 1e-5, atol=1e-6 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("N,d", [(3072, 1536), (3072, 3072), (8, 1536),
+                                 (8, 3072)])
+def test_rmsnorm_kernel_bit_exact_at_mamba2_rows(dev, N, d):
+    """Kernel and plain version sum the squares in f64 and round once, so
+    they agree bit for bit (mamba2's logits check depends on it)."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = (1.5 * torch.randn((N, d), generator=gen, device=dev)).bfloat16()
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    got, want = rmsnorm_cuda(x, scale), rmsnorm_ref(x, scale)
+    assert float((got.float() - want.float()).abs().max()) == 0.0
+
+
+def test_rmsnorm_kernel_refuses_rows_wider_than_it_holds(dev):
+    with pytest.raises(ValueError, match="load units"):
+        rmsnorm_cuda(torch.zeros((2, 32776), device=dev).bfloat16(),
+                     torch.ones(32776, device=dev))
+
+
 def test_rmsnorm_kernel_unaligned_rows_and_bad_operands(dev):
     """A view 2 bytes off a 16-byte boundary takes the scalar loop."""
     d = 256
@@ -230,11 +285,12 @@ def test_rmsnorm_kernel_unaligned_rows_and_bad_operands(dev):
         rmsnorm_cuda(x, scale[:-1])
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(9))
 def test_flash_attention_kernel_matches_plain(dev, case):
     """chip_smoke.py's cases: causal and not, GQA and MQA, tails, Dv != Dh,
-    q_offset, float32, and a head width of no whole 16-byte vector."""
-    assert len(_load_chip_smoke().FA_CASES) == 8
+    q_offset, float32, a head width of no whole 16-byte vector, and a
+    1024-token prefill."""
+    assert len(_load_chip_smoke().FA_CASES) == 9
     c = _load_chip_smoke().FA_CASES[case]
     causal, q_offset, bf16 = c[7], c[8], c[9]
     q, k, v = _load_chip_smoke().fa_inputs(torch, c, seed=case, dev=dev)
@@ -244,6 +300,31 @@ def test_flash_attention_kernel_matches_plain(dev, case):
     tol = 2e-2 if bf16 else 1e-4
     _close(got, attention_ref(q, k, v, causal=causal, q_offset=q_offset),
            tol)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset, bfloat16)
+    (1, 1024, 1024, 4, 4, 80, 80, True, 0, True),    # 16 kv blocks
+    (1, 1024, 1024, 4, 2, 80, 80, False, 0, True),
+    (2, 130, 130, 4, 1, 30, 30, True, 0, True),      # Dh 30: scalar staging
+    (1, 200, 400, 2, 2, 30, 30, False, 0, True),
+    (2, 257, 257, 4, 2, 64, 64, True, 0, True),      # Dh 64, tails
+    (1, 200, 333, 4, 4, 128, 128, False, 0, True),   # Dh 128, tails
+    (1, 256, 256, 2, 1, 128, 64, True, 0, True),     # Dv < Dh
+    (1, 100, 300, 4, 2, 80, 80, True, 200, True),    # q_offset, tails
+    (2, 17, 150, 4, 4, 64, 64, True, 133, True),     # one decode-like block
+    (1, 300, 300, 2, 2, 80, 80, True, 0, False),     # float32, 5 kv blocks
+])
+def test_flash_attention_kernel_many_blocks_widths_tails(dev, case):
+    """The bf16 tensor-core kernel's double buffer (many kv blocks), its
+    head widths 30, 64, 80 and 128, ragged Sq and Skv, and q_offset."""
+    causal, q_offset, bf16 = case[7], case[8], case[9]
+    q, k, v = _load_chip_smoke().fa_inputs(torch, case, seed=sum(case[:7]),
+                                           dev=dev)
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.shape == case[:2] + (case[3], case[6]) and got.dtype == q.dtype
+    _close(got, attention_ref(q, k, v, causal=causal, q_offset=q_offset),
+           2e-2 if bf16 else 1e-4)
 
 
 def test_flash_attention_kernel_rejects_bad_shapes(dev):

@@ -324,6 +324,8 @@ def _to_torch(a, bf16):
     ((2, 7, 2560), True),
     ((5, 100), True),           # a width that is no whole 16-byte vector
     ((1, 1, 128), False),
+    ((2, 8192), True),          # qwen1.5-110b's width: rows over two warps
+    ((3, 777), False),          # an odd width
 ])
 def test_rmsnorm_plain_matches_jax(shape, bf16):
     """Against the JAX oracle and the Pallas kernel (interpret mode)."""
@@ -362,6 +364,7 @@ FA_CASES = [
     (1, 120, 120, 4, 2, 80, 80, True, True, 64),     # GQA, bf16
     (2, 64, 100, 4, 1, 32, 32, False, False, 32),    # MQA cross-attention
     (1, 70, 70, 4, 2, 64, 32, True, False, 32),      # Dv != Dh
+    (1, 320, 320, 2, 2, 80, 80, True, False, 64),    # 5 kv blocks, causal
 ]
 
 

@@ -146,3 +146,27 @@ def test_bf16_moments_solve(fleet16):
         moment_dtype="bfloat16", **ctx))
     assert abs(a.carbon_reduction_pct - b.carbon_reduction_pct) < 0.5
     assert b.state.x.dtype == torch.float32
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_horizon_shorter_than_a_day(fleet16, policy):
+    """The fleet's first 12 hours with `day_hours` 24: the projection, the
+    fused path (the kernel's plain version here) and the report all take
+    the horizon as one 12-hour day. The JAX package refuses such a horizon
+    in its projection, so the fused path is held to the generic engine at
+    the solution-level bound."""
+    p = fleet16[0]
+    short = dataclasses.replace(p, usage=np.asarray(p.usage)[:, :12],
+                                jobs=np.asarray(p.jobs)[:, :12],
+                                mci=np.asarray(p.mci)[:12])
+    tp = _carry(short)
+    assert (tp.T, tp.day_hours) == (12, 24)
+    _, tpol, steps = POLICIES[policy]
+    fused, generic = (tapi.solve(tp, tpol, ctx=tapi.SolveContext(
+        device="cpu", use_kernel=uk, steps=steps)) for uk in (True, False))
+    for r in (fused, generic):
+        assert r.D.shape == (16, 12) and np.isfinite(r.D).all()
+        assert r.preservation_violation < 1e-3
+    assert abs(fused.carbon_reduction_pct
+               - generic.carbon_reduction_pct) < PP
+    assert abs(fused.total_penalty_pct - generic.total_penalty_pct) < PP

@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
-"""Time the flash_attention and rmsnorm kernels of this tree against those
-of other source trees, on one CUDA card, in turns, and write the record.
+"""Time the kernels of this tree against those of other source trees, on
+one CUDA card, in turns, and write the record.
 
     mkdir -p build/parent
     git archive <commit> src/repro_torch/csrc | tar -x -C build/parent
-    python3 scripts/port_kernel_bench.py --tree before=build/parent \\
-        [--out var/BENCH_port_kernels.json]
+    python3 scripts/port_kernel_bench.py --kernels fleet \\
+        --tree before=build/parent [--out var/BENCH_port_fleet_kernels.json]
+    python3 scripts/port_kernel_bench.py --kernels serving \\
+        --tree before=build/parent [--out var/BENCH_port_kernels.json]
 
 Each `--tree LABEL=DIR` names a tree whose `src/repro_torch/csrc/` holds
-`flash_attention.cu` and `rmsnorm.cu` with this tree's C interface
-(`flash_attention_launch`, `rmsnorm_launch`); they are built with this
-tree's nvcc flags into `build/bench_<LABEL>/`. This tree's own kernels are
-the "after" tree. At every shape of the serving paths (chip_smoke.py's
-flash-attention serving shape and 1024-token case, and its rmsnorm rows)
-each tree's output is held against the plain version, and the trees are
-timed in turns (every tree, then every tree in reverse order) with
-chip_smoke.py's `kernel_ms`, beside the one PyTorch call that computes
-the same function and the bound. Needs a CUDA card; imports no JAX.
+the chosen kernels' sources with this tree's C interface
+(`al_step_launch` and `dr_features_launch` for `fleet`,
+`flash_attention_launch` and `rmsnorm_launch` for `serving`); they are
+built with this tree's nvcc flags into `build/bench_<LABEL>/`. This
+tree's own kernels are the "after" tree. Each tree's output is first
+held against the plain version, then the trees are timed in turns (every
+tree, then every tree in reverse order) with chip_smoke.py's `kernel_ms`,
+beside the bound and, where one exists, the one PyTorch call that
+computes the same function. Shapes:
+
+  fleet: al_step at chip_smoke.py's timing call (its W = 10,000 x 48
+    fleet rows, hinge-stable, k = 8, f32 moments) in CR1 and CR2 mode,
+    the same rows ordered by kind (batch rows after RTS rows: what a
+    permutation by kind would give), each kind alone (the batch rows
+    twice over; the rows recast as RTS rows), and the at-bounds inputs,
+    whose day projection fixes many hours; dr_features at W = 10,000 x
+    48.
+  serving: flash attention at chip_smoke.py's serving shape and its
+    1024-token case, rmsnorm at its rows.
+
+Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -35,12 +49,19 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def build_tree(label: str, tree: pathlib.Path) -> dict[str, ctypes.CDLL]:
+KERNEL_SETS = {"fleet": ("al_step", "dr_features"),
+               "serving": ("flash_attention", "rmsnorm")}
+DEFAULT_OUT = {"fleet": "var/BENCH_port_fleet_kernels.json",
+               "serving": "var/BENCH_port_kernels.json"}
+
+
+def build_tree(label: str, tree: pathlib.Path,
+               names) -> dict[str, ctypes.CDLL]:
     from repro_torch.kernels import build
     out = ROOT / "build" / f"bench_{label}"
     out.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, {}
-    for name in ("flash_attention", "rmsnorm"):
+    for name in names:
         lib = out / f"lib{name}.so"
         src = tree / "src" / "repro_torch" / "csrc" / f"{name}.cu"
         procs[name] = (subprocess.Popen(
@@ -50,8 +71,19 @@ def build_tree(label: str, tree: pathlib.Path) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {label}/{name}:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                cs.log(f"[bench] {label}/{name}: {line.strip()}")
         libs[name] = ctypes.CDLL(str(lib))
     return libs
+
+
+def checked(fn, name):
+    def call():
+        err = fn()
+        if err:
+            raise RuntimeError(f"{name} launch: cudaError_t {err}")
+    return call
 
 
 def fa_caller(torch, lib, q, k, v, causal):
@@ -65,13 +97,7 @@ def fa_caller(torch, lib, q, k, v, causal):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Skv, H, KV, Dh, Dv, 0, int(causal), 1, 1.0 / math.sqrt(Dh), 1,
             stream)
-
-    def call():
-        err = fn(*args)
-        if err:
-            raise RuntimeError(f"flash_attention launch: cudaError_t {err}")
-        return out
-    return call
+    return checked(lambda: fn(*args), "flash_attention"), out
 
 
 def rms_caller(torch, lib, x, scale):
@@ -82,13 +108,39 @@ def rms_caller(torch, lib, x, scale):
     stream = torch.cuda.current_stream().cuda_stream
     args = (x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
             x.shape[1], 1e-6, 1, 1, stream)
+    return checked(lambda: fn(*args), "rmsnorm"), out
 
-    def call():
-        err = fn(*args)
-        if err:
-            raise RuntimeError(f"rmsnorm launch: cudaError_t {err}")
-        return out
-    return call
+
+def al_step_caller(torch, lib, args, mode, k_steps):
+    """One tree's al_step on `args` (chip_smoke.al_step_inputs' order),
+    with the launcher's defaults (betas 0.9, 0.999, eps 1e-8, 24-hour
+    days)."""
+    from repro_torch.kernels.al_step.ref import MODES
+    fn = lib.al_step_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p] * 9 + [i] + [p] * 4 + [i] * 5 + [f] * 5 + [i, p]
+    x, m, v, usage, jobs, lo, hi, rowp, cvec, scal = args
+    W, T = x.shape
+    outs = (torch.empty_like(x), torch.empty_like(m), torch.empty_like(v))
+    stream = torch.cuda.current_stream().cuda_stream
+    cargs = (x.data_ptr(), m.data_ptr(), v.data_ptr(), usage.data_ptr(),
+             jobs.data_ptr(), lo.data_ptr(), hi.data_ptr(), rowp.data_ptr(),
+             cvec.data_ptr(), 0 if cvec.shape[0] == 1 else T,
+             scal.data_ptr(), *(o.data_ptr() for o in outs), W, T,
+             MODES.index(mode), k_steps, min(24, T), 0.9, 0.999, 0.1,
+             1.0 - 0.999, 1e-8, int(m.dtype == torch.bfloat16), stream)
+    return checked(lambda: fn(*cargs), "al_step"), outs
+
+
+def features_caller(torch, lib, d, u, j):
+    fn = lib.dr_features_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    out = torch.empty((d.shape[0], 4), dtype=torch.float32, device=d.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    cargs = (d.data_ptr(), u.data_ptr(), j.data_ptr(), out.data_ptr(),
+             d.shape[0], d.shape[1], stream)
+    return checked(lambda: fn(*cargs), "dr_features"), out
 
 
 def in_turns(torch, calls: dict, reps: int) -> dict[str, list[float]]:
@@ -99,45 +151,41 @@ def in_turns(torch, calls: dict, reps: int) -> dict[str, list[float]]:
     return times
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", action="append", default=[],
-                    metavar="LABEL=DIR", help="another source tree")
-    ap.add_argument("--out", default="var/BENCH_port_kernels.json")
-    args = ap.parse_args()
-    import torch
+def compare_trees(torch, trees, make_call, want, rtol, atol, what):
+    """Each tree's call, after its output was held against `want`."""
+    calls, errs = {}, {}
+    for label, libs in trees.items():
+        call, out = make_call(libs)
+        call()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        errs[label] = 0.0
+        for o, w in zip(outs, wants):
+            errs[label] = max(errs[label],
+                              float((o.float() - w.float()).abs().max()))
+            cs.require(torch.allclose(o.float(), w.float(), rtol=rtol,
+                                      atol=atol),
+                       f"{what} {label}: error {errs[label]}")
+        calls[label] = call
+    return calls, errs
+
+
+def serving_rows(torch, trees):
     import torch.nn.functional as F
-    if not torch.cuda.is_available():
-        print("port_kernel_bench: no CUDA device", file=sys.stderr)
-        return 2
-    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    host = cs.phase_device(torch)
-    trees = {}
-    for spec in args.tree:
-        label, _, path = spec.partition("=")
-        trees[label] = build_tree(label, (ROOT / path).resolve())
-    build.build_all(("flash_attention", "rmsnorm"))
-    trees["after"] = {n: build.load(n) for n in ("flash_attention", "rmsnorm")}
     dev = torch.device("cuda")
     rows = []
-
     for n in (0, cs.FA_LONG):
         case = cs.FA_CASES[n]
         B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset, _ = case
         q, k, v = cs.fa_inputs(torch, case, seed=n, dev=dev)
-        want = attention_ref(q, k, v, causal=causal)
-        calls, errs = {}, {}
-        for label, libs in trees.items():
-            calls[label] = fa_caller(torch, libs["flash_attention"], q, k, v,
-                                     causal)
-            got = calls[label]()
-            torch.cuda.synchronize()
-            errs[label] = float((got.float() - want.float()).abs().max())
-            cs.require(torch.allclose(got.float(), want.float(), rtol=2e-2,
-                                      atol=2e-2),
-                       f"flash_attention {label} {case}: error {errs[label]}")
+        calls, errs = compare_trees(
+            torch, trees, lambda libs: fa_caller(
+                torch, libs["flash_attention"], q, k, v, causal),
+            attention_ref(q, k, v, causal=causal), 2e-2, 2e-2,
+            f"flash_attention {case}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = cs.kernel_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
@@ -158,16 +206,10 @@ def main() -> int:
     for N, d in cs.RMSNORM_ROWS:
         x = (1.5 * torch.randn((N, d), generator=gen, device=dev)).bfloat16()
         scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        want = rmsnorm_ref(x, scale)
-        calls, errs = {}, {}
-        for label, libs in trees.items():
-            calls[label] = rms_caller(torch, libs["rmsnorm"], x, scale)
-            got = calls[label]()
-            torch.cuda.synchronize()
-            errs[label] = float((got.float() - want.float()).abs().max())
-            cs.require(torch.allclose(got.float(), want.float(),
-                                      rtol=2.0 ** -7, atol=1e-6),
-                       f"rmsnorm {label} ({N}, {d}): error {errs[label]}")
+        calls, errs = compare_trees(
+            torch, trees, lambda libs: rms_caller(torch, libs["rmsnorm"], x,
+                                                  scale),
+            rmsnorm_ref(x, scale), 2.0 ** -7, 1e-6, f"rmsnorm ({N}, {d})")
         w = scale.bfloat16()
         lib_ms = cs.kernel_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6),
                               reps=100)
@@ -180,18 +222,115 @@ def main() -> int:
                      "library": "F.rms_norm", "library_us": lib_ms * 1e3,
                      "bound_us": b_ms * 1e3, "bound_by": b_by})
         cs.log(json.dumps(rows[-1]))
+    return rows
+
+
+def fleet_rows(np, torch, trees):
+    from repro_torch.kernels.al_step.ref import al_step_ref
+    from repro_torch.kernels.dr_features.ref import dr_features_ref
+    dev = torch.device("cuda")
+    fleet = cs.phase_fleet()[0]
+    W, T = cs.W_MAIN, cs.T_MAIN
+    rows = []
+
+    def to_dev(arrs):
+        return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in arrs]
+
+    stable = to_dev(cs.al_step_inputs(np, fleet, mode="cr2", seed=1,
+                                      rts_only=False, stable=True))
+    # The same rows, RTS rows first: the warps of a permutation by kind.
+    order = torch.argsort(stable[7][:, 8] > 0.5, stable=True)
+    by_kind = [a[order].contiguous() if a.shape[0] == W else a
+               for a in stable]
+    at_bounds = to_dev(cs.al_step_inputs(np, fleet, mode="cr2", seed=W,
+                                         rts_only=False, at_bounds=True))
+    # Each kind alone: the fleet's batch rows twice over, and its rows
+    # recast as RTS rows (chip_smoke's hinge-free inputs).
+    batch_rows = torch.nonzero(stable[7][:, 8] > 0.5)[:, 0].repeat(2)[:W]
+    batch_only = [a[batch_rows].contiguous() if a.shape[0] == W else a
+                  for a in stable]
+    rts_only = to_dev(cs.al_step_inputs(np, fleet, mode="cr2", seed=1))
+    cases = (("fleet rows", stable, ("cr1", "cr2")),
+             ("fleet rows by kind", by_kind, ("cr1", "cr2")),
+             ("batch rows only", batch_only, ("cr2",)),
+             ("RTS rows only", rts_only, ("cr2",)),
+             ("at bounds", at_bounds, ("cr2",)))
+    nbytes = 10 * W * T * 4 + W * 12 * 4 + T * 4 + 32
+    for what, args, modes in cases:
+        for mode in modes:
+            calls, errs = compare_trees(
+                torch, trees, lambda libs: al_step_caller(
+                    torch, libs["al_step"], args, mode, 8),
+                al_step_ref(*args, mode=mode, k_steps=8), 1e-5, 1e-5,
+                f"al_step {what} {mode}")
+            b_ms, b_by = cs.bound(nbytes, cs.al_step_ops(
+                np, args[7].cpu().numpy(), T, 8, mode), cs.H100_F32_OPS_PER_S)
+            rows.append({"name": "al_step", "case": what, "mode": mode,
+                         "shape": [W, T], "k_steps": 8, "moments": "float32",
+                         "max_abs_err": errs,
+                         "us": {lb: [t * 1e3 for t in ts] for lb, ts in
+                                in_turns(torch, calls, 50).items()},
+                         "library": None, "library_us": None,
+                         "bound_us": b_ms * 1e3, "bound_by": b_by})
+            cs.log(json.dumps(rows[-1]))
+
+    d, u, j = to_dev(cs.feature_inputs(np, W, T, seed=W))
+    calls, errs = compare_trees(
+        torch, trees, lambda libs: features_caller(
+            torch, libs["dr_features"], d, u, j),
+        dr_features_ref(d, u, j), 2e-4, 2e-4, "dr_features")
+    b_ms, b_by = cs.bound(3 * d.numel() * 4 + W * 4 * 4, 20 * d.numel(),
+                          cs.H100_F32_OPS_PER_S)
+    rows.append({"name": "dr_features", "shape": [W, T],
+                 "max_abs_err": errs,
+                 "us": {lb: [t * 1e3 for t in ts] for lb, ts in
+                        in_turns(torch, calls, 100).items()},
+                 "library": None, "library_us": None,
+                 "bound_us": b_ms * 1e3, "bound_by": b_by})
+    cs.log(json.dumps(rows[-1]))
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", choices=sorted(KERNEL_SETS),
+                    default="serving", help="which kernels to time")
+    ap.add_argument("--tree", action="append", default=[],
+                    metavar="LABEL=DIR", help="another source tree")
+    ap.add_argument("--out", help="the record (default: "
+                    + ", ".join(f"{k}: {v}" for k, v in DEFAULT_OUT.items())
+                    + ")")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("port_kernel_bench: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    names = KERNEL_SETS[args.kernels]
+    host = cs.phase_device(torch)
+    trees = {}
+    for spec in args.tree:
+        label, _, path = spec.partition("=")
+        trees[label] = build_tree(label, (ROOT / path).resolve(), names)
+    build.build_all(names)
+    trees["after"] = {n: build.load(n) for n in names}
+    rows = (fleet_rows(np, torch, trees) if args.kernels == "fleet"
+            else serving_rows(torch, trees))
 
     record = {
         "host": host, "device": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "script": "scripts/port_kernel_bench.py",
+        "kernels": list(names),
         "timing": "chip_smoke.kernel_ms: median over windows of 20 calls "
                   "back to back after a spin kernel, CUDA events; each tree "
                   "timed twice, in turns",
         "trees": {label: spec.partition("=")[2] for spec in args.tree
                   for label in [spec.partition("=")[0]]} | {"after": "."},
         "rows": rows}
-    out = ROOT / args.out
+    out = ROOT / (args.out or DEFAULT_OUT[args.kernels])
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1) + "\n")
     cs.log(f"[bench] wrote {out}")

@@ -16,24 +16,51 @@
 // Bound: at the main path's call (k_steps = 8) the bytes (7 (W, T) f32
 // reads plus rowp, 3 writes) outweigh the float operations (~44 per RTS
 // hour and step, ~56 per batch hour and step with one projection pass) on
-// an H100. Design: one warp per row; the row's x, m, v
-// and constants live in registers for all k steps, so x and the moments
-// never touch memory between steps. Cumsums are warp scans, the hinge
-// indicators' reversed cumsums exact ballot counts, day sums masked warp
-// sums. The branch on the row kind, and every projection pass's stop test
-// (on butterfly sums, which every lane holds bit for bit), are
-// warp-uniform. `scal` is read on the
-// device, so mu and the Adam step count t0 cost the host no sync. Moments
-// are stored as float or bf16 (template parameter), with float arithmetic.
+// an H100, but a row's steps are chains of dependent collectives, so
+// the kernel is bound by latency: it wants few collectives a row and
+// every row resident at once. Design:
+//   * a group of rowscan::kLanes lanes holds one row (row_scan.cuh), each
+//     lane a run of H = ceil(T / kLanes) hours in registers, so a warp
+//     carries several rows and one shuffle serves all of them; x, m, v
+//     and the row's constants stay in registers for all k steps;
+//   * the fleet interleaves RTS and batch rows, so blocks come in pairs
+//     over a window of rows, one taking its batch rows and one its RTS
+//     rows: every warp runs one kind's code (a template parameter), RTS
+//     warps skip the queue-integral scans and the day projection, and RTS
+//     blocks free their SM's slots early. A window of one kind leaves
+//     one block of the pair empty and the other two rounds long;
+//   * the days of all of a warp's rows are projected together, in one
+//     pass loop that ends when every day in the warp has stopped: a pass
+//     takes a segmented sum over the days (free hours and held values),
+//     then one vote, and the overshoots' segmented sums only where some
+//     day overshoots. Where every day is a power of two of whole lanes
+//     (24-hour days at T = 48), a day's sum is a lane sum and a
+//     butterfly;
+//   * the hinges' reversed cumsums are exact float sums of halves, the
+//     Adam bias corrections are computed once a block, and division and
+//     square root take nvcc's fast path without its subnormal slow path
+//     (a called subroutine, whose register saves spill).
+// Runs load and store as 8-byte pairs where T, H and the operands allow.
+// `scal` is read on the device, so mu and the Adam step count t0 cost the
+// host no sync. Moments are stored as float or bf16 (template parameter),
+// with float arithmetic.
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "row_scan.cuh"
 
 namespace {
 
-using rowscan::Row2;
+using rowscan::kFull;
+using rowscan::kLanes;
 
-constexpr int kThreads = 256;  // 8 rows per block
+// 4 warps; 64, 128 and 256 threads were timed (PERF.md, §6).
+constexpr int kThreads = 128;
+constexpr int kBlockRows = kThreads / kLanes;
+constexpr int kWindow = 2 * kBlockRows;  // rows a block pair reads
+static_assert(kWindow <= 32, "warp 0 reads a block pair's window");
+constexpr int kSharedSteps = 32;
 constexpr int kRowp = 12;
 
 struct Params {
@@ -41,199 +68,485 @@ struct Params {
   float beta1, beta2, omb1, omb2, eps;
 };
 
-__device__ __forceinline__ float load_moment(const float* p, size_t i) {
-  return p[i];
+template <typename M>
+struct Operands {
+  const float *x, *usage, *jobs, *lo, *hi, *rowp, *cvec, *scal;
+  const M *m, *v;
+  float* x_out;
+  M *m_out, *v_out;
+};
+
+// Moments in bf16: pairs as one 4-byte load, rounded once on store.
+template <int H>
+__device__ __forceinline__ void load_run(const __nv_bfloat16* p, int n,
+                                         bool pairs, float (&r)[H],
+                                         float fill) {
+  if (H % 2 == 0 && pairs) {
+#pragma unroll
+    for (int h = 0; h < H; h += 2) {
+      if (h < n) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(p + h));
+        r[h] = v.x;
+        r[h + 1] = v.y;
+      } else {
+        r[h] = r[h + 1] = fill;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      r[h] = h < n ? __bfloat162float(p[h]) : fill;
+  }
 }
-__device__ __forceinline__ float load_moment(const __nv_bfloat16* p,
-                                             size_t i) {
-  return __bfloat162float(p[i]);
+template <int H>
+__device__ __forceinline__ void load_run(const float* p, int n, bool pairs,
+                                         float (&r)[H], float fill) {
+  rowscan::load_run<H>(p, n, pairs, r, fill);
 }
-__device__ __forceinline__ void store_moment(float* p, size_t i, float v) {
-  p[i] = v;
+
+template <int H>
+__device__ __forceinline__ void store_run(__nv_bfloat16* p, int n,
+                                          bool pairs, const float (&r)[H]) {
+  if (H % 2 == 0 && pairs) {
+#pragma unroll
+    for (int h = 0; h < H; h += 2)
+      if (h < n)
+        *reinterpret_cast<__nv_bfloat162*>(p + h) =
+            __floats2bfloat162_rn(r[h], r[h + 1]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      if (h < n) p[h] = __float2bfloat16(r[h]);
+  }
 }
-__device__ __forceinline__ void store_moment(__nv_bfloat16* p, size_t i,
-                                             float v) {
-  p[i] = __float2bfloat16(v);
+template <int H>
+__device__ __forceinline__ void store_run(float* p, int n, bool pairs,
+                                          const float (&r)[H]) {
+  rowscan::store_run<H>(p, n, pairs, r);
 }
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
-// Projects the hours of one day (slots where `ia` / `ib`) of y onto
-// {lo <= x <= hi, sum x = 0} and writes them to xa / xb. Variable fixing:
-// shift the free hours so that the day sums to 0, then fix at its bound
-// every free hour past the side (lo or hi) that overshoots more, until
-// neither or both overshoot alike. A pass that does not stop fixes an
-// hour, so a day takes at most day_hours + 1 passes.
-__device__ __forceinline__ void project_day(bool ia, bool ib, float ya,
-                                            float yb, float loa, float lob,
-                                            float hia, float hib, int max_pass,
-                                            float& xa, float& xb) {
-  int fix_a = 0, fix_b = 0;  // -1: at lo, +1: at hi, 0: free
-  float tau = 0.f;
-  for (int pass = 0; pass < max_pass; ++pass) {
-    const bool fa = ia && fix_a == 0, fb = ib && fix_b == 0;
-    const int n = __popc(__ballot_sync(rowscan::kFull, fa)) +
-                  __popc(__ballot_sync(rowscan::kFull, fb));
-    if (n == 0) break;
-    const float ha = fa ? ya : (fix_a < 0 ? loa : hia);
-    const float hb = fb ? yb : (fix_b < 0 ? lob : hib);
-    tau = rowscan::warp_sum((ia ? ha : 0.f) + (ib ? hb : 0.f)) /
-          static_cast<float>(n);
-    const float za = ya - tau, zb = yb - tau;
-    const float d_lo = rowscan::warp_sum((fa ? fmaxf(loa - za, 0.f) : 0.f) +
-                                         (fb ? fmaxf(lob - zb, 0.f) : 0.f));
-    const float d_hi = rowscan::warp_sum((fa ? fmaxf(za - hia, 0.f) : 0.f) +
-                                         (fb ? fmaxf(zb - hib, 0.f) : 0.f));
-    if (d_lo == d_hi) break;
-    if (d_lo > d_hi) {
-      if (fa && za <= loa) fix_a = -1;
-      if (fb && zb <= lob) fix_b = -1;
-    } else {
-      if (fa && za >= hia) fix_a = 1;
-      if (fb && zb >= hib) fix_b = 1;
+// y -> x in place. Every hour is clipped to its box; the hours of batch
+// days (`in_day`) are projected onto {lo <= x <= hi, each day sums to 0}
+// by variable fixing, all the warp's days at once: each pass shifts a
+// day's free hours so the day sums to 0, then fixes at its bound every
+// free hour past the side (lo or hi) that overshoots more. A day stops
+// when it has no free hour or both sides overshoot alike, and keeps its
+// shift and fixings while other days go on. A pass that does not stop a
+// day fixes one of its hours, so `max_pass` = day_hours + 1 passes end
+// every day. Days of any length: segmented sums (row_scan.cuh).
+template <int H>
+__device__ __forceinline__ void project_days(const rowscan::Segments& days,
+                                             unsigned in_day, float (&y)[H],
+                                             const float (&lo)[H],
+                                             const float (&hi)[H],
+                                             int max_pass) {
+  unsigned at_lo = 0u, at_hi = 0u, open = in_day;
+  float tau[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) tau[h] = 0.f;
+  for (int pass = 0; pass < max_pass && __any_sync(kFull, open != 0u);
+       ++pass) {
+    const unsigned fixed = at_lo | at_hi;
+    float q[2][H];  // free hours, held values
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const bool on = open >> h & 1u, free = !(fixed >> h & 1u);
+      q[0][h] = on && free ? 1.f : 0.f;
+      q[1][h] = on ? (free ? y[h] : ((at_lo >> h & 1u) ? lo[h] : hi[h]))
+                   : 0.f;
+    }
+    rowscan::segment_totals<2, H>(days, q);
+    float z[H], d[2][H];  // shifted hours; overshoots below lo, above hi
+    bool over = false;
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      if (open >> h & 1u) {
+        if (q[0][h] == 0.f)
+          open &= ~(1u << h);
+        else
+          tau[h] = rowscan::div_fast(q[1][h], q[0][h]);
+      }
+      z[h] = y[h] - tau[h];
+      const bool act = (open >> h & 1u) && !(fixed >> h & 1u);
+      d[0][h] = act ? fmaxf(lo[h] - z[h], 0.f) : 0.f;
+      d[1][h] = act ? fmaxf(z[h] - hi[h], 0.f) : 0.f;
+      over |= d[0][h] > 0.f || d[1][h] > 0.f;
+    }
+    // A day none of whose free hours leaves its box after the shift has
+    // no overshoot on either side and stops; where that holds for every
+    // day of the warp, one vote stands for the overshoots' sums.
+    if (!__any_sync(kFull, over)) {
+      open = 0u;
+      continue;
+    }
+    rowscan::segment_totals<2, H>(days, d);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      if (!(open >> h & 1u)) continue;
+      const bool free = !(fixed >> h & 1u);
+      if (d[0][h] == d[1][h])
+        open &= ~(1u << h);
+      else if (d[0][h] > d[1][h]) {
+        if (free && z[h] <= lo[h]) at_lo |= 1u << h;
+      } else if (free && z[h] >= hi[h]) {
+        at_hi |= 1u << h;
+      }
     }
   }
-  if (ia) xa = fix_a < 0 ? loa : (fix_a > 0 ? hia : clip(ya - tau, loa, hia));
-  if (ib) xb = fix_b < 0 ? lob : (fix_b > 0 ? hib : clip(yb - tau, lob, hib));
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    if (!(in_day >> h & 1u))
+      y[h] = clip(y[h], lo[h], hi[h]);
+    else
+      y[h] = (at_lo >> h & 1u)   ? lo[h]
+             : (at_hi >> h & 1u) ? hi[h]
+                                 : clip(y[h] - tau[h], lo[h], hi[h]);
+  }
 }
 
-template <typename M>
-__global__ void __launch_bounds__(kThreads)
-al_step_kernel(const float* __restrict__ x_in, const M* __restrict__ m_in,
-               const M* __restrict__ v_in, const float* __restrict__ usage,
-               const float* __restrict__ jobs, const float* __restrict__ lo_in,
-               const float* __restrict__ hi_in,
-               const float* __restrict__ rowp, const float* __restrict__ cvec,
-               const float* __restrict__ scal, float* __restrict__ x_out,
-               M* __restrict__ m_out, M* __restrict__ v_out, Params p) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (row >= p.W) return;
-  const int lane = rowscan::lane_id();
-  const size_t base = static_cast<size_t>(row) * p.T;
-  const size_t ia = base + lane, ib = base + lane + 32;
-  const bool va = lane < p.T, vb = lane + 32 < p.T;
+// The same projection where every day is `day_lanes` whole lanes of the
+// group (day_hours a multiple of H, day_hours / H a power of two): a
+// lane's hours lie in one day or in none (`in_day`), a day's sums are the
+// lanes' sums and a butterfly, and a lane keeps one shift and one open
+// flag.
+template <int H>
+__device__ __forceinline__ void project_days_aligned(int day_lanes,
+                                                     bool in_day,
+                                                     float (&y)[H],
+                                                     const float (&lo)[H],
+                                                     const float (&hi)[H],
+                                                     int max_pass) {
+  unsigned at_lo = 0u, at_hi = 0u;
+  bool open = in_day;
+  float tau = 0.f;
+  for (int pass = 0; pass < max_pass && __any_sync(kFull, open); ++pass) {
+    const unsigned fixed = at_lo | at_hi;
+    float q[2] = {0.f, 0.f};  // free hours, held values
+    if (open) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        if (!(fixed >> h & 1u)) {
+          q[0] += 1.f;
+          q[1] += y[h];
+        } else {
+          q[1] += (at_lo >> h & 1u) ? lo[h] : hi[h];
+        }
+      }
+    }
+    rowscan::day_lanes_sum<2>(q, day_lanes);
+    if (open) {
+      if (q[0] == 0.f)
+        open = false;
+      else
+        tau = rowscan::div_fast(q[1], q[0]);
+    }
+    // As in project_days: one vote where no day of the warp overshoots.
+    bool over = false;
+    if (open) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float z = y[h] - tau;
+        over |= !(fixed >> h & 1u) && (z < lo[h] || z > hi[h]);
+      }
+    }
+    if (!__any_sync(kFull, over)) {
+      open = false;
+      continue;
+    }
+    float d[2] = {0.f, 0.f};  // overshoots below lo, above hi
+    if (open) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        if (fixed >> h & 1u) continue;
+        const float z = y[h] - tau;
+        d[0] += fmaxf(lo[h] - z, 0.f);
+        d[1] += fmaxf(z - hi[h], 0.f);
+      }
+    }
+    rowscan::day_lanes_sum<2>(d, day_lanes);
+    if (open) {
+      if (d[0] == d[1]) {
+        open = false;
+      } else {
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          if (fixed >> h & 1u) continue;
+          const float z = y[h] - tau;
+          if (d[0] > d[1]) {
+            if (z <= lo[h]) at_lo |= 1u << h;
+          } else if (z >= hi[h]) {
+            at_hi |= 1u << h;
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    if (!in_day)
+      y[h] = clip(y[h], lo[h], hi[h]);
+    else
+      y[h] = (at_lo >> h & 1u)   ? lo[h]
+             : (at_hi >> h & 1u) ? hi[h]
+                                 : clip(y[h] - tau, lo[h], hi[h]);
+  }
+}
 
-  float xa = va ? x_in[ia] : 0.f, xb = vb ? x_in[ib] : 0.f;
-  float ma = va ? load_moment(m_in, ia) : 0.f;
-  float mb = vb ? load_moment(m_in, ib) : 0.f;
-  float sa = va ? load_moment(v_in, ia) : 0.f;
-  float sb = vb ? load_moment(v_in, ib) : 0.f;
-  const float inv_ua = 1.f / (va ? usage[ia] : 1.f);
-  const float inv_ub = 1.f / (vb ? usage[ib] : 1.f);
-  const float jua = (va ? jobs[ia] : 0.f) * inv_ua;
-  const float jub = (vb ? jobs[ib] : 0.f) * inv_ub;
-  const float loa = va ? lo_in[ia] : 0.f, lob = vb ? lo_in[ib] : 0.f;
-  const float hia = va ? hi_in[ia] : 0.f, hib = vb ? hi_in[ib] : 0.f;
-  const float* crow = cvec + static_cast<size_t>(row) * p.cvec_stride;
-  const float ca = va ? crow[lane] : 0.f, cb = vb ? crow[lane + 32] : 0.f;
+// k_steps steps on `row` (< 0: none) of this lane's group, a batch row
+// (kBatch) or an RTS row. kWhole: T fills every lane of a row (T = kLanes
+// * H), so no hour of a row needs masking: a slot without a row is a
+// whole group, whose zeros reach no other row's reductions. kAlignedDays:
+// every day is a power of two of whole lanes (project_days_aligned).
+template <int H, bool kAlignedDays, bool kWhole, bool kBatch, typename M>
+__device__ __forceinline__ void step_rows(
+    const Operands<M>& o, const Params& p, int row, bool pairs,
+    const float (&bias)[2][kSharedSteps]) {
+  const bool live = row >= 0;
+  const int t0 = rowscan::group_lane() * H;
+  const int nv = live ? (kWhole ? H : max(0, min(H, p.T - t0))) : 0;
+  const unsigned valid = rowscan::low_bits(nv);
+  auto on = [&](int h) { return kWhole || (valid >> h & 1u); };
+  const size_t off = static_cast<size_t>(live ? row : 0) * p.T + t0;
 
-  const float* rp = rowp + static_cast<size_t>(row) * kRowp;
-  const float a3 = rp[0], a2 = rp[1], a1 = rp[2];
-  const float b0 = rp[3], b1 = rp[4], b2 = rp[5];
-  const float kk = rp[6];
-  const bool wait_sq = rp[7] > 0.5f, batch = rp[8] > 0.5f;
-  const float refs = rp[9], lam_eq = rp[10], stepw = rp[11];
-  const float coef0 = scal[0], mu = scal[1], inv_scale = scal[2];
-  const float lr_scale = scal[3], t0 = scal[4];
-  const float lb1 = logf(p.beta1), lb2 = logf(p.beta2);
+  float rp[kRowp];
+#pragma unroll
+  for (int k = 0; k < kRowp; ++k)
+    rp[k] = live ? o.rowp[static_cast<size_t>(row) * kRowp + k] : 0.f;
+  // The penalty's coefficients: (b0, b1, b2) on batch rows, (a3, a2, a1)
+  // on RTS rows.
+  const float k0 = kBatch ? rp[3] : rp[0], k1 = kBatch ? rp[4] : rp[1];
+  const float k2 = kBatch ? rp[5] : rp[2];
+  const bool wait_sq = rp[7] > 0.5f;
+  const float kk = rp[6], refs = rp[9], lam_eq = rp[10];
+  const float step = o.scal[3] * rp[11];  // lr_scale * step multiplier
+  const float coef0 = o.scal[0], mu = o.scal[1], inv_scale = o.scal[2];
 
-  const int n_days = max(1, p.T / p.day_hours);
-  const int span = n_days * p.day_hours;
-  const int day_a = lane < span ? lane / p.day_hours : -1;
-  const int day_b = lane + 32 < span ? (lane + 32) / p.day_hours : -1;
+  // a: 1/usage on RTS rows, jobs/usage on batch rows.
+  float x[H], m[H], s[H], a[H], lo[H], hi[H];
+  load_run<H>(o.x + off, nv, pairs, x, 0.f);
+  load_run<H>(o.m + off, nv, pairs, m, 0.f);
+  load_run<H>(o.v + off, nv, pairs, s, 0.f);
+  load_run<H>(o.usage + off, nv, pairs, a, 1.f);
+#pragma unroll
+  for (int h = 0; h < H; ++h) a[h] = rowscan::div_fast(1.f, a[h]);
+  if constexpr (kBatch) {
+    float j[H];
+    load_run<H>(o.jobs + off, nv, pairs, j, 0.f);
+#pragma unroll
+    for (int h = 0; h < H; ++h) a[h] = j[h] * a[h];
+  }
+  load_run<H>(o.lo + off, nv, pairs, lo, 0.f);
+  load_run<H>(o.hi + off, nv, pairs, hi, 0.f);
+  const float* crow =
+      o.cvec + static_cast<size_t>(live ? row : 0) * p.cvec_stride + t0;
+
+  const int span = max(1, p.T / p.day_hours) * p.day_hours;
+  rowscan::Segments days{};
+  if constexpr (kBatch && !kAlignedDays)
+    days = rowscan::day_segments<H>(p.day_hours, span);
+  const unsigned in_day = kBatch ? valid & rowscan::low_bits(span - t0) : 0u;
 
   for (int i = 0; i < p.k_steps; ++i) {
-    float pen = 0.f, ga, gb;
-    if (batch) {
-      // pen = k*max(b0 + b1*wait_power + b2*x2, 0), x2 = wait_sq | njobs.
-      const Row2 c1 = rowscan::row_cumsum({xa, xb});
-      const Row2 c2 = rowscan::row_cumsum(
-          {jua * xa * fabsf(xa), jub * xb * fabsf(xb)});
-      const float x1 = rowscan::row_pos_sum(c1, va, vb);
-      const float x2 = wait_sq
-          ? rowscan::row_pos_sum(c2, va, vb)
-          : rowscan::row_sum({jua * fmaxf(xa, 0.f), jub * fmaxf(xb, 0.f)},
-                             va, vb);
-      const float z = b0 + b1 * x1 + b2 * x2;
-      pen = kk * fmaxf(z, 0.f);
-      const Row2 g1 = rowscan::row_revhinge(c1, va, vb);
-      float gxa, gxb;
-      if (wait_sq) {
-        const Row2 r2 = rowscan::row_revhinge(c2, va, vb);
-        gxa = 2.f * jua * fabsf(xa) * r2.a;
-        gxb = 2.f * jub * fabsf(xb) * r2.b;
-      } else {
-        gxa = jua * rowscan::hinge(xa);
-        gxb = jub * rowscan::hinge(xb);
+    float rev[2][H];  // batch: reversed hinge cumsums
+    float pen, kz = 0.f;
+    if constexpr (kBatch) {
+      float sums[2] = {0.f, 0.f};  // wait_power, x2
+      // pen = k*max(b0 + b1*wait_power + b2*x2, 0), x2 = wait_sq | njobs:
+      // the queue integrals' cumsums, then their hinges' reversed cumsums.
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        rev[0][h] = x[h];
+        rev[1][h] = a[h] * x[h] * fabsf(x[h]);
       }
-      const float kz = kk * rowscan::hinge(z);
-      ga = kz * (b1 * g1.a + b2 * gxa);
-      gb = kz * (b1 * g1.b + b2 * gxb);
+      rowscan::row_cumsum<2, H>(rev);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        if (on(h)) {
+          sums[0] += fmaxf(rev[0][h], 0.f);
+          sums[1] += wait_sq ? fmaxf(rev[1][h], 0.f) : a[h] * fmaxf(x[h], 0.f);
+        }
+        rev[0][h] = on(h) ? rowscan::hinge(rev[0][h]) : 0.f;
+        rev[1][h] = on(h) ? rowscan::hinge(rev[1][h]) : 0.f;
+      }
+      rowscan::row_revcumsum<2, H>(rev);
+      rowscan::group_sum<2>(sums);
+      const float zz = k0 + k1 * sums[0] + k2 * sums[1];
+      pen = kk * fmaxf(zz, 0.f);
+      kz = kk * rowscan::hinge(zz);
     } else {
-      // pen = k*sum(a3*delta^3 + a2*delta^2 + a1*delta), delta = x/usage.
-      const float da = xa * inv_ua, db = xb * inv_ub;
+      // pen = k*sum(a3*delta^3 + a2*delta^2 + a1*delta), delta = x/usage;
+      // only CR2 reads it.
+      float cubic[1] = {0.f};
       if (p.mode == 1) {
-        const float fa = a3 * (da * da * da) + a2 * (da * da) + a1 * da;
-        const float fb = a3 * (db * db * db) + a2 * (db * db) + a1 * db;
-        pen = kk * rowscan::row_sum({fa, fb}, va, vb);
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float d = x[h] * a[h];
+          if (on(h)) cubic[0] += k0 * (d * d * d) + k1 * (d * d) + k2 * d;
+        }
+        rowscan::group_sum<1>(cubic);
       }
-      ga = kk * (3.f * a3 * (da * da) + 2.f * a2 * da + a1) * inv_ua;
-      gb = kk * (3.f * a3 * (db * db) + 2.f * a2 * db + a1) * inv_ub;
+      pen = kk * cubic[0];
     }
     float coef = coef0;
     if (p.mode == 1) {
       // dL/dpen for L = obj + lam_eq*h + (mu/2)*h^2, h = (pen - refs)/scale.
-      const float h = (pen - refs) * inv_scale;
-      coef = (lam_eq + mu * h) * inv_scale;
+      const float hres = (pen - refs) * inv_scale;
+      coef = (lam_eq + mu * hres) * inv_scale;
     }
-    ga = coef * ga + ca;
-    gb = coef * gb + cb;
 
-    const float t = t0 + static_cast<float>(i + 1);
-    const float bc1 = 1.f - expf(t * lb1), bc2 = 1.f - expf(t * lb2);
-    ma = p.beta1 * ma + p.omb1 * ga;
-    mb = p.beta1 * mb + p.omb1 * gb;
-    sa = p.beta2 * sa + p.omb2 * ga * ga;
-    sb = p.beta2 * sb + p.omb2 * gb * gb;
-    const float step = lr_scale * stepw;
-    const float ya = xa - step * (ma / bc1) / (sqrtf(sa / bc2) + p.eps);
-    const float yb = xb - step * (mb / bc1) / (sqrtf(sb / bc2) + p.eps);
-    // The box; on batch rows each whole day is then projected exactly.
-    xa = clip(ya, loa, hia);
-    xb = clip(yb, lob, hib);
-    if (batch) {
-      for (int d = 0; d < n_days; ++d)
-        project_day(day_a == d, day_b == d, ya, yb, loa, lob, hia, hib,
-                    p.day_hours + 1, xa, xb);
+    // Bias corrections 1 - beta^t. The moments are divided by them, as
+    // the plain version does: multiplying by their rounded reciprocals
+    // scales every hour's step alike, which shifts the CR2 solve at W =
+    // 10,000 (rows cloned from four templates) by 0.05 pp of carbon.
+    float bc1, bc2;
+    if (i < kSharedSteps) {
+      bc1 = bias[0][i];
+      bc2 = bias[1][i];
+    } else {
+      const float t = o.scal[4] + static_cast<float>(i + 1);
+      bc1 = 1.f - expf(t * logf(p.beta1));
+      bc2 = 1.f - expf(t * logf(p.beta2));
+    }
+    float c[H];
+    load_run<H>(crow, nv, pairs && p.cvec_stride % 2 == 0, c, 0.f);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float gp;
+      if constexpr (kBatch) {
+        const float gx = wait_sq ? 2.f * a[h] * fabsf(x[h]) * rev[1][h]
+                                 : a[h] * rowscan::hinge(x[h]);
+        gp = kz * (k1 * rev[0][h] + k2 * gx);
+      } else {
+        const float d = x[h] * a[h];
+        gp = kk * (3.f * k0 * (d * d) + 2.f * k1 * d + k2) * a[h];
+      }
+      const float g = coef * gp + c[h];
+      m[h] = p.beta1 * m[h] + p.omb1 * g;
+      s[h] = p.beta2 * s[h] + p.omb2 * g * g;
+      const float mhat = rowscan::div_fast(m[h], bc1);
+      const float vhat = rowscan::div_fast(s[h], bc2);
+      x[h] = x[h] - rowscan::div_fast(step * mhat,
+                                      rowscan::sqrt_fast(vhat) + p.eps);
+    }
+    // x holds the unprojected step y here; the box, and on batch rows
+    // each whole day projected exactly.
+    if constexpr (!kBatch) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) x[h] = clip(x[h], lo[h], hi[h]);
+    } else if constexpr (kAlignedDays) {
+      project_days_aligned<H>(p.day_hours / H, in_day != 0u, x, lo, hi,
+                              p.day_hours + 1);
+    } else {
+      project_days<H>(days, in_day, x, lo, hi, p.day_hours + 1);
     }
   }
 
-  if (va) {
-    x_out[ia] = xa;
-    store_moment(m_out, ia, ma);
-    store_moment(v_out, ia, sa);
+  store_run<H>(o.x_out + off, nv, pairs, x);
+  store_run<H>(o.m_out + off, nv, pairs, m);
+  store_run<H>(o.v_out + off, nv, pairs, s);
+}
+
+// Launch bounds of at least one block an SM: with the thread count alone
+// ptxas aims at an occupancy and spills a few bytes in some
+// instantiations.
+template <int H, bool kAlignedDays, bool kWhole, typename M>
+__global__ void __launch_bounds__(kThreads, 1)
+al_step_kernel(const Operands<M> o, const Params p, bool pairs) {
+  // Blocks come in pairs over a window of kWindow consecutive rows: the
+  // even block takes the window's batch rows, the odd block its RTS rows,
+  // kBlockRows at a time. The fleet interleaves the kinds; this way every
+  // warp, and every block, holds one kind and runs that kind's code alone
+  // (a branch on blockIdx, which the compiler knows is uniform; ordering
+  // the window by kind and reading a warp's kind from shared memory
+  // needed more registers, and so fewer blocks an SM), and blocks of the
+  // cheaper RTS rows free their SM's slots early.
+  __shared__ int order[kWindow];
+  __shared__ int count;
+  // The Adam bias corrections 1 - beta^t of the call's first kSharedSteps
+  // steps, computed once for the block.
+  __shared__ float bias[2][kSharedSteps];
+  const bool batch_block = !(blockIdx.x & 1u);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x < min(p.k_steps, kSharedSteps)) {
+      const float t = o.scal[4] + static_cast<float>(threadIdx.x + 1);
+      bias[0][threadIdx.x] = 1.f - expf(t * logf(p.beta1));
+      bias[1][threadIdx.x] = 1.f - expf(t * logf(p.beta2));
+    }
+    const int r = (blockIdx.x >> 1) * kWindow + threadIdx.x;
+    const bool mine = threadIdx.x < kWindow && r < p.W &&
+        (o.rowp[static_cast<size_t>(r) * kRowp + 8] > 0.5f) == batch_block;
+    const unsigned ballot = __ballot_sync(kFull, mine);
+    if (mine) order[__popc(ballot & ((1u << threadIdx.x) - 1u))] = r;
+    if (threadIdx.x == 0) count = __popc(ballot);
   }
-  if (vb) {
-    x_out[ib] = xb;
-    store_moment(m_out, ib, mb);
-    store_moment(v_out, ib, sb);
+  __syncthreads();
+  for (int first = 0; first < count; first += kBlockRows) {
+    const int slot = first + threadIdx.x / kLanes;
+    const int row = slot < count ? order[slot] : -1;
+    // A warp without a row leaves (its later rounds' slots are later
+    // still); its slots without a row stay to take part in its
+    // collectives, with no hour.
+    if (__all_sync(kFull, row < 0)) break;
+    if (batch_block)
+      step_rows<H, kAlignedDays, kWhole, true, M>(o, p, row, pairs, bias);
+    else
+      step_rows<H, kAlignedDays, kWhole, false, M>(o, p, row, pairs, bias);
+  }
+}
+
+bool aligned(const void* p, std::uintptr_t bytes) {
+  return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
+}
+
+template <int H, typename M>
+int launch(const Operands<M>& o, const Params& p, cudaStream_t stream) {
+  const int blocks = 2 * ((p.W + kWindow - 1) / kWindow);
+  bool pairs = H % 2 == 0 && p.T % 2 == 0;
+  const void* const f32[] = {o.x, o.usage, o.jobs, o.lo, o.hi, o.cvec,
+                             o.x_out};
+  const void* const moments[] = {o.m, o.v, o.m_out, o.v_out};
+  for (const void* q : f32) pairs = pairs && aligned(q, 8);
+  for (const void* q : moments) pairs = pairs && aligned(q, 2 * sizeof(M));
+  const int day_lanes = p.day_hours / H;
+  const bool aligned_days =
+      p.day_hours % H == 0 && (day_lanes & (day_lanes - 1)) == 0;
+  if (aligned_days && p.T == kLanes * H)
+    al_step_kernel<H, true, true, M>
+        <<<blocks, kThreads, 0, stream>>>(o, p, pairs);
+  else if (aligned_days)
+    al_step_kernel<H, true, false, M>
+        <<<blocks, kThreads, 0, stream>>>(o, p, pairs);
+  else
+    al_step_kernel<H, false, false, M>
+        <<<blocks, kThreads, 0, stream>>>(o, p, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel for H = run_length(T), over H = 1 .. kMaxRun.
+template <typename M, int H = 1>
+int dispatch(const Operands<M>& o, const Params& p, cudaStream_t stream) {
+  if constexpr (H > rowscan::kMaxRun) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (rowscan::run_length(p.T) == H) return launch<H, M>(o, p, stream);
+    return dispatch<M, H + 1>(o, p, stream);
   }
 }
 
 template <typename M>
-int launch(const float* x, const void* m, const void* v, const float* usage,
-           const float* jobs, const float* lo, const float* hi,
-           const float* rowp, const float* cvec, const float* scal,
-           float* x_out, void* m_out, void* v_out, const Params& p,
-           cudaStream_t stream) {
-  const int blocks = (p.W * 32 + kThreads - 1) / kThreads;
-  al_step_kernel<M><<<blocks, kThreads, 0, stream>>>(
-      x, static_cast<const M*>(m), static_cast<const M*>(v), usage, jobs, lo,
-      hi, rowp, cvec, scal, x_out, static_cast<M*>(m_out),
-      static_cast<M*>(v_out), p);
-  return static_cast<int>(cudaGetLastError());
+Operands<M> operands(const float* x, const void* m, const void* v,
+                     const float* usage, const float* jobs, const float* lo,
+                     const float* hi, const float* rowp, const float* cvec,
+                     const float* scal, float* x_out, void* m_out,
+                     void* v_out) {
+  return {x, usage, jobs, lo, hi, rowp, cvec, scal,
+          static_cast<const M*>(m), static_cast<const M*>(v), x_out,
+          static_cast<M*>(m_out), static_cast<M*>(v_out)};
 }
 
 }  // namespace
@@ -247,12 +560,18 @@ extern "C" int al_step_launch(const float* x, const void* m, const void* v,
                               int T, int mode, int k_steps, int day_hours,
                               float beta1, float beta2, float omb1, float omb2,
                               float eps, int bf16_moments, void* stream) {
+  if (T < 1 || T > rowscan::kMaxHours || day_hours < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  day_hours = day_hours < T ? day_hours : T;  // a horizon under a day is one day
   const Params p{W,     T,     mode, k_steps, day_hours, cvec_stride,
                  beta1, beta2, omb1, omb2,    eps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_moments)
-    return launch<__nv_bfloat16>(x, m, v, usage, jobs, lo, hi, rowp, cvec,
-                                 scal, x_out, m_out, v_out, p, s);
-  return launch<float>(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, x_out,
-                       m_out, v_out, p, s);
+    return dispatch(operands<__nv_bfloat16>(x, m, v, usage, jobs, lo, hi,
+                                            rowp, cvec, scal, x_out, m_out,
+                                            v_out),
+                    p, s);
+  return dispatch(operands<float>(x, m, v, usage, jobs, lo, hi, rowp, cvec,
+                                  scal, x_out, m_out, v_out),
+                  p, s);
 }

@@ -25,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("dr_features", "al_step", "rmsnorm", "flash_attention",
            "ssd_scan")
-MAX_HOURS = 64  # one warp per row, hours l and l + 32 on lane l
+MAX_HOURS = 64  # a row on 8 lanes, at most 8 hours a lane (row_scan.cuh)
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -112,7 +112,7 @@ def check_operand(name: str, t, dtype, shape, device) -> None:
 
 
 def check_hours(T: int) -> None:
-    """The kernels keep a row in one warp, two hours per lane."""
+    """The fleet kernels keep a row on 8 lanes, at most 8 hours a lane."""
     if T > MAX_HOURS:
         raise ValueError(f"the CUDA kernels take T <= {MAX_HOURS} hours "
                          f"per row; got T = {T}")

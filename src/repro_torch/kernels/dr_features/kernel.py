@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU kernel `_features_kernel`
 (`src/repro/kernels/dr_features/kernel.py:26`). The kernel is bound by
-bytes (it reads d, usage and jobs once and writes (W, 4)); one warp
-holds one row, so there is no padding copy. `dr_features_cuda.launches`
-counts the launches.
+bytes (it reads d, usage and jobs once and writes (W, 4)); a group of
+8 lanes holds one row, each lane a run of ceil(T / 8) consecutive
+hours, so a warp carries 4 rows and there is no padding copy
+(`csrc/row_scan.cuh`). `dr_features_cuda.launches` counts the launches.
 """
 from __future__ import annotations
 

@@ -108,7 +108,7 @@ def test_dr_features_kernel_rejects_long_rows(dev):
         dr_features_cuda(d, d, d)
 
 
-@pytest.mark.parametrize("T_", [20, 24, 64])
+@pytest.mark.parametrize("T_", [1, 20, 24, 33, 64])
 def test_dr_features_kernel_other_horizons(dev, T_):
     d, u, j = (a[:, :T_].contiguous() for a in _feature_rows(33, 3, dev))
     _close(dr_features_cuda(d, u, j), dr_features_ref(d, u, j), 2e-4)
@@ -193,6 +193,16 @@ def test_al_step_kernel_per_row_cvec_and_other_horizons(dev, fleets):
             _close(g, w, 1e-5)
 
 
+def test_al_step_kernel_more_steps_than_the_shared_bias_table(dev, fleets):
+    """36 steps in one call: the kernel keeps the bias corrections of a
+    call's first 32 steps in shared memory and computes the later ones
+    in place."""
+    args = _al_inputs(fleets, 130, "cr2", seed=36, dev=dev)
+    kw = dict(mode="cr2", k_steps=36)
+    for g, w in zip(al_step_cuda(*args, **kw), al_step_ref(*args, **kw)):
+        _close(g, w, 1e-5)
+
+
 @pytest.mark.parametrize("mode", ["cr1", "cr2"])
 def test_al_step_kernel_horizon_shorter_than_a_day(dev, fleets, mode):
     """T = 12 with day_hours = 24: kernel and plain version both project
@@ -206,6 +216,93 @@ def test_al_step_kernel_horizon_shorter_than_a_day(dev, fleets, mode):
         _close(g, w, 1e-5)
     isb = a[7][:, 8] > 0.5
     assert float(got[0][isb].sum(-1).abs().max()) < 1e-3
+
+
+def _rows(args, idx):
+    """The kernel inputs of rows `idx` (a (1, T) cvec and scal as they
+    are)."""
+    W = args[0].shape[0]
+    idx = torch.as_tensor(idx, device=args[0].device)
+    return [a[idx].contiguous() if a.shape[0] == W else a for a in args]
+
+
+def _hours(args, T_):
+    """The kernel inputs at horizon T_: the fleet's hours, repeated from
+    hour 0 past T = 48."""
+    hours = torch.arange(T_, device=args[0].device) % T
+    return [a[:, hours].contiguous() if a.shape[1] == T else a for a in args]
+
+
+def _check_layout_cases(args_of, day_hours=24):
+    """One step from hinge-stable rows, and 8 steps from rows spread over
+    their boxes (the day projection fixes hours), against the plain
+    version at 1e-5; the batch days of the second case sum to zero."""
+    for mode, k, kind in (("cr2", 1, dict(stable=True)),
+                          ("cr1", 8, dict(at_bounds=True))):
+        args = args_of(mode, kind)
+        kw = dict(mode=mode, k_steps=k, day_hours=day_hours)
+        before = al_step_cuda.launches
+        got = al_step_cuda(*args, **kw)
+        assert al_step_cuda.launches == before + 1
+        for g, w in zip(got, al_step_ref(*args, **kw)):
+            _close(g, w, 1e-5)
+    isb = args[7][:, 8] > 0.5
+    dh = min(day_hours, args[0].shape[1])
+    span = args[0].shape[1] // dh * dh
+    if isb.any():
+        days = got[0][isb][:, :span].reshape(int(isb.sum()), -1, dh).sum(-1)
+        assert float(days.abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("W", [1, 3, 5, 10_001])
+def test_al_step_kernel_partial_row_groups(dev, fleets, W):
+    """Rows that leave the last warp's and the last block's row groups
+    partly empty."""
+    def args_of(mode, kind):
+        src = 130 if W < 130 else 10_000
+        args = _al_inputs(fleets, src, mode, seed=W, dev=dev, rts_only=False,
+                          **kind)
+        return _rows(args, list(range(min(W, src))) + [0] * max(0, W - src))
+    _check_layout_cases(args_of)
+
+
+@pytest.mark.parametrize("T_", [1, 7, 33, 64])
+def test_al_step_kernel_uneven_runs(dev, fleets, T_):
+    """Horizons whose hours fill the lanes unevenly (T = 7: one hour a
+    lane and an empty lane; 33: runs of 5 and a short and an empty lane)
+    or fully at 8 hours a lane (64), with 24-hour days."""
+    _check_layout_cases(lambda mode, kind: _hours(_al_inputs(
+        fleets, 130, mode, seed=T_, dev=dev, rts_only=False, **kind), T_))
+
+
+@pytest.mark.parametrize("layout", ["alternating", "batch_only", "by_kind",
+                                    "two_batch_one_rts"])
+def test_al_step_kernel_row_kinds_in_a_warp(dev, fleets, layout):
+    """Rows that alternate RTS and batch, batch rows only, rows ordered by
+    kind (windows of one kind), and two batch rows to each RTS row
+    (windows with an odd count of batch rows)."""
+    def args_of(mode, kind):
+        args = _al_inputs(fleets, 10_000, mode, seed=7, dev=dev,
+                          rts_only=False, **kind)
+        isb = (args[7][:, 8] > 0.5).cpu().numpy()
+        rts, bat = np.flatnonzero(~isb)[:70], np.flatnonzero(isb)[:141]
+        idx = {"alternating": np.stack([rts, bat[:70]], 1).ravel(),
+               "batch_only": bat,
+               "by_kind": np.r_[bat[:70], rts],
+               "two_batch_one_rts": np.stack(
+                   [bat[0:140:2], bat[1:140:2], rts], 1).ravel()}[layout]
+        return _rows(args, idx)
+    _check_layout_cases(args_of)
+
+
+@pytest.mark.parametrize("day_hours", [1, 5])
+def test_al_step_kernel_short_days(dev, fleets, day_hours):
+    """Many days a row at T = 48: one-hour days, and five-hour days whose
+    hours straddle the lanes' runs of 6 (with 3 hours past the last whole
+    day)."""
+    _check_layout_cases(lambda mode, kind: _al_inputs(
+        fleets, 130, mode, seed=day_hours, dev=dev, rts_only=False, **kind),
+        day_hours=day_hours)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import torch
 
 from repro.core.engine import EngineConfig as JEngineConfig
 from repro.kernels.al_step import ops as jops
+from repro.kernels.al_step.kernel import al_step_pallas
 from repro.kernels.al_step.ref import al_step_ref as j_al_step_ref
 from repro.kernels.dr_features.ops import dr_features as j_dr_features
 from repro.kernels.dr_features.ref import dr_features_ref as j_dr_ref
@@ -69,15 +70,15 @@ def _np(a):
 # ---------------------------------------------------------------------------
 # dr_features
 # ---------------------------------------------------------------------------
-def _feature_rows(W, seed, hinge_rows=True):
+def _feature_rows(W, seed, hinge_rows=True, T_=T):
     rng = np.random.default_rng(seed)
-    d = rng.normal(0.0, 1.0, (W, T)).astype(np.float32)
+    d = rng.normal(0.0, 1.0, (W, T_)).astype(np.float32)
     d[np.abs(d) < 1e-3] += 0.01              # keep off measure-zero ties
     u = (np.abs(rng.normal(2.0, 0.3, d.shape)) + 0.5).astype(np.float32)
     j = (np.abs(rng.normal(1.0, 0.2, d.shape)) + 0.1).astype(np.float32)
     if hinge_rows:
         # Running sums cross zero mid-horizon, both ways, never on a tie.
-        up_down = np.r_[np.full(T // 2, 0.7), np.full(T // 2, -0.9)]
+        up_down = np.r_[np.full(T_ // 2, 0.7), np.full(T_ - T_ // 2, -0.9)]
         d[0], d[1] = up_down, -up_down
         u[:2], j[:2] = 2.0, 1.5
     return d, u, j
@@ -111,6 +112,19 @@ def test_dr_features_grad_matches_jax_vjp(hinge_rows):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("T_", [1, 33, 64])
+def test_dr_features_plain_matches_jax_other_horizons(T_):
+    """Horizons that fill the CUDA kernel's lanes unevenly (one hour; runs
+    of 5 and a short lane) or fully at 8 hours a lane."""
+    d, u, j = _feature_rows(9, seed=T_, T_=T_)
+    ours = dr_features(_t(d), _t(u), _t(j))
+    assert ours.shape == (9, 4)
+    for theirs in (j_dr_features(d, u, j, interpret=True),
+                   j_dr_ref(d, u, j)):
+        np.testing.assert_allclose(_np(ours), _np(theirs), rtol=2e-4,
+                                   atol=2e-4)
+
+
 def test_dr_features_cuda_wrapper_refuses_cpu_tensors():
     d, u, j = (_t(a) for a in _feature_rows(4, seed=0))
     before = dr_features_cuda.launches
@@ -122,11 +136,11 @@ def test_dr_features_cuda_wrapper_refuses_cpu_tensors():
 # ---------------------------------------------------------------------------
 # al_step
 # ---------------------------------------------------------------------------
-def _fleet_rows(W, seed, rts_only):
+def _fleet_rows(W, seed, rts_only, T_=T):
     """Per-row penalty parameters of a random fleet: half batch rows
     unless `rts_only` (hinge-free: the smooth cubic penalty only)."""
     rng = np.random.default_rng(seed)
-    usage = np.abs(rng.normal(2.0, 0.5, (W, T))) + 0.5
+    usage = np.abs(rng.normal(2.0, 0.5, (W, T_))) + 0.5
     E = usage.max(1) * 1.3
     isb = np.zeros(W, bool) if rts_only else np.arange(W) % 2 == 1
     rts = np.where(isb[:, None], 0.0, [[6.3, -13.0, 51.6]])
@@ -134,7 +148,7 @@ def _fleet_rows(W, seed, rts_only):
         rts[1::2] = [2e-4, 1.5e-3, 0.04]
     betas = np.where(isb[:, None], [[0.3, 0.05, 0.02]], 0.0)
     x2k = (np.arange(W) % 4 == 1).astype(float)
-    jobs = np.where(isb[:, None], np.abs(rng.normal(3.0, 1.0, (W, T))), 1.0)
+    jobs = np.where(isb[:, None], np.abs(rng.normal(3.0, 1.0, (W, T_))), 1.0)
     k = rng.uniform(0.01, 0.05, W)
     hi = np.minimum(0.5 * E[:, None], usage)
     lo = np.where(isb[:, None], -(E[:, None] - usage), 0.0)
@@ -142,10 +156,10 @@ def _fleet_rows(W, seed, rts_only):
                 k=k, x2k=x2k, isb=isb)
 
 
-def _al_inputs(W, mode, seed, rts_only=True, stable=False):
+def _al_inputs(W, mode, seed, rts_only=True, stable=False, T_=T):
     """(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal) as numpy f32, with
     `rowp` packed by the JAX package's `pack_rows`."""
-    f = _fleet_rows(W, seed, rts_only)
+    f = _fleet_rows(W, seed, rts_only, T_)
     rng = np.random.default_rng(seed + 100)
     if stable:
         x = np.clip(0.25 * f["usage"] + 0.01, f["lo"], f["hi"])
@@ -160,21 +174,23 @@ def _al_inputs(W, mode, seed, rts_only=True, stable=False):
         refs=None if refs is None else jnp.asarray(refs)))
     lam = rng.normal(0.0, 0.5, (W, 1)) if mode == "cr2" else np.zeros((W, 1))
     rowp = np.concatenate([row10, lam, np.ones((W, 1))], axis=1)
-    cvec = rng.normal(-0.5, 0.2, (1, T))
+    cvec = rng.normal(-0.5, 0.2, (1, T_))
     scal = np.array([[1.45, 10.0, 0.8, 0.02, 3.0, 0, 0, 0]])
     return [np.asarray(a, np.float32) for a in
             (x, m, v, f["usage"], f["jobs"], f["lo"], f["hi"], rowp, cvec,
              scal)]
 
 
-def _compare(args, mode, k_steps, tol=1e-5, bf16=False):
+def _compare(args, mode, k_steps, tol=1e-5, bf16=False, day_hours=24):
     jargs = [jnp.asarray(a) for a in args]
     targs = [_t(a) for a in args]
     if bf16:
         jargs[1], jargs[2] = (a.astype(jnp.bfloat16) for a in jargs[1:3])
         targs[1], targs[2] = targs[1].bfloat16(), targs[2].bfloat16()
-    theirs = j_al_step_ref(*jargs, mode=mode, k_steps=k_steps)
-    ours = tops.al_step(*targs, mode=mode, k_steps=k_steps)
+    theirs = j_al_step_ref(*jargs, mode=mode, k_steps=k_steps,
+                           day_hours=day_hours)
+    ours = tops.al_step(*targs, mode=mode, k_steps=k_steps,
+                        day_hours=day_hours)
     for o, r, name in zip(ours, theirs, "xmv"):
         np.testing.assert_allclose(_np(o), np.asarray(r, np.float32),
                                    rtol=tol, atol=tol, err_msg=name)
@@ -205,6 +221,25 @@ def test_al_step_batch_rows_single_step(mode):
     """Mixed RTS + batch rows, one step from a hinge-stable point."""
     _compare(_al_inputs(12, mode, seed=5, rts_only=False, stable=True), mode,
              1)
+
+
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+@pytest.mark.parametrize("T_,day_hours", [(30, 10), (64, 24), (33, 24)])
+def test_al_step_batch_rows_other_horizons(T_, day_hours, mode):
+    """Mixed rows at horizons whose hours fill the CUDA kernel's lanes
+    unevenly or straddle days, one step from a hinge-stable point after
+    which no bound is active (where the JAX oracle's 3 rounds of day-mean
+    removal equal the exact projection): the plain version against the
+    oracle and the Pallas kernel in interpret mode."""
+    args = _al_inputs(12, mode, seed=T_, rts_only=False, stable=True, T_=T_)
+    ours = _compare(args, mode, 1, day_hours=day_hours)
+    x, lo, hi, isb = _np(ours[0]), args[5], args[6], args[7][:, 8] > 0.5
+    assert ((x > lo) & (x < hi))[isb].all()
+    theirs = al_step_pallas(*(jnp.asarray(a) for a in args), mode=mode,
+                            k_steps=1, day_hours=day_hours, interpret=True)
+    for o, r, name in zip(ours, theirs, "xmv"):
+        np.testing.assert_allclose(_np(o), np.asarray(r, np.float32),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("W", [5, 130])

@@ -335,9 +335,9 @@ def phase_al_step(np, torch, fleets):
             out[1], out[2] = out[1].bfloat16(), out[2].bfloat16()
         return out
 
-    def compare(args, mode, k, bf16, what, tol=1e-5):
-        got = al_step_cuda(*args, mode=mode, k_steps=k)
-        want = al_step_ref(*args, mode=mode, k_steps=k)
+    def compare(args, mode, k, bf16, what, tol=1e-5, day_hours=24):
+        got = al_step_cuda(*args, mode=mode, k_steps=k, day_hours=day_hours)
+        want = al_step_ref(*args, mode=mode, k_steps=k, day_hours=day_hours)
         torch.cuda.synchronize()
         # f32: 1e-5 as the JAX package's kernel tests. bf16 moments are
         # rounded once per call in both, so they agree to one bf16 ulp.
@@ -390,10 +390,20 @@ def phase_al_step(np, torch, fleets):
                                   at_bounds=True)
             errs.append(compare(to_dev(arrs, False), mode, 8, False,
                                 f"al_step at bounds W={W} {mode} k=8"))
-            n += 4
-    # Timing at the main path's call: the fleet's rows, k = 8, f32 moments.
+            # 5-hour days straddle the lanes' runs of 6 hours: the general
+            # segmented projection, where the main path's 24-hour days
+            # take the whole-lane sums.
+            errs.append(compare(to_dev(arrs, False), mode, 8, False,
+                                f"al_step 5-hour days W={W} {mode} k=8",
+                                day_hours=5))
+            n += 5
+    # Timing at the main path's call: the fleet's rows ordered by kind,
+    # batch rows first, as make_fused_inner hands them to the kernel, k =
+    # 8, f32 moments.
     arrs = al_step_inputs(np, fleets[0], mode="cr2", seed=1, rts_only=False,
                           stable=True)
+    by_kind = np.argsort(-arrs[7][:, 8], kind="stable")
+    arrs = [a[by_kind] if a.shape[0] == W_MAIN else a for a in arrs]
     args = to_dev(arrs, False)
     rec = {"max_abs_err": max(errs)}
     for mode in ("cr1", "cr2"):

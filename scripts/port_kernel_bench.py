@@ -13,20 +13,22 @@ Each `--tree LABEL=DIR` names a tree whose `src/repro_torch/csrc/` holds
 the chosen kernels' sources with this tree's C interface
 (`al_step_launch` and `dr_features_launch` for `fleet`,
 `flash_attention_launch` and `rmsnorm_launch` for `serving`); they are
-built with this tree's nvcc flags into `build/bench_<LABEL>/`. This
-tree's own kernels are the "after" tree. Each tree's output is first
-held against the plain version, then the trees are timed in turns (every
-tree, then every tree in reverse order) with chip_smoke.py's `kernel_ms`,
-beside the bound and, where one exists, the one PyTorch call that
-computes the same function. Shapes:
+built with this tree's nvcc flags into `build/bench_<LABEL>/`, all at
+once; a tree that does not build is reported, left out, and makes the
+exit code 1. This tree's own kernels are the "after" tree. Each tree's
+output is first held against the plain version, then the trees are
+timed in turns (every tree, then every tree in reverse order) with
+chip_smoke.py's `kernel_ms`, beside the bound and, where one exists, the
+one PyTorch call that computes the same function. Shapes:
 
-  fleet: al_step at chip_smoke.py's timing call (its W = 10,000 x 48
-    fleet rows, hinge-stable, k = 8, f32 moments) in CR1 and CR2 mode,
-    the same rows ordered by kind (batch rows after RTS rows: what a
-    permutation by kind would give), each kind alone (the batch rows
-    twice over; the rows recast as RTS rows), and the at-bounds inputs,
-    whose day projection fixes many hours; dr_features at W = 10,000 x
-    48.
+  fleet: al_step on chip_smoke.py's W = 10,000 x 48 fleet rows
+    (hinge-stable, k = 8, f32 moments) in CR1 and CR2 mode: in the
+    fleet's own order (kinds interleaved) and ordered by kind (batch
+    rows first, as `make_fused_inner` hands them to the kernel); in CR2
+    mode also RTS rows first, each kind alone (the batch rows twice
+    over; the rows recast as RTS rows), and the at-bounds inputs, whose
+    day projection fixes many hours, in both orders; dr_features at W =
+    10,000 x 48.
   serving: flash attention at chip_smoke.py's serving shape and its
     1024-token case, rmsnorm at its rows.
 
@@ -55,27 +57,37 @@ DEFAULT_OUT = {"fleet": "var/BENCH_port_fleet_kernels.json",
                "serving": "var/BENCH_port_kernels.json"}
 
 
-def build_tree(label: str, tree: pathlib.Path,
-               names) -> dict[str, ctypes.CDLL]:
+def start_tree(label: str, tree: pathlib.Path, names) -> dict:
+    """One nvcc process per kernel of the tree, started and not waited
+    for."""
     from repro_torch.kernels import build
     out = ROOT / "build" / f"bench_{label}"
     out.mkdir(parents=True, exist_ok=True)
-    libs, procs = {}, {}
+    procs = {}
     for name in names:
         lib = out / f"lib{name}.so"
         src = tree / "src" / "repro_torch" / "csrc" / f"{name}.cu"
         procs[name] = (subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+def finish_tree(label: str, procs: dict) -> dict[str, ctypes.CDLL] | None:
+    """The tree's libraries, or None (logged) if one did not build."""
+    libs, ok = {}, True
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {label}/{name}:\n{log}")
+            cs.log(f"[bench] {label}/{name} does not build; tree left "
+                   f"out:\n{log}")
+            ok = False
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 cs.log(f"[bench] {label}/{name}: {line.strip()}")
         libs[name] = ctypes.CDLL(str(lib))
-    return libs
+    return libs if ok else None
 
 
 def checked(fn, name):
@@ -237,25 +249,31 @@ def fleet_rows(np, torch, trees):
         return [torch.as_tensor(a, dtype=torch.float32, device=dev)
                 for a in arrs]
 
+    def pick(args, idx):
+        return [a[idx].contiguous() if a.shape[0] == W else a for a in args]
+
     stable = to_dev(cs.al_step_inputs(np, fleet, mode="cr2", seed=1,
                                       rts_only=False, stable=True))
-    # The same rows, RTS rows first: the warps of a permutation by kind.
-    order = torch.argsort(stable[7][:, 8] > 0.5, stable=True)
-    by_kind = [a[order].contiguous() if a.shape[0] == W else a
-               for a in stable]
+    # The same rows ordered by kind: batch rows first, as make_fused_inner
+    # orders them, and RTS rows first.
+    kind = stable[7][:, 8]
+    by_kind = pick(stable, torch.argsort(-kind, stable=True))
+    rts_first = pick(stable, torch.argsort(kind, stable=True))
     at_bounds = to_dev(cs.al_step_inputs(np, fleet, mode="cr2", seed=W,
                                          rts_only=False, at_bounds=True))
+    at_bounds_by_kind = pick(at_bounds,
+                             torch.argsort(-at_bounds[7][:, 8], stable=True))
     # Each kind alone: the fleet's batch rows twice over, and its rows
     # recast as RTS rows (chip_smoke's hinge-free inputs).
-    batch_rows = torch.nonzero(stable[7][:, 8] > 0.5)[:, 0].repeat(2)[:W]
-    batch_only = [a[batch_rows].contiguous() if a.shape[0] == W else a
-                  for a in stable]
+    batch_only = pick(stable, torch.nonzero(kind > 0.5)[:, 0].repeat(2)[:W])
     rts_only = to_dev(cs.al_step_inputs(np, fleet, mode="cr2", seed=1))
     cases = (("fleet rows", stable, ("cr1", "cr2")),
              ("fleet rows by kind", by_kind, ("cr1", "cr2")),
+             ("fleet rows, RTS rows first", rts_first, ("cr2",)),
              ("batch rows only", batch_only, ("cr2",)),
              ("RTS rows only", rts_only, ("cr2",)),
-             ("at bounds", at_bounds, ("cr2",)))
+             ("at bounds", at_bounds, ("cr2",)),
+             ("at bounds by kind", at_bounds_by_kind, ("cr2",)))
     nbytes = 10 * W * T * 4 + W * 12 * 4 + T * 4 + 32
     for what, args, modes in cases:
         for mode in modes:
@@ -310,11 +328,15 @@ def main() -> int:
     from repro_torch.kernels import build
     names = KERNEL_SETS[args.kernels]
     host = cs.phase_device(torch)
-    trees = {}
+    started = {}
     for spec in args.tree:
         label, _, path = spec.partition("=")
-        trees[label] = build_tree(label, (ROOT / path).resolve(), names)
+        started[label] = start_tree(label, (ROOT / path).resolve(), names)
     build.build_all(names)
+    trees = {label: finish_tree(label, procs)
+             for label, procs in started.items()}
+    failed = [label for label, libs in trees.items() if libs is None]
+    trees = {label: libs for label, libs in trees.items() if libs}
     trees["after"] = {n: build.load(n) for n in names}
     rows = (fleet_rows(np, torch, trees) if args.kernels == "fleet"
             else serving_rows(torch, trees))
@@ -330,11 +352,13 @@ def main() -> int:
         "trees": {label: spec.partition("=")[2] for spec in args.tree
                   for label in [spec.partition("=")[0]]} | {"after": "."},
         "rows": rows}
+    if failed:
+        record["trees_not_built"] = failed
     out = ROOT / (args.out or DEFAULT_OUT[args.kernels])
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1) + "\n")
     cs.log(f"[bench] wrote {out}")
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

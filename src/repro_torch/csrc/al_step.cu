@@ -23,12 +23,13 @@
 //     lane a run of H = ceil(T / kLanes) hours in registers, so a warp
 //     carries several rows and one shuffle serves all of them; x, m, v
 //     and the row's constants stay in registers for all k steps;
-//   * the fleet interleaves RTS and batch rows, so blocks come in pairs
-//     over a window of rows, one taking its batch rows and one its RTS
-//     rows: every warp runs one kind's code (a template parameter), RTS
-//     warps skip the queue-integral scans and the day projection, and RTS
-//     blocks free their SM's slots early. A window of one kind leaves
-//     one block of the pair empty and the other two rounds long;
+//   * each row kind has its own code (a template parameter): a warp runs
+//     the batch code for its batch rows and the RTS code for its RTS rows,
+//     each only where it holds a row of that kind, so RTS rows skip the
+//     queue-integral scans and the day projection. The fleet interleaves
+//     the kinds; `make_fused_inner` (kernels/al_step/ops.py) orders the
+//     rows by kind once a solve, batch rows first, so one warp runs both
+//     codes and the slower batch blocks start first;
 //   * the days of all of a warp's rows are projected together, in one
 //     pass loop that ends when every day in the warp has stopped: a pass
 //     takes a segmented sum over the days (free hours and held values),
@@ -36,10 +37,10 @@
 //     day overshoots. Where every day is a power of two of whole lanes
 //     (24-hour days at T = 48), a day's sum is a lane sum and a
 //     butterfly;
-//   * the hinges' reversed cumsums are exact float sums of halves, the
-//     Adam bias corrections are computed once a block, and division and
-//     square root take nvcc's fast path without its subnormal slow path
-//     (a called subroutine, whose register saves spill).
+//   * the hinges' reversed cumsums are exact float sums of halves, and
+//     division and square root take nvcc's fast path without its
+//     subnormal slow path (a called subroutine, whose register saves
+//     spill).
 // Runs load and store as 8-byte pairs where T, H and the operands allow.
 // `scal` is read on the device, so mu and the Adam step count t0 cost the
 // host no sync. Moments are stored as float or bf16 (template parameter),
@@ -55,12 +56,10 @@ namespace {
 using rowscan::kFull;
 using rowscan::kLanes;
 
-// 4 warps; 64, 128 and 256 threads were timed (PERF.md, §6).
+// 4 warps (64, 128 and 256 threads were timed at 16 lanes a row: PERF.md,
+// §6).
 constexpr int kThreads = 128;
 constexpr int kBlockRows = kThreads / kLanes;
-constexpr int kWindow = 2 * kBlockRows;  // rows a block pair reads
-static_assert(kWindow <= 32, "warp 0 reads a block pair's window");
-constexpr int kSharedSteps = 32;
 constexpr int kRowp = 12;
 
 struct Params {
@@ -303,9 +302,9 @@ __device__ __forceinline__ void project_days_aligned(int day_lanes,
 // whole group, whose zeros reach no other row's reductions. kAlignedDays:
 // every day is a power of two of whole lanes (project_days_aligned).
 template <int H, bool kAlignedDays, bool kWhole, bool kBatch, typename M>
-__device__ __forceinline__ void step_rows(
-    const Operands<M>& o, const Params& p, int row, bool pairs,
-    const float (&bias)[2][kSharedSteps]) {
+__device__ __forceinline__ void step_rows(const Operands<M>& o,
+                                          const Params& p, int row,
+                                          bool pairs) {
   const bool live = row >= 0;
   const int t0 = rowscan::group_lane() * H;
   const int nv = live ? (kWhole ? H : max(0, min(H, p.T - t0))) : 0;
@@ -351,6 +350,7 @@ __device__ __forceinline__ void step_rows(
     days = rowscan::day_segments<H>(p.day_hours, span);
   const unsigned in_day = kBatch ? valid & rowscan::low_bits(span - t0) : 0u;
 
+  const float log_beta1 = logf(p.beta1), log_beta2 = logf(p.beta2);
   for (int i = 0; i < p.k_steps; ++i) {
     float rev[2][H];  // batch: reversed hinge cumsums
     float pen, kz = 0.f;
@@ -403,15 +403,9 @@ __device__ __forceinline__ void step_rows(
     // the plain version does: multiplying by their rounded reciprocals
     // scales every hour's step alike, which shifts the CR2 solve at W =
     // 10,000 (rows cloned from four templates) by 0.05 pp of carbon.
-    float bc1, bc2;
-    if (i < kSharedSteps) {
-      bc1 = bias[0][i];
-      bc2 = bias[1][i];
-    } else {
-      const float t = o.scal[4] + static_cast<float>(i + 1);
-      bc1 = 1.f - expf(t * logf(p.beta1));
-      bc2 = 1.f - expf(t * logf(p.beta2));
-    }
+    const float t = o.scal[4] + static_cast<float>(i + 1);
+    const float bc1 = 1.f - expf(t * log_beta1);
+    const float bc2 = 1.f - expf(t * log_beta2);
     float c[H];
     load_run<H>(crow, nv, pairs && p.cvec_stride % 2 == 0, c, 0.f);
 #pragma unroll
@@ -457,46 +451,16 @@ __device__ __forceinline__ void step_rows(
 template <int H, bool kAlignedDays, bool kWhole, typename M>
 __global__ void __launch_bounds__(kThreads, 1)
 al_step_kernel(const Operands<M> o, const Params p, bool pairs) {
-  // Blocks come in pairs over a window of kWindow consecutive rows: the
-  // even block takes the window's batch rows, the odd block its RTS rows,
-  // kBlockRows at a time. The fleet interleaves the kinds; this way every
-  // warp, and every block, holds one kind and runs that kind's code alone
-  // (a branch on blockIdx, which the compiler knows is uniform; ordering
-  // the window by kind and reading a warp's kind from shared memory
-  // needed more registers, and so fewer blocks an SM), and blocks of the
-  // cheaper RTS rows free their SM's slots early.
-  __shared__ int order[kWindow];
-  __shared__ int count;
-  // The Adam bias corrections 1 - beta^t of the call's first kSharedSteps
-  // steps, computed once for the block.
-  __shared__ float bias[2][kSharedSteps];
-  const bool batch_block = !(blockIdx.x & 1u);
-  if (threadIdx.x < 32) {
-    if (threadIdx.x < min(p.k_steps, kSharedSteps)) {
-      const float t = o.scal[4] + static_cast<float>(threadIdx.x + 1);
-      bias[0][threadIdx.x] = 1.f - expf(t * logf(p.beta1));
-      bias[1][threadIdx.x] = 1.f - expf(t * logf(p.beta2));
-    }
-    const int r = (blockIdx.x >> 1) * kWindow + threadIdx.x;
-    const bool mine = threadIdx.x < kWindow && r < p.W &&
-        (o.rowp[static_cast<size_t>(r) * kRowp + 8] > 0.5f) == batch_block;
-    const unsigned ballot = __ballot_sync(kFull, mine);
-    if (mine) order[__popc(ballot & ((1u << threadIdx.x) - 1u))] = r;
-    if (threadIdx.x == 0) count = __popc(ballot);
-  }
-  __syncthreads();
-  for (int first = 0; first < count; first += kBlockRows) {
-    const int slot = first + threadIdx.x / kLanes;
-    const int row = slot < count ? order[slot] : -1;
-    // A warp without a row leaves (its later rounds' slots are later
-    // still); its slots without a row stay to take part in its
-    // collectives, with no hour.
-    if (__all_sync(kFull, row < 0)) break;
-    if (batch_block)
-      step_rows<H, kAlignedDays, kWhole, true, M>(o, p, row, pairs, bias);
-    else
-      step_rows<H, kAlignedDays, kWhole, false, M>(o, p, row, pairs, bias);
-  }
+  const int r = blockIdx.x * kBlockRows + threadIdx.x / kLanes;
+  const int row = r < p.W ? r : -1;
+  const bool batch =
+      row >= 0 && o.rowp[static_cast<size_t>(row) * kRowp + 8] > 0.5f;
+  if (__any_sync(kFull, batch))
+    step_rows<H, kAlignedDays, kWhole, true, M>(o, p, batch ? row : -1,
+                                                pairs);
+  if (__any_sync(kFull, row >= 0 && !batch))
+    step_rows<H, kAlignedDays, kWhole, false, M>(o, p, batch ? -1 : row,
+                                                 pairs);
 }
 
 bool aligned(const void* p, std::uintptr_t bytes) {
@@ -505,7 +469,7 @@ bool aligned(const void* p, std::uintptr_t bytes) {
 
 template <int H, typename M>
 int launch(const Operands<M>& o, const Params& p, cudaStream_t stream) {
-  const int blocks = 2 * ((p.W + kWindow - 1) / kWindow);
+  const int blocks = (p.W + kBlockRows - 1) / kBlockRows;
   bool pairs = H % 2 == 0 && p.T % 2 == 0;
   const void* const f32[] = {o.x, o.usage, o.jobs, o.lo, o.hi, o.cvec,
                              o.x_out};

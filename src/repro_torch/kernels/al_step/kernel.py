@@ -6,10 +6,11 @@ Adam steps of the CR1/CR2 augmented Lagrangian, with x and the Adam
 moments held in registers between steps (hinge ties and the exact day
 projection as in `ref.al_step_ref`). A group of 8 lanes holds one
 row, each lane a run of ceil(T / 8) consecutive hours, so a warp
-carries 4 rows; blocks come in pairs over a window of 32 rows, one
-taking its batch rows and one its RTS rows, so each warp runs one kind's
-code, and the days of all of a warp's rows are projected in one pass loop
-(`csrc/row_scan.cuh`, `csrc/al_step.cu`). There is no padding copy.
+carries 4 rows; a warp runs each row kind's code where it holds a row of
+that kind (`ops.make_fused_inner` orders the rows by kind, so one warp
+runs both), and the days of all of a warp's rows are projected in one
+pass loop (`csrc/row_scan.cuh`, `csrc/al_step.cu`). There is no padding
+copy.
 `scal` stays on the device and the kernel reads it, so mu and t0 never
 sync the host. `al_step_cuda.launches` counts the launches.
 """

@@ -8,6 +8,12 @@ count t0, so bias correction is the same as one long loop. Moments start
 at zero on every call, the engine's contract (they reset every outer
 multiplier round).
 
+The kernel runs each row kind's code on the warps that hold rows of that
+kind, so the callback works on the rows ordered by kind (a stable
+permutation built once, batch rows first, so the kernel's slower blocks
+start first): one warp holds both kinds, whatever the fleet's order. x
+goes back in the caller's order.
+
 The per-call scalars (`scal` rows, t0 included) are built on the device
 with tensor ops, so a solve never reads a device value on the host.
 """
@@ -64,6 +70,13 @@ def make_fused_inner(usage, jobs, lo, hi, row_base, cvec, *, mode: str,
     """
     W, T = usage.shape
     dev = usage.device
+    order = torch.argsort(row_base[:, 8], descending=True,  # is_batch
+                          stable=True)
+    restore = torch.argsort(order)
+    usage, jobs, lo, hi, row_base = (a[order] for a in
+                                     (usage, jobs, lo, hi, row_base))
+    if cvec.shape[0] == W:
+        cvec = cvec[order]
     f32 = torch.float32
     mdt = getattr(torch, cfg.moment_dtype)
     steps = int(cfg.inner_steps)
@@ -82,9 +95,9 @@ def make_fused_inner(usage, jobs, lo, hi, row_base, cvec, *, mode: str,
 
     def fused_inner(x, lam_eq, lam_in, mu):
         del lam_in  # CR1/CR2 carry no inequality multipliers
-        x = x.to(f32)
+        x = x.to(f32)[order]
         if mode == "cr2":
-            lam_col = lam_eq.to(f32).reshape(W, 1)
+            lam_col = lam_eq.to(f32).reshape(W, 1)[order]
         else:
             lam_col = torch.zeros((W, 1), dtype=f32, device=dev)
         rowp = torch.cat([row_base, lam_col, step_col], dim=1)
@@ -96,6 +109,6 @@ def make_fused_inner(usage, jobs, lo, hi, row_base, cvec, *, mode: str,
             n = k_steps if c < n_full else rem
             x, m, v = al_step(x, m, v, usage, jobs, lo, hi, rowp, cvec,
                               s[c:c + 1], k_steps=n, **kw)
-        return x
+        return x[restore]
 
     return fused_inner

@@ -193,16 +193,6 @@ def test_al_step_kernel_per_row_cvec_and_other_horizons(dev, fleets):
             _close(g, w, 1e-5)
 
 
-def test_al_step_kernel_more_steps_than_the_shared_bias_table(dev, fleets):
-    """36 steps in one call: the kernel keeps the bias corrections of a
-    call's first 32 steps in shared memory and computes the later ones
-    in place."""
-    args = _al_inputs(fleets, 130, "cr2", seed=36, dev=dev)
-    kw = dict(mode="cr2", k_steps=36)
-    for g, w in zip(al_step_cuda(*args, **kw), al_step_ref(*args, **kw)):
-        _close(g, w, 1e-5)
-
-
 @pytest.mark.parametrize("mode", ["cr1", "cr2"])
 def test_al_step_kernel_horizon_shorter_than_a_day(dev, fleets, mode):
     """T = 12 with day_hours = 24: kernel and plain version both project

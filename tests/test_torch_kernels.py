@@ -336,6 +336,30 @@ def test_fused_inner_chunking_matches_jax(steps, k_steps):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_fused_inner_orders_rows_by_kind_and_back(mode):
+    """`make_fused_inner` steps the rows ordered by kind and gives x back
+    in the caller's order: the plain steps on the interleaved rows as
+    given, chunked and carried as the callback does, give the same x."""
+    W, steps, k_steps, scale, lr = 10, 11, 4, 1.25, 0.05
+    x, _, _, usage, jobs, lo, hi, rowp, cvec, _ = (
+        _t(a) for a in _al_inputs(W, mode, seed=17, rts_only=False,
+                                  stable=True))
+    assert bool((rowp[0::2, 8] == 0).all() and (rowp[1::2, 8] == 1).all())
+    fi = tops.make_fused_inner(
+        usage, jobs, lo, hi, rowp[:, :10], cvec, mode=mode,
+        cfg=EngineConfig(inner_steps=steps, lr=lr), step_scale=1.0,
+        coef0=1.45, scale=scale if mode == "cr2" else None, k_steps=k_steps)
+    got = fi(x, rowp[:, 10], torch.zeros(0), torch.tensor(10.0))
+    m = v = torch.zeros_like(x)
+    for c, n in enumerate((4, 4, 3)):
+        scal = torch.tensor([[1.45, 10.0, 1.0 / scale if mode == "cr2"
+                              else 0.0, lr, c * k_steps, 0, 0, 0]])
+        x, m, v = al_step_ref(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal,
+                              mode=mode, k_steps=n)
+    np.testing.assert_allclose(_np(got), _np(x), rtol=1e-6, atol=1e-7)
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm
 # ---------------------------------------------------------------------------

@@ -23,6 +23,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
 5. the fleet path: solve CR1(1.45) and CR2(0.78) at their default steps
    through the kernels (launch counts reset just before and read just
    after), then with `use_kernel=False`, and compare;
+5b. the streaming path at the same fleet: a 24-tick rolling-horizon day
+   of `ForecastStream.caiso(n_ticks=24, horizon=48, seed=7)` per policy
+   (CR1(1.45) cold 600 / warm 150 steps, CR2(0.78, outer 6) cold 400 /
+   warm 100 a round): the per-tick loop `run(24)` (eager, through the
+   kernels), then `run_scanned(24)` on a fresh solver twice (the first
+   captures the day as a CUDA graph, the second replays it and is timed,
+   launch counts reset just before and read just after, and counted on
+   the device by `torch.profiler` on one more replay), the replay held
+   against the same day run eagerly (`api._day_impl`), and a warm second
+   day on each solver (the first captures, the second replays); then a
+   6-tick day through the kernels against the generic engine at W = 130;
 6. the serving paths, each at full width (random weights from a seeded
    generator on the card), through `serve_requests` at max_batch 8, then
    4 (launch counts reset just before and read just after each path),
@@ -36,6 +47,7 @@ Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import re
@@ -96,6 +108,14 @@ FA_CASES = (
     (1, 1024, 1024, 32, 32, 80, 80, True, 0, True),    # 16 kv blocks
 )
 FA_LONG = len(FA_CASES) - 1     # timed beside the serving shape
+# The streaming day: 24 ticks of a 48-hour horizon, per policy (name,
+# cold steps, warm steps a round, AL rounds): the JAX package's
+# controller defaults for CR1, `solve_day`'s cold // 4 for CR2.
+DAY_TICKS, TAIL_TICKS, DAY_SEED = 24, 6, 7
+DAY_POLICIES = (("cr1", 600, 150, 1), ("cr2", 400, 100, 6))
+SCAN_PP = 0.01       # per-tick loop vs day, realized carbon (JAX contract)
+COMMIT_ATOL = 5e-3   # per-tick loop vs day, committed NP (JAX contract)
+REPLAY_TOL = 1e-6    # graph replay vs the eager day, NP
 
 
 def log(*a):
@@ -189,6 +209,20 @@ def fa_live_pairs(Sq, Skv, causal, q_offset):
 # ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
+def device_launches(torch, fn, names=("al_step", "dr_features")):
+    """Launches of each kernel that the card ran during `fn()`, counted
+    from `torch.profiler`'s CUDA trace (a CUDA graph's kernels included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {n: sum(f"{n}_kernel" in e.name for e in events) for n in names}
+
+
 def kernel_ms(torch, fn, reps=50, inner=20):
     """Median device time of one call, from CUDA events around `inner`
     calls back to back. A spin kernel queued first keeps the host's launch
@@ -503,6 +537,158 @@ def phase_main_path(np, torch, p):
     return launches
 
 
+def expected_day_launches(cold, warm, rounds, n_ticks):
+    """Kernel launches of one day at k_steps = 8: each AL round of a tick
+    makes ceil(steps / 8) al_step calls; dr_features runs once a tick for
+    the final penalties and, for CR2 (rounds > 1), once for the fairness
+    targets and once per round for the equality residual."""
+    calls = -(-cold // 8) + (n_ticks - 1) * -(-warm // 8)
+    per_tick = rounds + 2 if rounds > 1 else 1
+    return {"al_step": rounds * calls, "dr_features": n_ticks * per_tick}
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_streaming(np, torch, p, p_tail):
+    """The rolling-horizon day at the main path's fleet, per policy; the
+    launch counts are reset just before the timed replay and read just
+    after. Returns the counts of the two replays."""
+    from repro_torch.core import api
+    from repro_torch.core.api import SolveContext, configured_policy, solve_day
+    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.daygraph import COUNTED, DAY_GRAPHS
+    from repro_torch.core.streaming import RollingHorizonSolver
+
+    # 48 ticks, so that one solver runs a second day: the first 24 are
+    # those of ForecastStream.caiso(n_ticks=24, horizon=48, seed=7).
+    stream = ForecastStream.caiso(n_ticks=2 * DAY_TICKS, horizon=T_MAIN,
+                                  seed=DAY_SEED)
+    stack = np.stack([stream.forecast(t) for t in range(DAY_TICKS)])
+    window = dataclasses.replace(p, mci=stack[0])
+    totals = {name: 0 for name in COUNTED}
+    for name, cold, warm, rounds in DAY_POLICIES:
+        pol = configured_policy(name, outer=rounds)
+        kw = dict(policy=pol, cold_steps=cold, warm_steps=warm)
+        loop, loop_wall = _timed(torch, lambda: RollingHorizonSolver(
+            p, stream, **kw).run(DAY_TICKS))
+        a, b = (RollingHorizonSolver(p, stream, **kw) for _ in range(2))
+        n0 = DAY_GRAPHS.captures
+        torch.cuda.reset_peak_memory_stats()
+        first, capture_wall = _timed(torch, lambda: a.run_scanned(DAY_TICKS))
+        capture_peak = torch.cuda.max_memory_allocated()
+        require(DAY_GRAPHS.captures == n0 + 1,
+                f"{name}: the first day did not capture one graph")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in COUNTED.values():
+            fn.launches = 0
+        scan, replay_wall = _timed(torch, lambda: b.run_scanned(DAY_TICKS))
+        launches = {n: fn.launches for n, fn in COUNTED.items()}
+        replay_peak = torch.cuda.max_memory_allocated()
+        require(DAY_GRAPHS.captures == n0 + 1,
+                f"{name}: the second day captured again")
+        want = expected_day_launches(cold, warm, rounds, DAY_TICKS)
+        log(f"[day] {name}: launches per replay {launches} (expected "
+            f"{want}: {rounds} round(s) x (ceil({cold}/8) + "
+            f"{DAY_TICKS - 1} x ceil({warm}/8)) al_step; dr_features "
+            f"{DAY_TICKS} x {want['dr_features'] // DAY_TICKS})")
+        require(launches == want, f"{name}: day launches {launches} != {want}")
+        for k in totals:
+            totals[k] += launches[k]
+
+        def replay():
+            return solve_day(window, pol, stack, ctx=SolveContext(),
+                             cold_steps=cold, warm_steps=warm)
+
+        on_device = device_launches(torch, replay)
+        log(f"[day] {name}: kernels the card ran in one replay, by "
+            f"torch.profiler: {on_device}")
+        require(on_device == want,
+                f"{name}: the device ran {on_device}, expected {want}")
+        res = replay()
+        _, _, day, inputs = api._day_setup(window, pol, stack, SolveContext(),
+                                           cold, warm)
+        with torch.no_grad():
+            eager, eager_wall = _timed(torch, lambda: api._day_impl(day,
+                                                                   inputs))
+        st = res.last.state
+        got = [res.committed, res.last.D,
+               *(t.cpu().numpy() for t in (st.x, st.lam_eq, st.mu))]
+        ref = [t.cpu().numpy() for t in eager[:2]] + [
+            t.cpu().numpy() for t in (eager[3], eager[4], eager[6])]
+        replay_err = max(float(np.abs(g - r).max(initial=0.0))
+                         for g, r in zip(got, ref))
+        require(np.array_equal(first.committed, scan.committed),
+                f"{name}: the captured day differs from its replay")
+        d_pp = abs(scan.realized_reduction_pct - loop.realized_reduction_pct)
+        d_commit = float(np.abs(scan.committed - loop.committed).max())
+        pres = scan.ticks[-1].plan.preservation_violation
+        log(f"[day] {name}: realized carbon loop "
+            f"{loop.realized_reduction_pct:.4f} %, day "
+            f"{scan.realized_reduction_pct:.4f} % ({d_pp:.2e} pp, limit "
+            f"{SCAN_PP}); committed max |day - loop| {d_commit:.3e} NP "
+            f"(limit {COMMIT_ATOL}); replay vs eager day max |diff| "
+            f"{replay_err:.3e} (limit {REPLAY_TOL:g}); last plan "
+            f"preservation {pres:.3e}, carbon "
+            f"{scan.ticks[-1].plan.carbon_reduction_pct:.4f} %, penalty "
+            f"{scan.ticks[-1].plan.total_penalty_pct:.4f} %")
+        require(d_pp < SCAN_PP, f"{name}: loop vs day {d_pp:.4f} pp")
+        require(d_commit <= COMMIT_ATOL, f"{name}: committed {d_commit:.3e}")
+        require(replay_err <= REPLAY_TOL, f"{name}: replay vs eager day "
+                f"{replay_err:.3e}")
+        require(pres < PRESERVATION_TOL, f"{name}: preservation {pres:.3e}")
+        for r in (loop, scan):
+            require(bool(np.isfinite(r.committed).all())
+                    and r.committed.shape == (p.W, DAY_TICKS),
+                    f"{name}: committed hours not finite or not (W, 24)")
+
+        n1 = DAY_GRAPHS.captures
+        b2, warm_capture_wall = _timed(torch, lambda: b.run_scanned(DAY_TICKS))
+        a2, warm_wall = _timed(torch, lambda: a.run_scanned(DAY_TICKS))
+        require(DAY_GRAPHS.captures == n1 + 1,
+                f"{name}: the warm days did not share one graph")
+        warm_err = float(np.abs(a2.committed - b2.committed).max())
+        require(warm_err == 0.0, f"{name}: two replays of one warm day "
+                f"differ by {warm_err:.3e}")
+        require(bool(np.isfinite(a2.committed).all())
+                and a2.ticks[-1].plan.preservation_violation
+                < PRESERVATION_TOL, f"{name}: warm day")
+        log(f"[day] {name} walls (host clock, synchronized): per-tick loop "
+            f"{loop_wall:.4f} s; first day (warm-up day + capture + replay) "
+            f"{capture_wall:.4f} s; replay {replay_wall:.4f} s; the eager "
+            f"day (_day_impl) {eager_wall:.4f} s; warm second day: capture "
+            f"{warm_capture_wall:.4f} s, replay {warm_wall:.4f} s "
+            f"(realized {a2.realized_reduction_pct:.4f} % over ticks "
+            f"{DAY_TICKS}-{2 * DAY_TICKS - 1})")
+        log(f"[day] {name} peak memory: first day {capture_peak / 2**20:.1f} "
+            f"MiB, replay {replay_peak / 2**20:.1f} MiB "
+            f"(torch.cuda.max_memory_allocated; {len(DAY_GRAPHS)} graphs "
+            f"cached)")
+
+    tail_stream = ForecastStream.caiso(n_ticks=TAIL_TICKS, horizon=T_MAIN,
+                                       seed=DAY_SEED)
+    for name, cold, warm, rounds in DAY_POLICIES:
+        kw = dict(policy=configured_policy(name, outer=rounds),
+                  cold_steps=cold, warm_steps=warm)
+        f, g = (RollingHorizonSolver(p_tail, tail_stream, use_kernel=uk,
+                                     **kw).run_scanned(TAIL_TICKS)
+                for uk in (True, False))
+        fl, gl = f.ticks[-1].plan, g.ticks[-1].plan
+        diffs = (abs(f.realized_reduction_pct - g.realized_reduction_pct),
+                 abs(fl.carbon_reduction_pct - gl.carbon_reduction_pct),
+                 abs(fl.total_penalty_pct - gl.total_penalty_pct))
+        log(f"[day] {name} at W = {p_tail.W}, {TAIL_TICKS} ticks, fused - "
+            f"generic: realized {diffs[0]:.4f} pp, last plan carbon "
+            f"{diffs[1]:.4f} pp, penalty {diffs[2]:.4f} pp (limit {PP_TOL})")
+        require(max(diffs) < PP_TOL, f"{name}: fused vs generic day {diffs}")
+    return totals
+
+
 def phase_rmsnorm(torch):
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
@@ -790,6 +976,8 @@ def main() -> int:
     log("[check] kernels held against their plain versions on the card: "
         + ", ".join(recs))
     launches = phase_main_path(np, torch, fleets[0])
+    for name, n in phase_streaming(np, torch, *fleets).items():
+        launches[name] += n
     for path in SERVE_PATHS:
         for name, n in phase_serve(np, torch, *path).items():
             launches[name] = launches.get(name, 0) + n

@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
 """Where the time of the port's fused CR1/CR2 solves goes on the card.
 
-    python3 scripts/port_profile.py
+    python3 scripts/port_profile.py          # one solve per policy
+    python3 scripts/port_profile.py --day    # one rolling-horizon day
 
 Builds chip_smoke's fleet (paper fleet at num_samples=32, num_jobs=1000,
-cloned to W = 10,000, T = 48), warms up, then solves CR1(1.45) and
-CR2(0.78) at their default steps under `torch.profiler` (CPU and CUDA
-activities). For each solve it prints the wall time, the device-busy time
-(the union of the traced kernel and copy intervals), the device idle share
-1 - busy / wall, and the device time by kernel name, with the card's name
-and power limit. If the trace holds no device events it says so.
+cloned to W = 10,000, T = 48) and warms up. Without `--day` it solves
+CR1(1.45) and CR2(0.78) at their default steps under `torch.profiler`
+(CPU and CUDA activities). With `--day` it profiles chip_smoke's
+streaming day per policy (24 ticks of `ForecastStream.caiso(n_ticks=24,
+horizon=48, seed=7)`, CR1 cold 600 / warm 150 steps, CR2 outer 6, cold
+400 / warm 100 a round): one CUDA-graph replay of `api.solve_day` (the
+graph captured before the window) and the same day run eagerly
+(`api._day_impl`, launch by launch). For each it prints the wall time,
+the device-busy time (the union of the traced kernel and copy
+intervals), the device idle share 1 - busy / wall, al_step's launches
+and mean device time per call, and the device time by kernel name, with
+the card's name and power limit. If the trace holds no device events it
+says so.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -35,12 +45,81 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def main() -> int:
-    import torch
+def _profile(torch, label, fn) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print(f"{label}: the trace holds no device events")
+        return
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    al = [e.time_range.end - e.time_range.start for e in dev
+          if "al_step_kernel" in e.name]
+    per_call = f"{sum(al) / len(al):.2f} us" if al else "none"
+    print(f"{label}: wall {wall_us / 1e3:.3f} ms (profiler on), device "
+          f"busy {busy / 1e3:.3f} ms, idle share {1.0 - busy / wall_us:.4f}, "
+          f"{len(dev)} device events; al_step {len(al)} x {per_call}")
+    by_name: dict[str, list[float]] = {}
+    for e in dev:
+        by_name.setdefault(e.name, []).append(
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    for name, ts in top:
+        print(f"  {sum(ts) / 1e3:9.3f} ms  {len(ts):5d} x  {name[:90]}")
 
+
+def _solves(torch, p) -> None:
     from repro_torch.core.api import CR1, CR2, SolveContext, solve
+    for pol in (CR1(lam=1.45), CR2(cap_frac=0.78)):
+        solve(p, pol, ctx=SolveContext(steps=8))
+    for pol in (CR1(lam=1.45), CR2(cap_frac=0.78)):
+        _profile(torch, pol.name, lambda: solve(p, pol))
+
+
+def _days(torch, p) -> None:
+    import numpy as np
+
+    from repro_torch.core import api
+    from repro_torch.core.carbon import ForecastStream
+    stream = ForecastStream.caiso(n_ticks=24, horizon=48, seed=7)
+    stack = np.stack([stream.forecast(t) for t in range(24)])
+    window = dataclasses.replace(p, mci=stack[0])
+    ctx = api.SolveContext()
+    for name, cold, warm, outer in (("cr1", 600, 150, 1),
+                                    ("cr2", 400, 100, 6)):
+        pol = api.configured_policy(name, outer=outer)
+
+        def replay():
+            return api.solve_day(window, pol, stack, ctx=ctx,
+                                 cold_steps=cold, warm_steps=warm)
+
+        _, _, day, inputs = api._day_setup(window, pol, stack, ctx, cold,
+                                           warm)
+
+        def eager():
+            with torch.no_grad():
+                return api._day_impl(day, inputs)
+
+        replay()                       # capture (and the warm-up day)
+        _profile(torch, f"{name} day, one CUDA-graph replay", replay)
+        _profile(torch, f"{name} day, eager (_day_impl)", eager)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--day", action="store_true",
+                    help="profile the 24-tick streaming day instead of "
+                         "one solve per policy")
+    args = ap.parse_args()
+    import torch
+
     from repro_torch.core.fleet_solver import synthetic_fleet
     from repro_torch.core.fleetcache import cached_paper_fleet
 
@@ -53,31 +132,7 @@ def main() -> int:
     fleet = cached_paper_fleet(hours=48, num_samples=32, num_jobs=1000,
                                device="cuda")
     p = synthetic_fleet(10_000, hours=48, seed=0, templates=fleet)
-    for pol in (CR1(lam=1.45), CR2(cap_frac=0.78)):
-        solve(p, pol, ctx=SolveContext(steps=8))
-    torch.cuda.synchronize()
-    for pol in (CR1(lam=1.45), CR2(cap_frac=0.78)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            solve(p, pol)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not dev:
-            print(f"{pol.name}: the trace holds no device events")
-            continue
-        busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
-        print(f"{pol.name}: wall {wall_us / 1e3:.3f} ms (profiler on), device "
-              f"busy {busy / 1e3:.3f} ms, idle share "
-              f"{1.0 - busy / wall_us:.4f}, {len(dev)} device events")
-        by_name: dict[str, list[float]] = {}
-        for e in dev:
-            by_name.setdefault(e.name, []).append(
-                e.time_range.end - e.time_range.start)
-        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
-        for name, ts in top:
-            print(f"  {sum(ts) / 1e3:9.3f} ms  {len(ts):5d} x  {name[:90]}")
+    (_days if args.day else _solves)(torch, p)
     return 0
 
 

@@ -13,6 +13,13 @@ reset, kernel dispatch and the step budget. With `use_kernel` (on by
 default on CUDA) the inner loop is the fused `al_step` kernel and the
 penalties go through the `dr_features` kernel.
 
+`solve_day(problem, policy, mci_stack, ...)` solves a whole
+rolling-horizon day (one re-solve per revised forecast, each warm from
+the last, shifted an hour). Its tick loop (`_day_impl`) is plain tensor
+code; on CUDA with the kernels the day is captured once per static
+configuration and then runs as one CUDA-graph replay (`core/daygraph.py`),
+the port's counterpart of the JAX package's one-dispatch `lax.scan`.
+
 Two departures from the JAX package, both so that the checks the port
 is held to hold at fleet scale (W = 10,000): the projection after every
 step is the exact Euclidean one onto the box and the batch rows' day
@@ -20,21 +27,25 @@ preservation, where the JAX package takes 3 rounds of day-mean removal,
 and the fused kernel takes autodiff's one half at hinge ties, as the
 generic engine does (see `kernels/al_step/ref.py`).
 
-Ported so far: CR1 and CR2 on single-region fleets. Meshes, donation,
-sweeps, ensembles, CR3, the baselines and migration are not.
+Ported so far: CR1 and CR2 on single-region fleets, and their day.
+Meshes, sweeps, ensembles, CR3, the baselines and migration are not.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import ClassVar, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
+from repro_torch.core.daygraph import DAY_GRAPHS
 from repro_torch.core.engine import EngineConfig, EngineState, al_minimize
 from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, FleetProblem,
                                            FleetSolveResult, _bounds,
                                            _enter_tick, _projection, _report,
-                                           cr2_reference_fleet, device_view,
+                                           cr2_cap_plan, cr2_reference_fleet,
+                                           cr2_reference_tensor, device_view,
                                            fleet_penalties,
                                            single_region_view)
 from repro_torch.core.regional import cr1_norms, cr2_norms
@@ -43,8 +54,13 @@ from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
 Tensor = torch.Tensor
 f32 = torch.float32
 
-__all__ = ["CR1", "CR2", "DRPolicy", "POLICY_REGISTRY", "SolveContext",
-           "resolve_policy", "solve"]
+__all__ = ["CR1", "CR2", "DRPolicy", "DayResult", "POLICY_REGISTRY",
+           "SolveContext", "configured_policy", "resolve_policy", "solve",
+           "solve_day"]
+
+#: The JAX package's other registered policies, by name (ROADMAP queue 1,
+#: item 8 ports them).
+UNPORTED_POLICIES = {"cr3": "CR3", "b1": "B1", "b3": "B3"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +83,12 @@ class SolveContext:
         `default_steps`.
       moment_dtype: storage dtype of the Adam moments, "float32" or
         "bfloat16"; x keeps a float32 master copy.
+      donate: a later solve may invalidate this result's `state`, as in
+        the JAX package. In the port that is `solve_day` on CUDA with the
+        kernels: the returned state then aliases the day graph's static
+        output buffers, which the graph's next replay overwrites; without
+        `donate` the state is cloned. `solve` returns fresh tensors
+        either way.
     """
     device: str | torch.device | None = None
     shift: int = 0
@@ -75,6 +97,7 @@ class SolveContext:
     use_kernel: bool | None = None
     steps: int | None = None
     moment_dtype: str = "float32"
+    donate: bool = False
 
     def resolved_steps(self, policy: "DRPolicy") -> int:
         return self.steps if self.steps is not None else policy.default_steps
@@ -102,8 +125,11 @@ def _register(cls):
 
 
 def resolve_policy(policy) -> DRPolicy:
-    """Coerce a registry name, policy class, or policy object to an object."""
+    """Coerce a registry name, policy class, or policy object to an object.
+    The JAX package's policies that are not ported yet raise
+    `NotImplementedError` by name, unknown names `ValueError`."""
     if isinstance(policy, str):
+        _refuse_unported(policy)
         try:
             return POLICY_REGISTRY[policy]()
         except KeyError:
@@ -117,6 +143,35 @@ def resolve_policy(policy) -> DRPolicy:
             f"policy must be a DRPolicy (e.g. CR1(lam=1.45)) or a "
             f"registered name; got {type(policy).__name__}")
     return policy
+
+
+def _refuse_unported(name: str) -> None:
+    if name in UNPORTED_POLICIES:
+        raise NotImplementedError(
+            f"policy {name!r} ({UNPORTED_POLICIES[name]}) is not ported yet "
+            f"(ROADMAP queue 1, item 8: CR3, baselines and the SLSQP "
+            f"reference)")
+
+
+def configured_policy(policy, *, lam: float = 1.45, cap_frac: float = 0.78,
+                      outer: int = 4, rho: float | None = None,
+                      tax_frac: float | None = None) -> DRPolicy:
+    """`resolve_policy` with the legacy keyword knobs: registry names
+    become objects configured from the matching knobs (CR1: `lam`; CR2:
+    `cap_frac`/`outer`, `outer` defaulting to 4, the JAX package's
+    streaming-controller budget); policy objects pass through unchanged
+    (the knobs are ignored). CR3's knobs `rho`/`tax_frac`, and the names
+    of the policies not ported yet, raise `NotImplementedError`."""
+    for knob, val in (("rho", rho), ("tax_frac", tax_frac)):
+        if val is not None:
+            raise NotImplementedError(
+                f"{knob} configures CR3, which is not ported yet (ROADMAP "
+                f"queue 1, item 8)")
+    by_name = {"cr1": lambda: CR1(lam=lam),
+               "cr2": lambda: CR2(cap_frac=cap_frac, outer=outer)}
+    if isinstance(policy, str) and policy in by_name:
+        return by_name[policy]()
+    return resolve_policy(policy)
 
 
 def solve(problem: FleetProblem, policy, *,
@@ -171,13 +226,15 @@ def _cr1_cfg(steps: int, moment_dtype: str = "float32") -> EngineConfig:
                         moment_dtype=moment_dtype)
 
 
-def _cr1_impl(p: FleetProblem, lam: float, state0: EngineState,
-              ctx: SolveContext, steps: int, use_kernel: bool):
-    """One CR1 solve on the device view `p` -> (D, penalties, state)."""
-    state0 = _enter_tick(state0, ctx.shift, ctx.reset_mu, CR1_MU0)
+def _cr1_impl(p: FleetProblem, lam, state0: EngineState, steps: int,
+              use_kernel: bool, shift: int, reset_mu: bool,
+              moment_dtype: str):
+    """One CR1 solve on the device view `p` -> (D, penalties, state).
+    `lam` is a float or a 0-d float32 tensor (a day's static buffer)."""
+    state0 = _enter_tick(state0, shift, reset_mu, CR1_MU0)
     norms = cr1_norms(p)
     objective, project, step_scale = _cr1_pieces(p, use_kernel, norms)
-    cfg = _cr1_cfg(steps, ctx.moment_dtype)
+    cfg = _cr1_cfg(steps, moment_dtype)
     fused = _al_fused_inner(p, "cr1", cfg, car_norm=norms[1],
                             step_scale=step_scale,
                             coef0=lam * norms[0]) if use_kernel else None
@@ -208,7 +265,8 @@ class CR1:
         steps = ctx.resolved_steps(self)
         warm = ctx.warm or EngineState.cold(_cold_x(p, device))
         D, pens, state = _cr1_impl(device_view(p, device), self.lam, warm,
-                                   ctx, steps, use_kernel)
+                                   steps, use_kernel, ctx.shift,
+                                   ctx.reset_mu, ctx.moment_dtype)
         return _report(p, D.cpu().numpy(), pens.cpu().numpy(), iters=steps,
                        state=state)
 
@@ -236,13 +294,14 @@ def _cr2_cfg(steps: int, outer: int,
 
 
 def _cr2_impl(p: FleetProblem, refs: Tensor, state0: EngineState,
-              ctx: SolveContext, steps: int, outer: int, use_kernel: bool):
+              steps: int, outer: int, use_kernel: bool, shift: int,
+              reset_mu: bool, moment_dtype: str):
     """One CR2 solve on the device view `p` -> (D, penalties, state)."""
-    state0 = _enter_tick(state0, ctx.shift, ctx.reset_mu, CR2_MU0)
+    state0 = _enter_tick(state0, shift, reset_mu, CR2_MU0)
     norms = cr2_norms(p, refs)
     objective, eq, project, step_scale = _cr2_pieces(p, refs, use_kernel,
                                                      norms)
-    cfg = _cr2_cfg(steps, outer, ctx.moment_dtype)
+    cfg = _cr2_cfg(steps, outer, moment_dtype)
     fused = _al_fused_inner(p, "cr2", cfg, car_norm=norms[0],
                             step_scale=step_scale, scale=norms[1],
                             refs=refs) if use_kernel else None
@@ -278,7 +337,213 @@ class CR2:
                                device=device)
         warm = ctx.warm or EngineState.cold(_cold_x(p, device), n_eq=p.W,
                                             mu0=CR2_MU0)
-        D, pens, state = _cr2_impl(device_view(p, device), refs, warm, ctx,
-                                   steps, self.outer, use_kernel)
+        D, pens, state = _cr2_impl(device_view(p, device), refs, warm,
+                                   steps, self.outer, use_kernel, ctx.shift,
+                                   ctx.reset_mu, ctx.moment_dtype)
         return _report(p, D.cpu().numpy(), pens.cpu().numpy(),
                        iters=steps * self.outer, state=state)
+
+
+# ---------------------------------------------------------------------------
+# A whole rolling-horizon day: one CUDA-graph replay on the card
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DayResult:
+    """Result of `solve_day`.
+
+    committed: (n_ticks, W), hour 0 of every tick's plan (the hours the
+      controller commits).
+    last: the final tick's full `FleetSolveResult`; its `.state` warm-starts
+      the next day (`ctx.warm`).
+    inner_steps: engine iterations per tick (the cold budget first unless
+      the day itself was warm-started)."""
+    committed: np.ndarray
+    last: FleetSolveResult
+    inner_steps: tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Day:
+    """A day's static configuration: what its tick loop's code depends on
+    beyond the tensors it is given. One CUDA graph each."""
+    policy: str
+    outer: int
+    W: int
+    T: int
+    n_ticks: int
+    first_steps: int
+    warm_steps: int
+    first_shift: int
+    first_reset: bool
+    warm: bool
+    moment_dtype: str
+    day_hours: int
+    max_curtail_frac: float
+    has_upper: bool
+    use_kernel: bool
+    device: str
+
+
+_FLEET_BUFFERS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
+                  "x2_kind", "jobs", "is_batch", "upper")
+
+
+def _day_setup(problem: FleetProblem, policy, mci_stack,
+               ctx: SolveContext, cold_steps: int | None,
+               warm_steps: int | None):
+    """Validate a day and lay it out: returns (problem, mci_stack, day,
+    inputs) with the single-region problem, the float32 (n_ticks, T)
+    stack, the static `_Day` and the day's tensors on its device (the
+    fleet's fields, the stack, CR1's lam or CR2's float64 cap plan in
+    float32, and a warm state, cloned)."""
+    if not isinstance(problem, FleetProblem):
+        raise TypeError(f"solve_day() takes a FleetProblem; got "
+                        f"{type(problem).__name__}")
+    problem = single_region_view(problem)
+    stack = np.asarray(mci_stack, np.float32)
+    if stack.ndim == 3 and stack.shape[1] == 1:
+        stack = stack[:, 0]          # degenerate R = 1 stack, canonicalized
+    want = np.asarray(problem.mci).shape
+    if stack.ndim != len(want) + 1 or stack.shape[1:] != want:
+        raise ValueError(f"mci_stack must be (n_ticks,) + {want} (one "
+                         f"forecast per tick); got shape {stack.shape}")
+    if stack.shape[0] < 1:
+        raise ValueError("mci_stack holds no tick")
+    if not isinstance(policy, (CR1, CR2)):
+        raise NotImplementedError(
+            f"solve_day supports CR1/CR2; {policy.name} needs host-side "
+            f"control flow, use the per-tick solve()/step() loop")
+    device = resolve_device(ctx.device)
+    use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+    if cold_steps is None:
+        cold_steps = ctx.resolved_steps(policy)
+    if warm_steps is None:
+        warm_steps = max(1, cold_steps // 4)
+    warm = ctx.warm is not None
+    day = _Day(policy=policy.name,
+               outer=policy.outer if isinstance(policy, CR2) else 1,
+               W=problem.W, T=problem.T, n_ticks=stack.shape[0],
+               first_steps=warm_steps if warm else cold_steps,
+               warm_steps=warm_steps,
+               first_shift=(ctx.shift or 1) if warm else 0, first_reset=warm,
+               warm=warm, moment_dtype=ctx.moment_dtype,
+               day_hours=problem.day_hours,
+               max_curtail_frac=float(problem.max_curtail_frac),
+               has_upper=problem.upper is not None, use_kernel=use_kernel,
+               device=str(device))
+    view = device_view(problem, device)
+    inputs = {n: getattr(view, n) for n in _FLEET_BUFFERS
+              if getattr(view, n) is not None}
+    inputs["mci"] = torch.as_tensor(stack, device=device)
+    if isinstance(policy, CR1):
+        inputs["lam"] = torch.full((), policy.lam, dtype=f32, device=device)
+    else:
+        inputs["cap_plan"] = torch.as_tensor(
+            cr2_cap_plan(problem, policy.cap_frac), dtype=f32, device=device)
+    if warm:
+        shapes = {"x": (day.W, day.T), "lam_in": (0,), "mu": (),
+                  "lam_eq": (day.W,) if isinstance(policy, CR2) else (0,)}
+        for name, shape in shapes.items():
+            t = getattr(ctx.warm, name)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"ctx.warm.{name} has shape "
+                                 f"{tuple(t.shape)}; a {policy.name} day at "
+                                 f"W = {day.W}, T = {day.T} takes {shape}")
+            inputs[name] = t.detach().to(device, f32).clone()
+    return problem, stack, day, inputs
+
+
+def _day_impl(day: _Day, inputs: dict[str, Tensor]):
+    """The day's tick loop, plain code on the tensors of `inputs`: tick 0
+    with its own budget, shift and mu reset, then for every later tick
+    roll usage, jobs, `upper` (and CR2's cap plan) an hour, shift the
+    plan (`EngineState.shifted`), reset mu and re-solve warm. The same on
+    the CPU and on the card, where `solve_day` captures it. Returns
+    (committed (n_ticks, W), D, penalties, x, lam_eq, lam_in, mu) of the
+    last tick."""
+    p = FleetProblem(**{n: inputs.get(n) for n in _FLEET_BUFFERS},
+                     mci=inputs["mci"][0], day_hours=day.day_hours,
+                     max_curtail_frac=day.max_curtail_frac)
+    if day.warm:
+        state = EngineState(x=inputs["x"], lam_eq=inputs["lam_eq"],
+                            lam_in=inputs["lam_in"], mu=inputs["mu"])
+    else:
+        x0 = torch.zeros((day.W, day.T), dtype=f32, device=p.usage.device)
+        state = (EngineState.cold(x0) if day.policy == "cr1" else
+                 EngineState.cold(x0, n_eq=day.W, mu0=CR2_MU0))
+
+    def tick_solve(p_t, cap, st, steps, shift, reset_mu):
+        if day.policy == "cr1":
+            return _cr1_impl(p_t, inputs["lam"], st, steps, day.use_kernel,
+                             shift, reset_mu, day.moment_dtype)
+        return _cr2_impl(p_t, cr2_reference_tensor(p_t, cap), st, steps,
+                         day.outer, day.use_kernel, shift, reset_mu,
+                         day.moment_dtype)
+
+    def roll(a):
+        return None if a is None else torch.roll(a, -1, dims=1)
+
+    cap = inputs.get("cap_plan")
+    D, pens, state = tick_solve(p, cap, state, day.first_steps,
+                                day.first_shift, day.first_reset)
+    committed = [D[:, 0]]
+    for tick in range(1, day.n_ticks):
+        p = dataclasses.replace(p, usage=roll(p.usage), jobs=roll(p.jobs),
+                                upper=roll(p.upper), mci=inputs["mci"][tick])
+        cap = roll(cap)
+        D, pens, state = tick_solve(p, cap, state, day.warm_steps, 1, True)
+        committed.append(D[:, 0])
+    return (torch.stack(committed), D, pens, state.x, state.lam_eq,
+            state.lam_in, state.mu)
+
+
+def solve_day(problem: FleetProblem, policy, mci_stack, *,
+              ctx: SolveContext | None = None, cold_steps: int | None = None,
+              warm_steps: int | None = None) -> DayResult:
+    """Solve a whole rolling-horizon day.
+
+    `mci_stack` is the (n_ticks, T) forecast-revision stack: row i is the
+    forecast the controller sees at tick i. Tick 0 solves with
+    `cold_steps` (the policy's default when None) from `ctx.warm` or a
+    cold state; every later tick rolls the window an hour, shifts the
+    plan, resets mu and re-solves with `warm_steps` (default
+    `cold_steps // 4`). A warm-started day runs every tick at
+    `warm_steps`, its first shifted `ctx.shift or 1` hours.
+
+    On CUDA with the kernels (`use_kernel`, on by default there) the day
+    is one CUDA-graph replay (`core/daygraph.py`): captured on the first
+    day of each static configuration (policy and `outer`, W, T, n_ticks,
+    the step budgets, the first tick's shift and reset, `moment_dtype`,
+    `day_hours`, `max_curtail_frac`, whether `upper` is given), replayed
+    after that with the day's data (fleet, forecasts, warm state, lam or
+    the cap plan) copied into its buffers. A failed capture raises.
+    Elsewhere, and with `use_kernel=False`, the tick loop runs eagerly.
+    CR1/CR2 only. Returns `DayResult`; `result.last.state` warm-starts
+    the next day.
+    """
+    ctx = ctx or SolveContext()
+    policy = resolve_policy(policy)
+    problem, stack, day, inputs = _day_setup(problem, policy, mci_stack, ctx,
+                                             cold_steps, warm_steps)
+    if day.device.startswith("cuda") and day.use_kernel:
+        out = DAY_GRAPHS.run(day, functools.partial(_day_impl, day), inputs)
+        if not ctx.donate:
+            out = out[:3] + tuple(t.clone() for t in out[3:])
+    else:
+        with torch.no_grad():
+            out = _day_impl(day, inputs)
+    committed, D, pens = (t.cpu().numpy() for t in out[:3])
+    state = EngineState(*out[3:])
+    mult = day.outer if isinstance(policy, CR2) else 1
+    n = day.n_ticks
+    iters = (day.first_steps * mult,) + (day.warm_steps * mult,) * (n - 1)
+
+    def rolled(a):
+        return None if a is None else np.roll(np.asarray(a), -(n - 1), axis=1)
+
+    p_last = dataclasses.replace(problem, mci=stack[-1],
+                                 usage=rolled(problem.usage),
+                                 jobs=rolled(problem.jobs),
+                                 upper=rolled(problem.upper))
+    last = _report(p_last, D, pens, iters=iters[-1], state=state)
+    return DayResult(committed=committed, last=last, inner_steps=iters)

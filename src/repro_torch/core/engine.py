@@ -133,8 +133,10 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
         x = project(init.x)
         lam_eq, lam_in = init.lam_eq.to(dt), init.lam_in.to(dt)
         mu = torch.as_tensor(init.mu, dtype=dt, device=x.device)
-    b1 = torch.tensor(cfg.beta1, dtype=dt, device=x.device)
-    b2 = torch.tensor(cfg.beta2, dtype=dt, device=x.device)
+    # Filled on the device, not copied from the host: a CUDA graph can
+    # capture the loop (`core/daygraph.py`).
+    b1 = torch.full((), cfg.beta1, dtype=dt, device=x.device)
+    b2 = torch.full((), cfg.beta2, dtype=dt, device=x.device)
 
     for _ in range(cfg.outer_steps):
         if fused_inner is not None:

@@ -196,6 +196,14 @@ def fleet_penalties(p: FleetProblem, D: Tensor,
     return t(p.k) * raw
 
 
+def cr2_cap_plan(p: FleetProblem, cap_frac: float) -> np.ndarray:
+    """(W, T) curtailment of a hypothetical equal power cap at cap_frac·E,
+    max(U − cap_frac·E, 0), in float64 numpy: CR2's fairness targets are
+    its penalties."""
+    L = cap_frac * np.asarray(p.entitlement)[:, None]
+    return np.maximum(np.asarray(p.usage) - L, 0.0)
+
+
 def cr2_reference_fleet(p: FleetProblem, cap_frac: float,
                         device: str | torch.device | None = None,
                         ) -> np.ndarray:
@@ -203,10 +211,18 @@ def cr2_reference_fleet(p: FleetProblem, cap_frac: float,
     fairness targets. The cap is taken in float64 numpy, the penalties in
     float32 on `device` (None = the CUDA device; the kernel runs there)."""
     device = resolve_device(device)
-    L = cap_frac * np.asarray(p.entitlement)[:, None]
-    d_cap = np.maximum(np.asarray(p.usage) - L, 0.0)
-    D = torch.as_tensor(d_cap, dtype=f32, device=device)
-    return fleet_penalties(p, D).cpu().numpy()
+    D = torch.as_tensor(cr2_cap_plan(p, cap_frac), dtype=f32, device=device)
+    return cr2_reference_tensor(p, D).cpu().numpy()
+
+
+def cr2_reference_tensor(p: FleetProblem, cap_plan: Tensor) -> Tensor:
+    """The device twin of `cr2_reference_fleet`: the (W,) targets as a
+    float32 tensor on `cap_plan`'s device, with no round trip through the
+    host, so that a CUDA graph can hold it. `cap_plan` is `cr2_cap_plan`
+    of the window in float32 (a day rolls it with the window, which gives
+    every tick the float64 cap that `solve()` takes); the kernel runs
+    wherever the device has it, as in `cr2_reference_fleet`."""
+    return fleet_penalties(p, cap_plan)
 
 
 def _enter_tick(state: EngineState, shift: int, reset_mu: bool,

@@ -1,0 +1,337 @@
+"""Rolling-horizon streaming DR: re-solve as MCI forecasts revise.
+
+The paper plans against a static day-ahead marginal-carbon-intensity
+trace. A deployed Carbon Responder runs online: every hour the forecast
+provider re-issues the day-ahead horizon, the coordinator re-solves,
+commits only the first hour of the new plan, and the window slides
+forward. This module is that control loop:
+
+  * `ForecastStream` (`repro_torch.core.carbon`) supplies the revised
+    horizons: a persistence + lead-time-noise revision model, or replayed
+    snapshots.
+  * `RollingHorizonSolver` holds a `FleetProblem` template plus a
+    `DRPolicy` and, per tick:
+      1. slides the usage/jobs window one hour and swaps in the fresh
+         `(T,)` forecast,
+      2. warm-starts `api.solve(problem, policy, ctx=...)` from the
+         previous tick's `EngineState`, shifted one hour along time, with
+         the mu schedule restarted (multipliers carry over: they price
+         per-workload constraints, not hours),
+      3. commits hour 0 of the new plan and logs forecast vs realized
+         carbon for the committed hour.
+
+`step()` is one eager solve per tick. `run_scanned()` hands a whole day
+to `api.solve_day`, which on the card is one CUDA-graph replay of the
+day's tick loop (captured on the first day of each configuration). The
+warm start lets each tick run with a fraction of the cold solve's inner
+Adam steps.
+
+Receding-horizon caveat: batch day-preservation is enforced over the
+sliding window's 24 h blocks each re-solve; only committed hours are
+binding, so small per-window residuals wash out as the window slides.
+
+A port of the JAX package's `repro.core.streaming`, single-region and on
+one device: meshes, multi-region problems, the tick ledger, in-solve
+telemetry, the recompile guard and the policies other than CR1/CR2 raise
+`NotImplementedError`, each naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.api import (DRPolicy, SolveContext, configured_policy,
+                                  solve, solve_day)
+from repro_torch.core.carbon import ForecastStream
+from repro_torch.core.engine import EngineState
+from repro_torch.core.fleet_solver import (FleetProblem, FleetSolveResult,
+                                           single_region_view)
+
+
+def _rel_revision(prev: np.ndarray | None, cur: np.ndarray) -> float:
+    """Relative forecast-revision magnitude between consecutive horizons:
+    `‖cur[:-1] − prev[1:]‖₂ / ‖prev[1:]‖₂` over the re-forecast hours
+    both horizons cover (0.0 for the first horizon seen)."""
+    if prev is None:
+        return 0.0
+    tail = prev[..., 1:]
+    return float(np.linalg.norm((cur[..., :-1] - tail).ravel())
+                 / max(np.linalg.norm(tail.ravel()), 1e-12))
+
+
+@dataclasses.dataclass(frozen=True)
+class TickResult:
+    """One committed hour of online operation.
+
+    `plan` (the full-horizon solve: D matrix, engine state, ...) is only
+    retained on the latest tick: older history entries drop it so a
+    long-lived controller holds O(W) per tick, not O(W·T)."""
+    tick: int
+    committed: np.ndarray        # (W,) NP adjustments enforced this hour
+    forecast_mci: float          # hour-0 forecast
+    realized_mci: float          # actual MCI once the hour elapsed
+    inner_steps: int             # engine iterations spent on this re-solve
+    plan: FleetSolveResult | None
+
+    @property
+    def forecast_carbon(self) -> float:
+        """kg CO2 the plan expected to eliminate this hour."""
+        return float(self.committed.sum() * self.forecast_mci)
+
+    @property
+    def realized_carbon(self) -> float:
+        """kg CO2 actually eliminated this hour."""
+        return float(self.committed.sum() * self.realized_mci)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingReport:
+    """Aggregate of a rolling-horizon run."""
+    ticks: tuple[TickResult, ...]
+    committed: np.ndarray        # (W, n_ticks)
+    realized_carbon: float       # kg CO2 eliminated, priced at actual MCI
+    forecast_carbon: float       # same hours priced at solve-time forecasts
+    realized_baseline: float     # no-DR carbon of the committed hours
+    total_inner_steps: int
+
+    @property
+    def realized_reduction_pct(self) -> float:
+        return 100.0 * self.realized_carbon / max(self.realized_baseline,
+                                                  1e-12)
+
+    @property
+    def forecast_error_pct(self) -> float:
+        """|forecast − realized| carbon for committed hours, % of realized."""
+        return 100.0 * abs(self.forecast_carbon - self.realized_carbon) \
+            / max(abs(self.realized_carbon), 1e-12)
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"RollingHorizonSolver: {what} is not ported yet (ROADMAP queue 1, "
+        f"{item})")
+
+
+class RollingHorizonSolver:
+    """Online DR controller: warm-started re-solves over a sliding window.
+
+    Args:
+      problem: fleet template; `usage`/`jobs` (and `upper`) are treated as
+        periodic traces that slide with the window (`np.roll` along time).
+      stream: revised-forecast source; `stream.horizon` must equal
+        `problem.T` (a sequence of one stream is accepted).
+      policy: a `DRPolicy` object (`CR1(lam=...)`, `CR2(...)`) or a
+        registry name; unknown names raise `ValueError` here.
+      lam, cap_frac, outer: configure the policy when it is given by name
+        (`api.configured_policy`); ignored for a policy object.
+      cold_steps: inner Adam steps for the tick-0 cold solve.
+      warm_steps: inner steps for warm-started re-solves.
+      use_kernel: as `SolveContext.use_kernel` (None: the kernels on
+        CUDA, the plain path on the CPU).
+      device: where the solves run (None: the CUDA device; "cpu" for the
+        plain PyTorch path).
+      donate: `SolveContext.donate` for `run_scanned`: the solver's state
+        may alias the day graph's buffers (a later day of the same
+        configuration, on any solver, overwrites it).
+      adaptive_warm: scale each warm tick's budget by the forecast
+        revision magnitude instead of spending `warm_steps` flat: the
+        tick's relative revision (`_rel_revision`) maps linearly onto
+        `[warm_steps_min, warm_steps]`, quantized to 4 levels and
+        saturating at `revision_ref`.
+      warm_steps_min: floor for adaptive budgets (default
+        `warm_steps // 4`).
+      revision_ref: relative revision magnitude that earns the full
+        `warm_steps` (default 0.05).
+      rho, tax_frac, mesh, events, telemetry, guard_recompiles: the JAX
+        package's CR3 knobs, device mesh, tick ledger, in-solve telemetry
+        and recompile guard; not ported yet, they raise
+        `NotImplementedError` when set.
+
+    `last_rho` is kept for the JAX package's interface: CR1/CR2 clear no
+    carbon price, so it stays None.
+    """
+
+    def __init__(self, problem: FleetProblem,
+                 stream: ForecastStream | Sequence[ForecastStream], *,
+                 policy: str | DRPolicy = "cr1", lam: float = 1.45,
+                 cap_frac: float = 0.78, rho: float | None = None,
+                 tax_frac: float | None = None, cold_steps: int = 600,
+                 warm_steps: int = 150, outer: int = 4,
+                 use_kernel: bool | None = None,
+                 device: str | torch.device | None = None,
+                 mesh=None, donate: bool = False,
+                 adaptive_warm: bool = False,
+                 warm_steps_min: int | None = None,
+                 revision_ref: float = 0.05,
+                 guard_recompiles: bool = False,
+                 events=None, telemetry=None):
+        if mesh is not None:
+            _refuse("a device mesh", "item 11: multi-GPU row sharding")
+        for what, flag in (("the JSONL tick ledger (events)", events),
+                           ("in-solve telemetry", telemetry),
+                           ("guard_recompiles", guard_recompiles)):
+            if flag:
+                _refuse(what, "item 10: guardrails and observability")
+        streams = (tuple(stream) if isinstance(stream, (list, tuple))
+                   else (stream,))
+        if len(streams) != 1:
+            _refuse("a stream per region", "item 9: multi-region")
+        if np.ndim(problem.mci) == 2 and np.shape(problem.mci)[0] > 1:
+            _refuse("a multi-region problem", "item 9: multi-region")
+        problem = single_region_view(problem)
+        if streams[0].horizon != problem.T:
+            raise ValueError(f"stream horizon {streams[0].horizon} != "
+                             f"problem.T {problem.T}")
+        self.problem = problem
+        self.stream = streams[0]
+        self.policy = configured_policy(policy, lam=lam, cap_frac=cap_frac,
+                                        outer=outer, rho=rho,
+                                        tax_frac=tax_frac)
+        self.last_rho = getattr(self.policy, "rho", None)
+        self.cold_steps = cold_steps
+        self.warm_steps = warm_steps
+        self.adaptive_warm = adaptive_warm
+        self.warm_steps_min = max(1, warm_steps // 4) \
+            if warm_steps_min is None else warm_steps_min
+        if not 0 < self.warm_steps_min <= warm_steps:
+            raise ValueError(
+                f"warm_steps_min must be in (0, warm_steps={warm_steps}]; "
+                f"got {self.warm_steps_min}")
+        if revision_ref <= 0:
+            raise ValueError(f"revision_ref must be > 0, got {revision_ref}")
+        self.revision_ref = revision_ref
+        self.use_kernel = use_kernel
+        self.device = device
+        self.donate = donate
+        self._state: EngineState | None = None
+        self._prev_forecast: np.ndarray | None = None
+        self._tick = 0
+        self._history: list[TickResult] = []
+
+    # -- per-tick plumbing --------------------------------------------------
+    def _window_problem(self, tick: int, mci: np.ndarray) -> FleetProblem:
+        """Slide usage/jobs (and any operational cap) to hours
+        [tick, tick+T) and install `mci`."""
+        p = self.problem
+
+        def roll(a):
+            return None if a is None else np.roll(a, -tick, axis=1)
+
+        return dataclasses.replace(p, mci=np.asarray(mci), usage=roll(p.usage),
+                                   jobs=roll(p.jobs), upper=roll(p.upper))
+
+    def _ctx(self, **kw) -> SolveContext:
+        return SolveContext(device=self.device, donate=self.donate,
+                            use_kernel=self.use_kernel, **kw)
+
+    def _warm_budget(self, rel: float) -> int:
+        """Inner steps for this warm tick: `warm_steps` flat, or scaled by
+        the forecast revision magnitude `rel` under `adaptive_warm`."""
+        if not self.adaptive_warm or self._prev_forecast is None:
+            return self.warm_steps
+        frac = min(1.0, rel / self.revision_ref)
+        frac = round(3 * frac) / 3         # 4 budget levels
+        return int(round(self.warm_steps_min
+                         + (self.warm_steps - self.warm_steps_min) * frac))
+
+    def _retire_plan(self) -> None:
+        """Bound memory: the full plan lives on the latest tick only."""
+        if self._history:
+            self._history[-1] = dataclasses.replace(self._history[-1],
+                                                    plan=None)
+
+    def step(self) -> TickResult:
+        """Ingest the next forecast revision, re-solve, commit hour 0."""
+        tick = self._tick
+        mci_hat = self.stream.forecast(tick)
+        warm = self._state
+        rev = _rel_revision(self._prev_forecast, mci_hat)
+        # Warm ticks shift the plan one hour and restart the mu schedule
+        # at the policy's mu0: without the reset, mu compounds by
+        # mu_growth^outer per tick and CR2's walls turn stiff within a
+        # handful of ticks (multipliers still carry the constraint prices).
+        steps = self.cold_steps if warm is None else self._warm_budget(rev)
+        plan = solve(self._window_problem(tick, mci_hat), self.policy,
+                     ctx=self._ctx(shift=0 if warm is None else 1,
+                                   reset_mu=warm is not None, warm=warm,
+                                   steps=steps))
+        self._state = plan.state
+        self._prev_forecast = mci_hat
+        self._tick = tick + 1
+        out = TickResult(tick=tick, committed=np.asarray(plan.D[:, 0]),
+                         forecast_mci=float(mci_hat[0]),
+                         realized_mci=self.stream.realized(tick),
+                         inner_steps=plan.iters, plan=plan)
+        self._retire_plan()
+        self._history.append(out)
+        return out
+
+    def run(self, n_ticks: int | None = None,
+            on_tick: Callable[[TickResult], None] | None = None,
+            ) -> StreamingReport:
+        """Run `n_ticks` hours (default: all the stream supports)."""
+        n = self.stream.n_ticks - self._tick if n_ticks is None else n_ticks
+        for _ in range(n):
+            out = self.step()
+            if on_tick is not None:
+                on_tick(out)
+        return self.report()
+
+    def run_scanned(self, n_ticks: int | None = None) -> StreamingReport:
+        """Run `n_ticks` hours as one `api.solve_day`: on the card one
+        CUDA-graph replay of the whole day.
+
+        Precomputes the (n_ticks, T) forecast-revision stack from the
+        stream. Matches the per-tick `run()` loop to < 0.01 pp realized
+        carbon (CR1/CR2). Warm-continues from and updates the solver
+        state, so `run_scanned(24)` per day and mixed `step()` /
+        `run_scanned()` schedules both work. `adaptive_warm` is refused:
+        a day's budget is part of its static configuration.
+        """
+        if self.adaptive_warm:
+            raise ValueError(
+                "run_scanned needs a flat warm budget: adaptive_warm picks "
+                "each tick's step count from the forecast revision at run "
+                "time, which one captured day cannot express; construct "
+                "with adaptive_warm=False or use run()")
+        t0 = self._tick
+        n = self.stream.n_ticks - t0 if n_ticks is None else n_ticks
+        if n <= 0:
+            raise ValueError(f"n_ticks must be >= 1, got {n}")
+        mci_stack = np.stack([self.stream.forecast(t0 + i) for i in range(n)])
+        day = solve_day(self._window_problem(t0, mci_stack[0]), self.policy,
+                        mci_stack,
+                        ctx=self._ctx(warm=self._state, shift=1,
+                                      reset_mu=self._state is not None),
+                        cold_steps=self.cold_steps,
+                        warm_steps=self.warm_steps)
+        self._state = day.last.state
+        self._prev_forecast = mci_stack[-1]
+        self._tick = t0 + n
+        self._retire_plan()
+        self._history.extend(TickResult(
+            tick=t0 + i, committed=day.committed[i],
+            forecast_mci=float(mci_stack[i][0]),
+            realized_mci=self.stream.realized(t0 + i),
+            inner_steps=day.inner_steps[i],
+            plan=day.last if i == n - 1 else None) for i in range(n))
+        return self.report()
+
+    def report(self) -> StreamingReport:
+        ticks = tuple(self._history)
+        if not ticks:
+            raise RuntimeError("no ticks committed yet: call step()/run()")
+        base_usage = np.asarray(self.problem.usage)
+        Tn = base_usage.shape[1]
+        baseline = sum(t.realized_mci * float(base_usage[:, t.tick % Tn].sum())
+                       for t in ticks)
+        return StreamingReport(
+            ticks=ticks, committed=np.stack([t.committed for t in ticks],
+                                            axis=1),
+            realized_carbon=sum(t.realized_carbon for t in ticks),
+            forecast_carbon=sum(t.forecast_carbon for t in ticks),
+            realized_baseline=float(baseline),
+            total_inner_steps=sum(t.inner_steps for t in ticks))

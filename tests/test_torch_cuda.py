@@ -11,7 +11,10 @@ rows; al_step 1e-5 on the rows of the chip_smoke fleet, hinge-free
 package's kernel tests) and 1e-4 in float32; ssd_scan 1e-5 (as the JAX
 package's kernel tests); the reduced stablelm's and mamba2's bfloat16
 logits through the kernels within 0.05 of those through the plain
-versions.
+versions; the rolling-horizon day as a CUDA-graph replay
+(`api.solve_day`) within 1e-6 NP of the same day run eagerly through the
+same kernels (bitwise in practice), with its launches per replay counted
+on the device by `torch.profiler`.
 """
 import importlib.util
 import pathlib
@@ -518,3 +521,165 @@ def test_reduced_mamba2_kernel_path_matches_plain_path(dev):
     assert out.shape == (3, 4)
     assert rmsnorm_cuda.launches - r0 == (2 * 2 + 1) * (1 + 20 + 3)
     assert ssd_scan_cuda.launches - s0 == 2
+
+
+# ---------------------------------------------------------------------------
+# A rolling-horizon day as one CUDA-graph replay (`api.solve_day`)
+# ---------------------------------------------------------------------------
+DAY_STEPS = dict(cold_steps=48, warm_steps=16)
+
+
+def _day_policy(name):
+    from repro_torch.core.api import CR1, CR2
+    return CR1(lam=1.45) if name == "cr1" else CR2(cap_frac=0.78, outer=2)
+
+
+def _day_stack(n_ticks):
+    from repro_torch.core.carbon import ForecastStream
+    stream = ForecastStream.caiso(n_ticks=n_ticks, horizon=T, seed=7)
+    return np.stack([stream.forecast(t) for t in range(n_ticks)])
+
+
+def _eager_day(p, policy, stack, ctx):
+    """`_day_impl` called directly: the day's tick loop run eagerly on
+    the card, launch by launch."""
+    from repro_torch.core import api
+    _, _, day, inputs = api._day_setup(p, policy, stack, ctx,
+                                       DAY_STEPS["cold_steps"],
+                                       DAY_STEPS["warm_steps"])
+    with torch.no_grad():
+        out = api._day_impl(day, inputs)
+    return day, [t.cpu().numpy() for t in out]
+
+
+def _day_out(res):
+    st = res.last.state
+    return [res.committed, res.last.D, None,
+            *(t.cpu().numpy() for t in (st.x, st.lam_eq, st.lam_in, st.mu))]
+
+
+def _max_diff(got, want):
+    return max(float(np.abs(g - w).max(initial=0.0))
+               for g, w in zip(got, want) if g is not None)
+
+
+def _expected_day_launches(policy, n_ticks):
+    """Per replay at k_steps = 8: ceil(steps / 8) al_step calls a round;
+    dr_features once a tick for the final penalties and, for CR2, once for
+    the targets and once per round for the equality residual."""
+    rounds = 2 if policy == "cr2" else 1
+    calls = -(-DAY_STEPS["cold_steps"] // 8) + (n_ticks - 1) * -(
+        -DAY_STEPS["warm_steps"] // 8)
+    return {"al_step": rounds * calls,
+            "dr_features": n_ticks * (rounds + 2 if policy == "cr2" else 1)}
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_day_graph_replay_matches_eager_day(dev, fleets, policy):
+    """The replay against the same day run eagerly through the same
+    kernels, at W = 130 over 4 ticks: within 1e-6 NP (both launch the same
+    kernels on the same inputs in the same order, so bitwise is
+    expected)."""
+    from repro_torch.core.api import SolveContext, solve_day
+    p, pol, stack = fleets[130], _day_policy(policy), _day_stack(4)
+    res = solve_day(p, pol, stack, ctx=SolveContext(), **DAY_STEPS)
+    _, eager = _eager_day(p, pol, stack, SolveContext())
+    assert _max_diff(_day_out(res), eager) <= 1e-6
+    assert res.committed.shape == (4, 130)
+    assert np.isfinite(res.committed).all()
+    assert res.last.preservation_violation < 1e-3
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_day_graph_captures_once_and_counts_each_replay(dev, fleets,
+                                                        policy):
+    """The first day of a configuration captures; the second replays
+    without capturing, and each replay adds the launches the capture saw,
+    which the device's own trace confirms."""
+    from repro_torch.core import api
+    from repro_torch.core.api import SolveContext, solve_day
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    p, pol, stack = fleets[130], _day_policy(policy), _day_stack(3)
+    ctx = SolveContext()
+    key = api._day_setup(p, pol, stack, ctx, DAY_STEPS["cold_steps"],
+                         DAY_STEPS["warm_steps"])[2]
+    DAY_GRAPHS._graphs.pop(key, None)
+    n0 = DAY_GRAPHS.captures
+    solve_day(p, pol, stack, ctx=ctx, **DAY_STEPS)
+    assert DAY_GRAPHS.captures == n0 + 1
+    want = _expected_day_launches(policy, 3)
+    assert DAY_GRAPHS.get(key).launches == want
+    before = (al_step_cuda.launches, dr_features_cuda.launches)
+    on_device = _load_chip_smoke().device_launches(
+        torch, lambda: solve_day(p, pol, stack, ctx=ctx, **DAY_STEPS))
+    assert DAY_GRAPHS.captures == n0 + 1
+    assert (al_step_cuda.launches - before[0],
+            dr_features_cuda.launches - before[1]) == \
+        (want["al_step"], want["dr_features"])
+    assert on_device == want
+
+
+def test_day_graph_another_fleet_of_the_same_shape(dev, fleets):
+    """A second fleet of the same shape replays the captured day with its
+    own data and gets its own answer."""
+    import dataclasses
+
+    from repro_torch.core.api import SolveContext, solve_day
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    pol, stack, ctx = _day_policy("cr2"), _day_stack(4), SolveContext()
+    p = fleets[130]
+    big = fleets[10_000]
+    q = dataclasses.replace(big, **{
+        n: getattr(big, n)[:130] for n in ("usage", "entitlement", "k",
+                                           "rts_coeffs", "betas", "x2_kind",
+                                           "jobs", "is_batch")},
+        names=None)
+    first = solve_day(p, pol, stack, ctx=ctx, **DAY_STEPS)
+    n0 = DAY_GRAPHS.captures
+    other = solve_day(q, pol, stack, ctx=ctx, **DAY_STEPS)
+    assert DAY_GRAPHS.captures == n0
+    _, eager = _eager_day(q, pol, stack, ctx)
+    assert _max_diff(_day_out(other), eager) <= 1e-6
+    assert np.abs(other.committed - first.committed).max() > 1e-3
+
+
+def test_day_graph_donated_state_aliases_the_buffers(dev, fleets):
+    """`donate=False` states are clones that survive a later replay;
+    `donate=True` states alias the graph's output buffers, which the next
+    replay overwrites."""
+    from repro_torch.core import api
+    from repro_torch.core.api import SolveContext, solve_day
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    pol, stack = _day_policy("cr1"), _day_stack(4)
+    p = fleets[130]
+    kept = solve_day(p, pol, stack, ctx=SolveContext(), **DAY_STEPS)
+    x_kept = kept.last.state.x.clone()
+    shifted = solve_day(p, pol, stack[:, ::-1].copy(),
+                        ctx=SolveContext(donate=True), **DAY_STEPS)
+    key = api._day_setup(p, pol, stack, SolveContext(),
+                         DAY_STEPS["cold_steps"], DAY_STEPS["warm_steps"])[2]
+    outputs = DAY_GRAPHS.get(key).outputs
+    assert shifted.last.state.x.data_ptr() == outputs[3].data_ptr()
+    assert kept.last.state.x.data_ptr() != outputs[3].data_ptr()
+    x_shifted = shifted.last.state.x.clone()
+    assert not torch.equal(x_shifted, x_kept)
+    again = solve_day(p, pol, stack, ctx=SolveContext(), **DAY_STEPS)
+    assert torch.equal(kept.last.state.x, x_kept)
+    assert torch.equal(again.last.state.x, x_kept)
+    assert torch.equal(shifted.last.state.x, x_kept)   # overwritten
+
+
+def test_day_without_kernels_runs_eagerly_on_the_card(dev, fleets):
+    """`use_kernel=False` on CUDA: the generic engine's autograd day runs
+    launch by launch and is not captured; it agrees with the fused day at
+    the solution-level bound."""
+    from repro_torch.core.api import SolveContext, solve_day
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    pol, stack, p = _day_policy("cr1"), _day_stack(2), fleets[130]
+    n0, a0 = DAY_GRAPHS.captures, al_step_cuda.launches
+    generic = solve_day(p, pol, stack, ctx=SolveContext(use_kernel=False),
+                        **DAY_STEPS)
+    assert (DAY_GRAPHS.captures, al_step_cuda.launches) == (n0, a0)
+    fused = solve_day(p, pol, stack, ctx=SolveContext(), **DAY_STEPS)
+    assert abs(generic.last.carbon_reduction_pct
+               - fused.last.carbon_reduction_pct) < 0.05

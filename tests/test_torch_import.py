@@ -35,7 +35,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "kernels.flash_attention.ops", "configs.stablelm_3b",
               "models.transformer", "launch.serve", "configs.mamba2_780m",
               "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
-              "kernels.ssd_scan.ref", "models.ssm"):
+              "kernels.ssd_scan.ref", "models.ssm", "core.streaming",
+              "core.daygraph"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -85,7 +86,8 @@ def test_solve_wants_the_card_by_default():
 
 @pytest.mark.parametrize("entry", [
     "cr2_reference_fleet", "fit_lasso_cv", "init_params", "init_cache",
-    "transformer_params_from_arrays", "init_params_ssm", "init_cache_ssm"])
+    "transformer_params_from_arrays", "init_params_ssm", "init_cache_ssm",
+    "solve_day", "rolling_horizon_step"])
 def test_other_entry_points_want_the_card_by_default(entry):
     """Entry points below `solve`, and the model's, take the card too when
     no device is named, and raise without one rather than run on the CPU."""
@@ -94,7 +96,10 @@ def test_other_entry_points_want_the_card_by_default(entry):
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import transformer_params_from_arrays
     from repro_torch.core.fleet_solver import cr2_reference_fleet
+    from repro_torch.core.api import solve_day
+    from repro_torch.core.carbon import ForecastStream
     from repro_torch.core.lasso import fit_lasso_cv
+    from repro_torch.core.streaming import RollingHorizonSolver
     from repro_torch.models import transformer as tf
     rng = np.random.default_rng(0)
     cfg = reduced(get_config("stablelm-3b"))
@@ -110,6 +115,10 @@ def test_other_entry_points_want_the_card_by_default(entry):
             transformer_params_from_arrays({"ln_f": {"scale": np.ones(4)}})),
         "init_params_ssm": lambda: tf.init_params(ssm_cfg),
         "init_cache_ssm": lambda: tf.init_cache(ssm_cfg, 2, 8),
+        "solve_day": lambda: solve_day(
+            _tiny_problem(), CR1(), np.stack([_tiny_problem().mci] * 2)),
+        "rolling_horizon_step": lambda: RollingHorizonSolver(
+            _tiny_problem(), ForecastStream.caiso(n_ticks=2)).step(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -34,6 +34,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
    against the same day run eagerly (`api._day_impl`), and a warm second
    day on each solver (the first captures, the second replays); then a
    6-tick day through the kernels against the generic engine at W = 130;
+5c. the batched lanes at the same fleet: al_step with 4 lanes (CR1 and
+   CR2, f32 and bf16 moments, shared and per-lane fleet constants, rows
+   ordered by kind) bitwise against 4 one-lane calls and against its
+   plain version, timed beside them; then, each batched call with its
+   launch counts reset just before and read just after and held
+   against its loop of `solve()` calls: `api.sweep` of CR1 over lam in
+   {1.0, 1.2, 1.45, 1.6, 2.2} (600 steps), of CR2 over cap_frac in
+   {0.70, 0.74, 0.78, 0.82} (6 x 400), the CR1 sweep refined warm from
+   `stack_states` of its results (150 steps); `evaluate_ensemble` of
+   CR1(1.45) over DuckPerturb(8, seed=0) + CambiumMix(8, seed=1) and of
+   CR2(0.78) over DuckPerturb(6, seed=0) + CambiumMix(6, seed=1) +
+   FleetJitter(4, seed=2) (S = 16 each), with `report()`; and
+   `run_streaming_ensemble` of CR1 over ForecastRegime(4, seed=0), cold
+   600 / warm 150, 24 ticks, two streams against solo controllers. The
+   CR1 sweep is counted once more by `torch.profiler`; at W = 130 the
+   sweeps through the kernels are held against the generic engine;
 6. the serving paths, each at full width (random weights from a seeded
    generator on the card), through `serve_requests` at max_batch 8, then
    4 (launch counts reset just before and read just after each path),
@@ -113,6 +129,14 @@ FA_LONG = len(FA_CASES) - 1     # timed beside the serving shape
 # controller defaults for CR1, `solve_day`'s cold // 4 for CR2.
 DAY_TICKS, TAIL_TICKS, DAY_SEED = 24, 6, 7
 DAY_POLICIES = (("cr1", 600, 150, 1), ("cr2", 400, 100, 6))
+# The batched lanes (phase 5c): sweep grids (examples/policy_pareto.py's
+# lam grid; CR2 caps around the paper's 0.78), the warm refinement's
+# budget, the ensembles' and the streaming ensemble's sizes.
+LANES_KERNEL_N = 4
+CR1_LAMS = (1.0, 1.2, 1.45, 1.6, 2.2)
+CR2_CAPS = (0.70, 0.74, 0.78, 0.82)
+REFINE_STEPS, STREAM_LANES = 150, 4
+LANE_PP = 0.01       # batched lane vs its solve() loop (JAX contract)
 SCAN_PP = 0.01       # per-tick loop vs day, realized carbon (JAX contract)
 COMMIT_ATOL = 5e-3   # per-tick loop vs day, committed NP (JAX contract)
 REPLAY_TOL = 1e-6    # graph replay vs the eager day, NP
@@ -187,6 +211,38 @@ def al_step_inputs(np, p, *, mode, seed, rts_only=True, stable=False,
     cvec = rng.normal(-0.5, 0.2, (W if per_row_cvec else 1, T))
     scal = np.array([[1.45, 10.0, 0.8, 0.02, 3.0, 0.0, 0.0, 0.0]])
     return (x, m, v, usage, p.jobs, lo, hi, rowp, cvec, scal)
+
+
+def al_step_lane_inputs(np, p, n, *, mode, seed, shared, **kw):
+    """`al_step_inputs` for `n` lanes, rows ordered by kind (batch rows
+    first, as `make_fused_inner` orders them): each lane its own iterate,
+    moments, multipliers, carbon row and scalars (lam, mu and t0 differ);
+    usage, jobs and bounds shared ((W, T)), or each lane's from the fleet
+    scaled by its own factor ((n, W, T)); the carbon row shared ((1, T))
+    or each lane's ((n, 1, T)) alike. Returns the per-lane argument lists
+    and the stacked ones."""
+    lanes = []
+    for i in range(n):
+        f = 1.0 if shared else 1.0 + 0.1 * i
+        q = dataclasses.replace(p, usage=p.usage * f, jobs=p.jobs * f,
+                                entitlement=p.entitlement * f)
+        arrs = list(al_step_inputs(np, q, mode=mode, seed=seed + i, **kw))
+        arrs[9] = arrs[9] * np.array([[1.0 + 0.2 * i, 1.0 + i, 1.0,
+                                       1.0 + 0.1 * i, 1.0, 1, 1, 1]])
+        arrs[9][0, 4] = 3.0 + i
+        lanes.append(arrs)
+    order = np.argsort(-lanes[0][7][:, 8], kind="stable")
+    lanes = [[a[order] if a.shape[0] == p.W else a for a in arrs]
+             for arrs in lanes]
+    if shared:
+        for arrs in lanes:
+            arrs[8] = lanes[0][8]
+    stacked = [np.stack(a) for a in zip(*lanes)]
+    stacked[9] = stacked[9][:, 0]
+    if shared:
+        stacked[3:7] = lanes[0][3:7]
+        stacked[8] = lanes[0][8]
+    return lanes, stacked
 
 
 def fa_inputs(torch, case, seed, dev):
@@ -460,6 +516,88 @@ def phase_al_step(np, torch, fleets):
     return rec
 
 
+def phase_al_step_lanes(np, torch, p):
+    """al_step with lanes on the main path's fleet: a batched call equals
+    its one-lane calls bit for bit and its plain version within the
+    one-lane checks' tolerance; timed beside the one-lane calls."""
+    from repro_torch.kernels.al_step.kernel import al_step_cuda
+    from repro_torch.kernels.al_step.ref import al_step_ref
+    dev = torch.device("cuda")
+    N = LANES_KERNEL_N
+
+    def to_dev(arrs, bf16):
+        out = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in arrs]
+        if bf16:
+            out[1], out[2] = out[1].bfloat16(), out[2].bfloat16()
+        return out
+
+    errs, n = [], 0
+    for mode in ("cr1", "cr2"):
+        for bf16 in (False, True):
+            for shared in (True, False):
+                # RTS rows over 8 steps; mixed hinge-stable rows over one
+                # (the one-lane checks' inputs).
+                for k, kw in ((8, {}), (1, dict(rts_only=False,
+                                                stable=True))):
+                    lanes, stacked = al_step_lane_inputs(
+                        np, p, N, mode=mode, seed=n, shared=shared, **kw)
+                    args = to_dev(stacked, bf16)
+                    opts = dict(mode=mode, k_steps=k)
+                    what = (f"al_step lanes {mode} bf16={bf16} "
+                            f"shared={shared} k={k}")
+                    before = al_step_cuda.launches
+                    got = al_step_cuda(*args, **opts)
+                    require(al_step_cuda.launches == before + 1,
+                            f"{what}: not one launch")
+                    want = al_step_ref(*args, **opts)
+                    for i, one in enumerate(lanes):
+                        solo = al_step_cuda(*to_dev(one, bf16), **opts)
+                        for g, o in zip(got, solo):
+                            require(torch.equal(g[i], o), f"{what}: lane {i} "
+                                    f"differs from its one-lane call")
+                    torch.cuda.synchronize()
+                    # As the one-lane checks: bf16 moments are rounded
+                    # once per call in both, so they agree to one bf16 ulp.
+                    mtol = 2.0 ** -7 if bf16 else 1e-5
+                    err = check_close(torch, got[0], want[0], 1e-5, 1e-5,
+                                      f"{what} x")
+                    merr = max(check_close(torch, g, w, mtol, 1e-5,
+                                           f"{what} {nm}")
+                               for g, w, nm in zip(got[1:], want[1:], "mv"))
+                    errs.append(err if bf16 else max(err, merr))
+                    n += 1
+    # Timing: CR2 at k = 8 on the hinge-stable rows ordered by kind, f32,
+    # per-lane constants, against the 4 one-lane calls back to back.
+    lanes, stacked = al_step_lane_inputs(np, p, N, mode="cr2", seed=100,
+                                         shared=False, rts_only=False,
+                                         stable=True)
+    args = to_dev(stacked, False)
+    ones = [to_dev(one, False) for one in lanes]
+    rec = {"max_abs_err": max(errs)}
+    for mode in ("cr1", "cr2"):
+        rec[f"ms_{mode}"] = kernel_ms(
+            torch, lambda: al_step_cuda(*args, mode=mode, k_steps=8))
+        rec[f"ones_ms_{mode}"] = kernel_ms(
+            torch, lambda: [al_step_cuda(*a, mode=mode, k_steps=8)
+                            for a in ones])
+    nbytes = N * (10 * W_MAIN * T_MAIN * 4 + W_MAIN * 12 * 4 + T_MAIN * 4
+                  + 32)
+    ops = sum(al_step_ops(np, one[7], T_MAIN, 8, "cr2") for one in lanes)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, H100_F32_OPS_PER_S)
+    log(f"[lanes] al_step with {N} lanes: {n} cases bitwise equal to their "
+        f"one-lane calls, one launch each; max abs err against the plain "
+        f"version {rec['max_abs_err']:.3e} (rtol = atol = 1e-5; bf16 "
+        f"moments to one bf16 ulp); k=8 at W = {W_MAIN} x {N} lanes: "
+        f"batched cr1 {rec['ms_cr1'] * 1e3:.2f} us, cr2 "
+        f"{rec['ms_cr2'] * 1e3:.2f} us; {N} one-lane calls cr1 "
+        f"{rec['ones_ms_cr1'] * 1e3:.2f} us, cr2 "
+        f"{rec['ones_ms_cr2'] * 1e3:.2f} us; bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, {N} x the "
+        f"one-lane bytes)")
+    return rec
+
+
 def phase_fleet():
     """The paper fleet (calibrated on this host and card), cloned to the
     main path's W = 10,000 and to the W = 130 tail fleet."""
@@ -686,6 +824,203 @@ def phase_streaming(np, torch, p, p_tail):
             f"generic: realized {diffs[0]:.4f} pp, last plan carbon "
             f"{diffs[1]:.4f} pp, penalty {diffs[2]:.4f} pp (limit {PP_TOL})")
         require(max(diffs) < PP_TOL, f"{name}: fused vs generic day {diffs}")
+    return totals
+
+
+def expected_lane_launches(steps, rounds, n_targets=0):
+    """Kernel launches of one batched solve at k_steps = 8, whatever the
+    number of lanes: ceil(steps / 8) al_step calls per AL round for all
+    lanes; dr_features once for the lanes' final penalties and, for CR2
+    (rounds > 1), once per round for the equality residual, beside one
+    call per distinct fairness target vector (`n_targets`)."""
+    extra = rounds + n_targets if rounds > 1 else 0
+    return {"al_step": rounds * -(-steps // 8), "dr_features": 1 + extra}
+
+
+def day_sum_gap(np, q, D):
+    """Largest distance of a batch day's sum from the nearest sum its box
+    allows (0 where the box admits a zero-sum day, else the bound side's
+    sum), and the count of days whose box does not admit 0. Where every
+    day admits 0 this is the preservation violation; a scenario whose
+    usage exceeds its entitlement on a batch day (FleetJitter) leaves
+    that day no zero-sum plan."""
+    isb = np.asarray(q.is_batch, bool)
+    E = np.asarray(q.entitlement, float)[isb, None]
+    U = np.asarray(q.usage, float)[isb]
+    hi = np.minimum(q.max_curtail_frac * E, U)
+    lo = np.minimum(U - E, hi)
+    dh = min(q.day_hours, q.T)
+    span = q.T // dh * dh
+
+    def days(a):
+        return a[:, :span].reshape(a.shape[0], -1, dh).sum(-1)
+
+    target = np.clip(0.0, days(lo), days(hi))
+    return (float(np.abs(days(D[isb]) - target).max()),
+            int((target != 0.0).sum()))
+
+
+def _lane_gaps(batched, loop):
+    """Largest |batched - loop| of carbon % and penalty % over the lanes."""
+    dc = max(abs(b.carbon_reduction_pct - l.carbon_reduction_pct)
+             for b, l in zip(batched, loop))
+    dp = max(abs(b.total_penalty_pct - l.total_penalty_pct)
+             for b, l in zip(batched, loop))
+    return dc, dp
+
+
+def phase_lanes(np, torch, p, p_tail):
+    """The batched lanes at the main path's fleet: sweeps, a warm
+    refinement, two ensembles and a streaming ensemble, each batched call
+    with its launch counts reset just before and read just after, held
+    against its loop of `solve()` calls. Returns the summed counts."""
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core import scenario as scen
+    from repro_torch.core.api import (CR1, CR2, SolveContext, solve,
+                                      stack_states, sweep)
+    from repro_torch.core.daygraph import COUNTED
+    from repro_torch.core.streaming import RollingHorizonSolver
+
+    totals = {name: 0 for name in COUNTED}
+
+    def batched(what, fn, want):
+        """Run `fn` with the counts reset just before and read just after;
+        returns (result, wall, peak memory)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in COUNTED.values():
+            f.launches = 0
+        out, wall = _timed(torch, fn)
+        got = {n: f.launches for n, f in COUNTED.items()}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[lanes] {what}: launches {got} (expected {want}), wall "
+            f"{wall:.4f} s, peak {peak / 2**20:.1f} MiB")
+        require(got == want, f"{what}: launches {got} != {want}")
+        for k in totals:
+            totals[k] += got[k]
+        return out, wall, peak
+
+    def held(what, got, loop, loop_wall):
+        dc, dp = _lane_gaps(got, loop)
+        pres = max(r.preservation_violation for r in got)
+        log(f"[lanes] {what}: loop of {len(loop)} solve() {loop_wall:.4f} s; "
+            f"batched - loop max {dc:.2e} pp carbon, {dp:.2e} pp penalty "
+            f"(limit {LANE_PP}); carbon "
+            + ", ".join(f"{r.carbon_reduction_pct:.4f}" for r in got)
+            + f" %; preservation max {pres:.3e}")
+        for r in got:
+            require(bool(np.isfinite(r.D).all()) and r.D.shape == (p.W, p.T),
+                    f"{what}: a plan is not finite or not (W, T)")
+        require(dc < LANE_PP and dp < LANE_PP,
+                f"{what}: batched vs loop {dc:.4f} / {dp:.4f} pp")
+        require(pres < PRESERVATION_TOL, f"{what}: preservation {pres:.3e}")
+
+    ctx = SolveContext()
+    cr1 = [CR1(lam=lam) for lam in CR1_LAMS]
+    cr2 = [CR2(cap_frac=c) for c in CR2_CAPS]
+    sweep(p, cr1, ctx=SolveContext(steps=8))            # warm-up, not timed
+    # Sweeps: each lane against its solve().
+    res1, _, _ = batched(f"CR1 sweep, {len(cr1)} lanes x 600 steps",
+                         lambda: sweep(p, cr1, ctx=ctx),
+                         expected_lane_launches(600, 1))
+    loop1, w1 = _timed(torch, lambda: [solve(p, pl, ctx=ctx) for pl in cr1])
+    held("CR1 sweep", res1, loop1, w1)
+    res2, _, _ = batched(
+        f"CR2 sweep, {len(cr2)} lanes x 6 x 400 steps",
+        lambda: sweep(p, cr2, ctx=ctx),
+        expected_lane_launches(400, CR2.outer, n_targets=len(cr2)))
+    loop2, w2 = _timed(torch, lambda: [solve(p, pl, ctx=ctx) for pl in cr2])
+    held("CR2 sweep", res2, loop2, w2)
+    warm = SolveContext(steps=REFINE_STEPS,
+                        warm=stack_states([r.state for r in res1]))
+    ref1, _, _ = batched(
+        f"CR1 refinement from stack_states, {REFINE_STEPS} steps",
+        lambda: sweep(p, cr1, ctx=warm),
+        expected_lane_launches(REFINE_STEPS, 1))
+    loopw, ww = _timed(torch, lambda: [solve(p, pl, ctx=SolveContext(
+        steps=REFINE_STEPS, warm=r.state)) for pl, r in zip(cr1, loop1)])
+    held("CR1 refinement", ref1, loopw, ww)
+    on_device = device_launches(torch, lambda: sweep(p, cr1, ctx=ctx))
+    log(f"[lanes] CR1 sweep: kernels the card ran, by torch.profiler: "
+        f"{on_device}")
+    require(on_device == expected_lane_launches(600, 1),
+            f"CR1 sweep on the device: {on_device}")
+
+    # Ensembles: S = 16, batched against batched=False.
+    mixes = {
+        "cr1": (CR1(lam=1.45), [scen.DuckPerturb(8, seed=0),
+                                scen.CambiumMix(8, seed=1)], 0),
+        "cr2": (CR2(cap_frac=0.78), [scen.DuckPerturb(6, seed=0),
+                                     scen.CambiumMix(6, seed=1),
+                                     scen.FleetJitter(4, seed=2)], 16)}
+    for name, (pol, gens, n_targets) in mixes.items():
+        stack = scen.resolve_scenarios(gens, p)
+        rounds = getattr(pol, "outer", 1)
+        got, _, _ = batched(
+            f"{name} ensemble, S = {stack.S}",
+            lambda: ens.evaluate_ensemble(p, pol, stack, ctx=ctx),
+            expected_lane_launches(pol.default_steps, rounds, n_targets))
+        loop, lw = _timed(torch, lambda: ens.evaluate_ensemble(
+            p, pol, stack, ctx=ctx, batched=False))
+        dc = float(np.abs(got.carbon_reduction_pct
+                          - loop.carbon_reduction_pct).max())
+        dp = float(np.abs(got.total_penalty_pct
+                          - loop.total_penalty_pct).max())
+        gaps = [day_sum_gap(np, stack.problem(p, i), got.D[i])
+                for i in range(stack.S)]
+        pres = max(g for g, _ in gaps)
+        log(f"[lanes] {name} ensemble: loop of {stack.S} solve() {lw:.4f} "
+            f"s; batched - loop max {dc:.2e} pp carbon, {dp:.2e} pp penalty "
+            f"(limit {LANE_PP}); preservation violation as reported max "
+            f"{got.preservation_violation.max():.3e} (loop "
+            f"{loop.preservation_violation.max():.3e}); batch days with no "
+            f"zero-sum plan in their box per scenario "
+            f"{[n for _, n in gaps]}; distance of a day sum from the "
+            f"nearest sum its box allows, max {pres:.3e}")
+        for line in got.report().lines():
+            log(f"[lanes]   {line}")
+        require(bool(np.isfinite(got.D).all())
+                and got.D.shape == (stack.S, p.W, p.T),
+                f"{name} ensemble: plans not finite or not (S, W, T)")
+        require(dc < LANE_PP and dp < LANE_PP,
+                f"{name} ensemble: batched vs loop {dc:.4f} / {dp:.4f} pp")
+        require(pres < PRESERVATION_TOL,
+                f"{name} ensemble: preservation {pres:.3e}")
+
+    # The streaming ensemble: S streams, one batched re-solve a tick.
+    regime = scen.ForecastRegime(STREAM_LANES, seed=0)
+    streams = regime.streams(p, n_ticks=DAY_TICKS)
+    kw = dict(cold_steps=600, warm_steps=150)
+    rep, _, _ = batched(
+        f"CR1 streaming ensemble, {STREAM_LANES} streams x {DAY_TICKS} "
+        f"ticks", lambda: ens.run_streaming_ensemble(
+            p, CR1(lam=1.45), streams, n_ticks=DAY_TICKS, **kw),
+        expected_day_launches(600, 150, 1, DAY_TICKS))
+    for s in (0, STREAM_LANES - 1):
+        solo, sw = _timed(torch, lambda: RollingHorizonSolver(
+            p, streams[s], policy=CR1(lam=1.45), **kw).run(DAY_TICKS))
+        d = abs(rep.realized_reduction_pct[s] - solo.realized_reduction_pct)
+        dcom = float(np.abs(rep.committed[s] - solo.committed).max())
+        pres = solo.ticks[-1].plan.preservation_violation
+        log(f"[lanes] stream {s}: realized {rep.realized_reduction_pct[s]:.4f}"
+            f" % batched, {solo.realized_reduction_pct:.4f} % solo "
+            f"({d:.2e} pp, limit {LANE_PP}); committed max |diff| "
+            f"{dcom:.3e} NP; solo controller {sw:.4f} s; its last plan's "
+            f"preservation {pres:.3e}")
+        require(d < LANE_PP, f"stream {s}: batched vs solo {d:.4f} pp")
+        require(bool(np.isfinite(rep.committed).all()),
+                "streaming ensemble: committed hours not finite")
+
+    # At W = 130, the lanes through the kernels against the generic engine.
+    for pols in (cr1, cr2):
+        f, g = (sweep(p_tail, pols, ctx=SolveContext(use_kernel=uk))
+                for uk in (True, False))
+        dc, dp = _lane_gaps(f, g)
+        log(f"[lanes] {pols[0].name} sweep at W = {p_tail.W}, fused - "
+            f"generic lanes: max {dc:.4f} pp carbon, {dp:.4f} pp penalty "
+            f"(limit {PP_TOL})")
+        require(dc < PP_TOL and dp < PP_TOL,
+                f"{pols[0].name} sweep fused vs generic {dc}, {dp}")
     return totals
 
 
@@ -970,13 +1305,17 @@ def main() -> int:
     fleets = phase_fleet()
     recs = {"dr_features": phase_dr_features(np, torch),
             "al_step": phase_al_step(np, torch, fleets),
+            "al_step_lanes": phase_al_step_lanes(np, torch, fleets[0]),
             "rmsnorm": phase_rmsnorm(torch),
             "flash_attention": phase_flash_attention(torch),
             "ssd_scan": phase_ssd_scan(torch)}
     log("[check] kernels held against their plain versions on the card: "
         + ", ".join(recs))
+    del recs["al_step_lanes"]
     launches = phase_main_path(np, torch, fleets[0])
     for name, n in phase_streaming(np, torch, *fleets).items():
+        launches[name] += n
+    for name, n in phase_lanes(np, torch, *fleets).items():
         launches[name] += n
     for path in SERVE_PATHS:
         for name, n in phase_serve(np, torch, *path).items():

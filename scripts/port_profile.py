@@ -3,6 +3,7 @@
 
     python3 scripts/port_profile.py          # one solve per policy
     python3 scripts/port_profile.py --day    # one rolling-horizon day
+    python3 scripts/port_profile.py --lanes  # batched lanes vs their loops
 
 Builds chip_smoke's fleet (paper fleet at num_samples=32, num_jobs=1000,
 cloned to W = 10,000, T = 48) and warms up. Without `--day` it solves
@@ -12,7 +13,12 @@ streaming day per policy (24 ticks of `ForecastStream.caiso(n_ticks=24,
 horizon=48, seed=7)`, CR1 cold 600 / warm 150 steps, CR2 outer 6, cold
 400 / warm 100 a round): one CUDA-graph replay of `api.solve_day` (the
 graph captured before the window) and the same day run eagerly
-(`api._day_impl`, launch by launch). For each it prints the wall time,
+(`api._day_impl`, launch by launch). With `--lanes` it profiles
+chip_smoke's batched lanes, each beside its loop of `solve()` calls: the
+CR1 sweep over lam in {1.0, 1.2, 1.45, 1.6, 2.2}, the CR2 sweep over
+cap_frac in {0.70, 0.74, 0.78, 0.82}, the S = 16 ensembles of CR1(1.45)
+and CR2(0.78), and the 4-stream CR1 streaming ensemble over 24 ticks
+beside one solo controller. For each it prints the wall time,
 the device-busy time (the union of the traced kernel and copy
 intervals), the device idle share 1 - busy / wall, al_step's launches
 and mean device time per call, and the device time by kernel name, with
@@ -112,11 +118,53 @@ def _days(torch, p) -> None:
         _profile(torch, f"{name} day, eager (_day_impl)", eager)
 
 
+def _lanes(torch, p) -> None:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core import scenario as scen
+    from repro_torch.core.api import CR1, CR2, SolveContext, solve, sweep
+    from repro_torch.core.streaming import RollingHorizonSolver
+    ctx = SolveContext()
+    sweep(p, [CR1(), CR1(lam=2.0)], ctx=SolveContext(steps=8))   # warm-up
+    for pols in ([CR1(lam=lam) for lam in cs.CR1_LAMS],
+                 [CR2(cap_frac=c) for c in cs.CR2_CAPS]):
+        name = f"{pols[0].name} sweep, {len(pols)} lanes"
+        _profile(torch, f"{name}, batched", lambda: sweep(p, pols, ctx=ctx))
+        _profile(torch, f"{name}, loop of solve()",
+                 lambda: [solve(p, pl, ctx=ctx) for pl in pols])
+    for pol, gens in ((CR1(lam=1.45), [scen.DuckPerturb(8, seed=0),
+                                       scen.CambiumMix(8, seed=1)]),
+                      (CR2(cap_frac=0.78), [scen.DuckPerturb(6, seed=0),
+                                            scen.CambiumMix(6, seed=1),
+                                            scen.FleetJitter(4, seed=2)])):
+        stack = scen.resolve_scenarios(gens, p)
+        for batched in (True, False):
+            _profile(torch, f"{pol.name} ensemble, S = {stack.S}, "
+                     f"{'batched' if batched else 'loop of solve()'}",
+                     lambda: ens.evaluate_ensemble(p, pol, stack, ctx=ctx,
+                                                   batched=batched))
+    streams = scen.ForecastRegime(cs.STREAM_LANES, seed=0).streams(
+        p, n_ticks=cs.DAY_TICKS)
+    kw = dict(cold_steps=600, warm_steps=150)
+    _profile(torch, f"cr1 streaming ensemble, {cs.STREAM_LANES} streams x "
+             f"{cs.DAY_TICKS} ticks, batched",
+             lambda: ens.run_streaming_ensemble(
+                 p, CR1(lam=1.45), streams, n_ticks=cs.DAY_TICKS, **kw))
+    _profile(torch, f"cr1 solo controller, one stream x {cs.DAY_TICKS} "
+             f"ticks", lambda: RollingHorizonSolver(
+                 p, streams[0], policy=CR1(lam=1.45), **kw).run(cs.DAY_TICKS))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--day", action="store_true",
-                    help="profile the 24-tick streaming day instead of "
-                         "one solve per policy")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--day", action="store_true",
+                      help="profile the 24-tick streaming day instead of "
+                           "one solve per policy")
+    mode.add_argument("--lanes", action="store_true",
+                      help="profile the batched lanes (sweeps, ensembles, "
+                           "the streaming ensemble) beside their loops")
     args = ap.parse_args()
     import torch
 
@@ -132,7 +180,7 @@ def main() -> int:
     fleet = cached_paper_fleet(hours=48, num_samples=32, num_jobs=1000,
                                device="cuda")
     p = synthetic_fleet(10_000, hours=48, seed=0, templates=fleet)
-    (_days if args.day else _solves)(torch, p)
+    (_days if args.day else _lanes if args.lanes else _solves)(torch, p)
     return 0
 
 

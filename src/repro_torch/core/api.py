@@ -27,14 +27,22 @@ preservation, where the JAX package takes 3 rounds of day-mean removal,
 and the fused kernel takes autodiff's one half at hinge ties, as the
 generic engine does (see `kernels/al_step/ref.py`).
 
-Ported so far: CR1 and CR2 on single-region fleets, and their day.
-Meshes, sweeps, ensembles, CR3, the baselines and migration are not.
+`sweep(problem, policies)` solves a grid of policies, and `ensemble`
+(`core/ensemble.py`) one policy over S scenarios. A uniform CR1 grid, a
+CR2 grid sharing `outer`, and CR1/CR2 ensembles ride the batched lane:
+the N solves advance together as one engine run over lane-stacked
+tensors (`_cr1_lanes`, `_cr2_lanes`), one `al_step` launch per k steps
+for all lanes, the port's counterpart of the JAX package's one vmapped
+call. Everything else takes the loop lane, a `solve()` per policy.
+
+Ported so far: CR1 and CR2 on single-region fleets, their day, sweeps
+and ensembles. Meshes, CR3, the baselines and migration are not.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import ClassVar, Protocol, runtime_checkable
+from typing import Any, ClassVar, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
@@ -55,8 +63,8 @@ Tensor = torch.Tensor
 f32 = torch.float32
 
 __all__ = ["CR1", "CR2", "DRPolicy", "DayResult", "POLICY_REGISTRY",
-           "SolveContext", "configured_policy", "resolve_policy", "solve",
-           "solve_day"]
+           "SolveContext", "configured_policy", "ensemble", "resolve_policy",
+           "solve", "solve_day", "stack_states", "sweep"]
 
 #: The JAX package's other registered policies, by name (ROADMAP queue 1,
 #: item 8 ports them).
@@ -89,6 +97,8 @@ class SolveContext:
         output buffers, which the graph's next replay overwrites; without
         `donate` the state is cloned. `solve` returns fresh tensors
         either way.
+      mesh: the JAX package's device mesh; not ported yet (ROADMAP
+        queue 1, item 11), every entry point refuses it.
     """
     device: str | torch.device | None = None
     shift: int = 0
@@ -98,6 +108,7 @@ class SolveContext:
     steps: int | None = None
     moment_dtype: str = "float32"
     donate: bool = False
+    mesh: Any = None
 
     def resolved_steps(self, policy: "DRPolicy") -> int:
         return self.steps if self.steps is not None else policy.default_steps
@@ -174,18 +185,200 @@ def configured_policy(policy, *, lam: float = 1.45, cap_frac: float = 0.78,
     return resolve_policy(policy)
 
 
+def refuse_mesh(ctx: SolveContext | None) -> None:
+    if ctx is not None and ctx.mesh is not None:
+        raise NotImplementedError(
+            "SolveContext.mesh is not ported yet (ROADMAP queue 1, item 11: "
+            "multi-GPU row sharding)")
+
+
 def solve(problem: FleetProblem, policy, *,
           ctx: SolveContext | None = None) -> FleetSolveResult:
     """Solve `problem` under `policy`, the single fleet entry point."""
     if not isinstance(problem, FleetProblem):
         raise TypeError(f"solve() takes a FleetProblem; got "
                         f"{type(problem).__name__}")
+    refuse_mesh(ctx)
     problem = single_region_view(problem)
     return resolve_policy(policy).solve(problem, ctx or SolveContext())
 
 
+def sweep(problem: FleetProblem, policies: Sequence, *,
+          ctx: SolveContext | None = None) -> list[FleetSolveResult]:
+    """Solve `problem` under every policy in `policies`; results come back
+    in `policies` order.
+
+    A grid from one family with uniform static knobs (`[CR1(lam=l) for l
+    in grid]`, or CR2s sharing `outer`) rides the batched lane: one
+    engine run over lane-stacked tensors, one `al_step` launch per k
+    steps for the whole grid. Mixed families, `ctx.donate`, `shift` and
+    `reset_mu` take the loop lane, a `solve()` per policy, where a shared
+    `warm` state is reused read-only by every policy (so `donate` is
+    dropped for more than one policy). A *stacked* warm state (leading
+    axis len(policies), `stack_states([r.state for r in results])`)
+    warm-starts each lane from its own slice: a refinement sweep of a
+    Pareto front at a fraction of the cold budget."""
+    ctx = ctx or SolveContext()
+    refuse_mesh(ctx)
+    problem = single_region_view(problem)
+    pols = [resolve_policy(pl) for pl in policies]
+    if not pols:
+        return []
+    fam = type(pols[0])
+    stacked = _stacked_warm(ctx.warm, len(pols))
+    batched = (all(type(pl) is fam for pl in pols)
+               and fam in (CR1, CR2) and fam._sweep_uniform(pols)
+               and (ctx.warm is None or stacked) and not ctx.donate
+               and not ctx.shift and not ctx.reset_mu)
+    if batched:
+        return fam._sweep_family(problem, pols, ctx)
+    if ctx.donate and len(pols) > 1:
+        ctx = dataclasses.replace(ctx, donate=False)
+    if stacked:
+        return [pl.solve(problem, dataclasses.replace(
+            ctx, warm=ctx.warm.lane(i))) for i, pl in enumerate(pols)]
+    return [pl.solve(problem, ctx) for pl in pols]
+
+
+def stack_states(states: Sequence[EngineState]) -> EngineState:
+    """Stack per-lane `EngineState`s (`[r.state for r in sweep(...)]`)
+    along a new leading axis: the warm start of a refinement sweep
+    (`ctx.warm=stack_states(...)`). Shapes must agree across lanes; a
+    mismatch raises here, naming the lane."""
+    states = list(states)
+    if not states:
+        raise ValueError("stack_states needs at least one EngineState")
+    names = ("x", "lam_eq", "lam_in", "mu")
+
+    def shapes(st):
+        return [tuple(getattr(st, n).shape) for n in names]
+
+    ref = shapes(states[0])
+    for i, st in enumerate(states[1:], 1):
+        if shapes(st) != ref:
+            raise ValueError(
+                f"stack_states: state {i} has leaf shapes {shapes(st)}, but "
+                f"state 0 has {ref}: all lanes must come from solves of the "
+                f"same fleet")
+    return EngineState(*(torch.stack([getattr(st, n) for st in states])
+                         for n in names))
+
+
+def _stacked_warm(warm, n: int) -> bool:
+    """True when `warm` is a lane-stacked EngineState for an n-policy
+    sweep."""
+    return isinstance(warm, EngineState) and warm.lanes == n
+
+
+def ensemble(problem: FleetProblem, policy, scenarios, *,
+             ctx: SolveContext | None = None, batched: bool | None = None):
+    """Evaluate `policy` across S scenarios of `problem`
+    (`core.ensemble.evaluate_ensemble`): CR1/CR2 solve all S as one
+    batched lane, other policies and contexts loop over `solve()`.
+    Returns an `EnsembleResult`; `.report()` is its risk summary."""
+    from repro_torch.core.ensemble import evaluate_ensemble
+    return evaluate_ensemble(problem, policy, scenarios, ctx=ctx,
+                             batched=batched)
+
+
 def _cold_x(p: FleetProblem, device: torch.device) -> Tensor:
     return torch.zeros(p.usage.shape, dtype=f32, device=device)
+
+
+def cold_lanes(n: int, p: FleetProblem, device: torch.device, n_eq: int,
+               mu0: float) -> EngineState:
+    """n lane-stacked cold states of fleet `p` (`EngineState.cold` each)."""
+    kw = dict(dtype=f32, device=device)
+    return EngineState(x=torch.zeros((n,) + tuple(p.usage.shape[-2:]), **kw),
+                       lam_eq=torch.zeros((n, n_eq), **kw),
+                       lam_in=torch.zeros((n, 0), **kw),
+                       mu=torch.full((n,), mu0, **kw))
+
+
+# ---------------------------------------------------------------------------
+# Lanes: N solves as one engine run (sweeps, ensembles)
+# ---------------------------------------------------------------------------
+def lane_norms(norms_of, lanes) -> tuple[Tensor, ...]:
+    """`norms_of(*args)` for each lane's args, as `solve()` computes it
+    (once per distinct args, by identity: a sweep's lanes share their
+    problem), stacked to (N,) tensors."""
+    memo, rows = {}, []
+    for args in lanes:
+        key = tuple(map(id, args))
+        if key not in memo:
+            memo[key] = norms_of(*args)
+        rows.append(memo[key])
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def _plan_carbon(D: Tensor, mci: Tensor) -> Tensor:
+    """(N, W) carbon of each lane's rows, mci (T,) shared or (N, T)."""
+    return torch.matmul(D, mci[..., None])[..., 0]
+
+
+def _cr1_lanes(p: FleetProblem, views, lams: Tensor, state0: EngineState,
+               steps: int, use_kernel: bool, shift: int, reset_mu: bool,
+               moment_dtype: str):
+    """N CR1 solves as one engine run -> (D (N, W, T), penalties (N, W),
+    stacked state). `p` is a device view whose fields may lead with the
+    lane axis; `views` are its one-lane problems (the normalizers are
+    each lane's own); `lams` (N,) and `state0` is lane-stacked."""
+    state0 = _enter_tick(state0, shift, reset_mu, CR1_MU0)
+    pen_norm, car_norm, step_scale = lane_norms(cr1_norms,
+                                                [(v,) for v in views])
+    coef0 = lams * pen_norm
+    lo, hi = _bounds(p)
+    cfg = _cr1_cfg(steps, moment_dtype)
+
+    def objective(D: Tensor, _) -> Tensor:
+        return ((coef0[:, None] * fleet_penalties(p, D, use_kernel)).sum()
+                - (car_norm[:, None] * _plan_carbon(D, p.mci)).sum())
+
+    fused = _al_fused_inner(p, "cr1", cfg, car_norm=car_norm,
+                            step_scale=step_scale,
+                            coef0=coef0) if use_kernel else None
+    D, aux = al_minimize(objective, _projection(p, lo, hi), state0.x,
+                         step_scale=step_scale[:, None, None], init=state0,
+                         cfg=cfg, fused_inner=fused)
+    with torch.no_grad():
+        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+
+
+def _cr2_lanes(p: FleetProblem, views, refs: Sequence[Tensor],
+               state0: EngineState, steps: int, outer: int, use_kernel: bool,
+               shift: int, reset_mu: bool, moment_dtype: str):
+    """N CR2 solves as one engine run, as `_cr1_lanes`; `refs` holds each
+    lane's (W,) fairness targets."""
+    state0 = _enter_tick(state0, shift, reset_mu, CR2_MU0)
+    car_norm, scale, step_scale = lane_norms(cr2_norms,
+                                             list(zip(views, refs)))
+    R = torch.stack(list(refs))
+    lo, hi = _bounds(p)
+    cfg = _cr2_cfg(steps, outer, moment_dtype)
+
+    def objective(D: Tensor, _) -> Tensor:
+        return -(car_norm[:, None] * _plan_carbon(D, p.mci)).sum()
+
+    def eq(D: Tensor, _) -> Tensor:
+        return (fleet_penalties(p, D, use_kernel) - R) / scale[:, None]
+
+    fused = _al_fused_inner(p, "cr2", cfg, car_norm=car_norm,
+                            step_scale=step_scale, scale=scale,
+                            refs=R) if use_kernel else None
+    D, aux = al_minimize(objective, _projection(p, lo, hi), state0.x,
+                         eq_residual=eq, step_scale=step_scale[:, None, None],
+                         init=state0, cfg=cfg, fused_inner=fused)
+    with torch.no_grad():
+        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+
+
+def _lane_results(p: FleetProblem, out, iters: int) -> list[FleetSolveResult]:
+    """One `FleetSolveResult` per lane of a lanes run's (D, pens, state),
+    each with its lane of the state."""
+    D, pens, state = out
+    D, pens = D.cpu().numpy(), pens.cpu().numpy()
+    return [_report(p, D[i], pens[i], iters=iters, state=state.lane(i))
+            for i in range(D.shape[0])]
 
 
 # ---------------------------------------------------------------------------
@@ -196,10 +389,15 @@ def _al_fused_inner(p: FleetProblem, mode: str, cfg: EngineConfig, *,
                     refs=None):
     """Pack this fleet's penalty parameters into the `al_step` layout and
     return the chunked dispatcher (`kernels.al_step.ops.make_fused_inner`)
-    as the engine's `fused_inner` hook. `p` is a device view."""
+    as the engine's `fused_inner` hook. `p` is a device view. For N
+    lanes the normalizers, coef0 and scale are (N,) tensors and refs
+    (N, W), and each lane gets its own carbon row (N, 1, T)."""
     from repro_torch.kernels.al_step.ops import make_fused_inner, pack_rows
     lo, hi = _bounds(p)
-    cvec = (-car_norm * p.mci)[None, :]
+    if car_norm.dim() == 0:
+        cvec = (-car_norm * p.mci)[None, :]
+    else:
+        cvec = (-car_norm[:, None] * p.mci)[:, None, :]
     row_base = pack_rows(p.rts_coeffs, p.betas, p.k, p.x2_kind, p.is_batch,
                          refs=refs)
     return make_fused_inner(p.usage, p.jobs, lo, hi, row_base, cvec,
@@ -269,6 +467,26 @@ class CR1:
                                    ctx.reset_mu, ctx.moment_dtype)
         return _report(p, D.cpu().numpy(), pens.cpu().numpy(), iters=steps,
                        state=state)
+
+    # -- the batched sweep lane ---------------------------------------------
+    @classmethod
+    def _sweep_uniform(cls, policies: Sequence["CR1"]) -> bool:
+        return True          # lam is the only knob, and it is per lane
+
+    @classmethod
+    def _sweep_family(cls, p: FleetProblem, policies: Sequence["CR1"],
+                      ctx: SolveContext) -> list[FleetSolveResult]:
+        device = resolve_device(ctx.device)
+        use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+        steps = ctx.resolved_steps(cls)
+        n = len(policies)
+        lams = torch.tensor([pl.lam for pl in policies], dtype=f32,
+                            device=device)
+        init = ctx.warm or cold_lanes(n, p, device, 0, CR1_MU0)
+        pv = device_view(p, device)
+        return _lane_results(p, _cr1_lanes(
+            pv, [pv] * n, lams, init, steps, use_kernel, 0, False,
+            ctx.moment_dtype), steps)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +561,29 @@ class CR2:
         return _report(p, D.cpu().numpy(), pens.cpu().numpy(),
                        iters=steps * self.outer, state=state)
 
+    # -- the batched sweep lane ---------------------------------------------
+    @classmethod
+    def _sweep_uniform(cls, policies: Sequence["CR2"]) -> bool:
+        # `outer` shapes the engine run: one run needs one value.
+        return len({pl.outer for pl in policies}) == 1
+
+    @classmethod
+    def _sweep_family(cls, p: FleetProblem, policies: Sequence["CR2"],
+                      ctx: SolveContext) -> list[FleetSolveResult]:
+        device = resolve_device(ctx.device)
+        use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+        steps = ctx.resolved_steps(cls)
+        outer = policies[0].outer
+        n = len(policies)
+        # Each lane's targets as `solve()` computes them.
+        refs = [torch.as_tensor(cr2_reference_fleet(p, pl.cap_frac, device),
+                                device=device) for pl in policies]
+        init = ctx.warm or cold_lanes(n, p, device, p.W, CR2_MU0)
+        pv = device_view(p, device)
+        return _lane_results(p, _cr2_lanes(
+            pv, [pv] * n, refs, init, steps, outer, use_kernel, 0, False,
+            ctx.moment_dtype), steps * outer)
+
 
 # ---------------------------------------------------------------------------
 # A whole rolling-horizon day: one CUDA-graph replay on the card
@@ -399,6 +640,7 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
     if not isinstance(problem, FleetProblem):
         raise TypeError(f"solve_day() takes a FleetProblem; got "
                         f"{type(problem).__name__}")
+    refuse_mesh(ctx)
     problem = single_region_view(problem)
     stack = np.asarray(mci_stack, np.float32)
     if stack.ndim == 3 and stack.shape[1] == 1:

@@ -13,6 +13,12 @@ Warm starts: `init` (an `EngineState`, the (x, lam_eq, lam_in, mu) carry
 of a previous solve) replaces the cold start, and the final state is
 returned in `aux["state"]`. Multipliers and mu stay device tensors; the
 loop never reads a device value on the host.
+
+Lanes: an `init` whose mu is a vector (N,) (`EngineState.lanes`) runs N
+independent solves at once, a sweep's policies or an ensemble's
+scenarios: x (N, W, T), multipliers (N, n), residuals (N, n), mu and
+its clamp per lane, and `step_scale` broadcastable to x ((N, 1, 1)).
+The objective returns the lanes' sum, whose gradient is each lane's.
 """
 from __future__ import annotations
 
@@ -56,6 +62,17 @@ class EngineState:
     lam_eq: Tensor      # (n_eq,) equality multipliers
     lam_in: Tensor      # (n_in,) inequality multipliers (>= 0)
     mu: Tensor          # scalar quadratic penalty weight
+    # A lane-stacked state (N solves) leads every field with N: mu (N,).
+
+    @property
+    def lanes(self) -> int | None:
+        """N for a lane-stacked state, None for one solve's."""
+        return self.mu.shape[0] if self.mu.dim() == 1 else None
+
+    def lane(self, i: int) -> "EngineState":
+        """Lane i of a lane-stacked state (views, not copies)."""
+        return EngineState(x=self.x[i], lam_eq=self.lam_eq[i],
+                           lam_in=self.lam_in[i], mu=self.mu[i])
 
     @classmethod
     def cold(cls, x0: Tensor, n_eq: int = 0, n_in: int = 0,
@@ -102,11 +119,21 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
         raise NotImplementedError(
             "EngineConfig.sanitize and telemetry_every are not ported yet")
 
+    lanes = init is not None and init.lanes is not None
+
+    def flat(r: Tensor) -> Tensor:
+        return r.reshape(r.shape[0], -1) if lanes \
+            else torch.atleast_1d(r).reshape(-1)
+
     def eq_vec(x: Tensor) -> Tensor:
-        return torch.atleast_1d(eq_residual(x, hyper)).reshape(-1)
+        return flat(eq_residual(x, hyper))
 
     def ineq_vec(x: Tensor) -> Tensor:
-        return torch.atleast_1d(ineq_residual(x, hyper)).reshape(-1)
+        return flat(ineq_residual(x, hyper))
+
+    def per_lane(mu: Tensor) -> Tensor:
+        """mu against (N, n) residuals."""
+        return mu[:, None] if lanes else mu
 
     if init is None:
         with torch.no_grad():
@@ -119,12 +146,20 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
         val = objective(x, hyper)
         if n_eq:
             h = eq_vec(x)
-            val = val + lam_eq @ h + 0.5 * mu * (h @ h)
+            if lanes:
+                val = val + (lam_eq * h).sum() \
+                    + 0.5 * (mu * (h * h).sum(-1)).sum()
+            else:
+                val = val + lam_eq @ h + 0.5 * mu * (h @ h)
         if n_in:
             # AL for g(x) >= 0: (mu/2)·[max(0, lam/mu − g)² − (lam/mu)²]
             g = ineq_vec(x)
-            s = torch.maximum(lam_in / mu - g, torch.zeros_like(g))
-            val = val + 0.5 * mu * (s @ s - (lam_in / mu) @ (lam_in / mu))
+            r = lam_in / per_lane(mu)
+            s = torch.maximum(r - g, torch.zeros_like(g))
+            if lanes:
+                val = val + 0.5 * (mu * (s * s - r * r).sum(-1)).sum()
+            else:
+                val = val + 0.5 * mu * (s @ s - r @ r)
         return val
 
     mdt = getattr(torch, cfg.moment_dtype)
@@ -162,9 +197,10 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
                     m, v = m.to(mdt), v.to(mdt)
         with torch.no_grad():
             if n_eq:
-                lam_eq = lam_eq + mu * eq_vec(x)
+                lam_eq = lam_eq + per_lane(mu) * eq_vec(x)
             if n_in:
-                lam_in = torch.clamp(lam_in - mu * ineq_vec(x), min=0.0)
+                lam_in = torch.clamp(lam_in - per_lane(mu) * ineq_vec(x),
+                                     min=0.0)
             mu = torch.clamp(mu * cfg.mu_growth, max=cfg.mu_max)
     state = EngineState(x=x, lam_eq=lam_eq, lam_in=lam_in, mu=mu)
     return x, {"lam_eq": lam_eq, "lam_in": lam_in, "mu": mu, "state": state}

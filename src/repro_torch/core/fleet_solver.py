@@ -100,7 +100,8 @@ def single_region_view(p: FleetProblem) -> FleetProblem:
     if np.asarray(p.mci).shape[0] == 1:
         return dataclasses.replace(p, mci=np.asarray(p.mci)[0], region=None)
     raise NotImplementedError(
-        "multi-region fleets (mci (R, T), R > 1) are not ported yet")
+        "multi-region fleets (mci (R, T), R > 1) are not ported yet "
+        "(ROADMAP queue 1, item 9: multi-region)")
 
 
 def from_models(models: Sequence[PenaltyModel], mci: np.ndarray,
@@ -158,24 +159,33 @@ def synthetic_fleet(num: int, hours: int = 48, seed: int = 0,
 
 def _features(d: Tensor, usage: Tensor, jobs: Tensor,
               use_kernel: bool) -> Tensor:
-    """(W, 4): wait_jobs, wait_power, wait_sq, njobs (Table IV). The plain
-    path uses `torch.maximum` for JAX's 0.5 tie gradient."""
+    """(..., W, 4): wait_jobs, wait_power, wait_sq, njobs (Table IV). The
+    plain path uses `torch.maximum` for JAX's 0.5 tie gradient. Lanes
+    ((N, W, T) plans; usage and jobs shared or per lane) go through the
+    kernel as N·W stacked rows, one launch: a row's features depend on
+    that row alone."""
     if use_kernel:
         from repro_torch.kernels.dr_features.ops import dr_features
-        return dr_features(d, usage, jobs)
+        if d.dim() == 2:
+            return dr_features(d, usage, jobs)
+        T = d.shape[-1]
+        rows = [a.expand(d.shape).reshape(-1, T) for a in (d, usage, jobs)]
+        return dr_features(*rows).reshape(d.shape[:-1] + (4,))
     zero = torch.zeros((), dtype=d.dtype, device=d.device)
     rate = jobs * d / usage
-    wait_jobs = torch.maximum(torch.cumsum(rate, dim=1), zero).sum(1)
-    wait_power = torch.maximum(torch.cumsum(d, dim=1), zero).sum(1)
+    wait_jobs = torch.maximum(torch.cumsum(rate, dim=-1), zero).sum(-1)
+    wait_power = torch.maximum(torch.cumsum(d, dim=-1), zero).sum(-1)
     rate_sq = jobs * d * torch.abs(d) / usage
-    wait_sq = torch.maximum(torch.cumsum(rate_sq, dim=1), zero).sum(1)
-    njobs = (jobs * torch.maximum(d, zero) / usage).sum(1)
-    return torch.stack([wait_jobs, wait_power, wait_sq, njobs], dim=1)
+    wait_sq = torch.maximum(torch.cumsum(rate_sq, dim=-1), zero).sum(-1)
+    njobs = (jobs * torch.maximum(d, zero) / usage).sum(-1)
+    return torch.stack([wait_jobs, wait_power, wait_sq, njobs], dim=-1)
 
 
 def fleet_penalties(p: FleetProblem, D: Tensor,
                     use_kernel: bool | None = None) -> Tensor:
-    """(W,) calibrated penalties, fully vectorized, on D's device."""
+    """(W,) calibrated penalties, fully vectorized, on D's device. With
+    lanes, D is (N, W, T) and the result (N, W); `p`'s usage, jobs (and
+    entitlement) may then lead with N too."""
     use_kernel = resolve_use_kernel(use_kernel, D.device)
 
     def t(a, dtype=f32):
@@ -185,10 +195,10 @@ def fleet_penalties(p: FleetProblem, D: Tensor,
     delta = D / usage
     rts = t(p.rts_coeffs)
     a3, a2, a1 = (rts[:, i:i + 1] for i in range(3))
-    f_rts = (a3 * delta**3 + a2 * delta**2 + a1 * delta).sum(dim=1)
+    f_rts = (a3 * delta**3 + a2 * delta**2 + a1 * delta).sum(dim=-1)
     X = _features(D, usage, t(p.jobs), use_kernel)
-    x1 = X[:, 1]
-    x2 = torch.where(t(p.x2_kind) > 0.5, X[:, 2], X[:, 3])
+    x1 = X[..., 1]
+    x2 = torch.where(t(p.x2_kind) > 0.5, X[..., 2], X[..., 3])
     b = t(p.betas)
     z = b[:, 0] + b[:, 1] * x1 + b[:, 2] * x2
     f_batch = torch.maximum(z, torch.zeros_like(z))
@@ -251,16 +261,22 @@ class FleetSolveResult:
 
 def _bounds(p: FleetProblem) -> tuple[Tensor, Tensor]:
     """Box bounds: curtail ≤ min(frac·E, U); batch may boost to U−d ≤ E.
-    An operational `p.upper` cap tightens the curtail side further."""
+    An operational `p.upper` cap tightens the curtail side further.
+    Lane-stacked fields ((N, W, T) usage, (N, W) entitlement) give
+    (N, W, T) bounds. An hour whose batch usage exceeds what the cap can
+    bring under E (U − E > hi: an overload, as FleetJitter draws) gets
+    lo = hi, the point a clip to [U − E, hi] takes; the exact day
+    projection, kernel and plain version alike, needs lo ≤ hi."""
     usage = torch.as_tensor(p.usage, dtype=f32)
-    E = torch.as_tensor(p.entitlement, dtype=f32, device=usage.device)[:, None]
+    E = torch.as_tensor(p.entitlement, dtype=f32,
+                        device=usage.device)[..., None]
     hi = torch.minimum(p.max_curtail_frac * E, usage)
     if p.upper is not None:
         hi = torch.minimum(hi, torch.as_tensor(p.upper, dtype=f32,
                                                device=usage.device))
     isb = torch.as_tensor(p.is_batch, dtype=torch.bool, device=usage.device)
     lo = torch.where(isb[:, None], -(E - usage), torch.zeros_like(usage))
-    return lo, hi
+    return torch.minimum(lo, hi), hi
 
 
 def _day_shift(Y: Tensor, L: Tensor, H: Tensor) -> Tensor:
@@ -292,18 +308,22 @@ def project_days(x: Tensor, lo: Tensor, hi: Tensor, is_batch: Tensor,
     """Euclidean projection onto the box ∩ {every whole day of a batch row
     sums to 0}: clip(x − τ, lo, hi) with one shift τ per batch row and day
     (`_day_shift`). RTS rows (`is_batch` (W,) false), and hours past the
-    last whole day, are only clipped; a horizon under a day is one day."""
-    W, T = x.shape
+    last whole day, are only clipped; a horizon under a day is one day.
+    Lanes: x (N, W, T), with lo and hi (W, T) or (N, W, T), is projected
+    as N·W rows."""
+    W, T = x.shape[-2:]
+    lead = tuple(x.shape[:-2])
     day_hours = min(day_hours, T)
     n_days = T // day_hours
     span = n_days * day_hours
-    y, L, H = (a[:, :span].reshape(W, n_days, day_hours)
+    lo, hi = lo.expand(x.shape), hi.expand(x.shape)
+    y, L, H = (a[..., :span].reshape(lead + (W, n_days, day_hours))
                for a in (x, lo, hi))
     tau = torch.where(is_batch.reshape(W, 1, 1), _day_shift(y, L, H),
                       torch.zeros((), dtype=x.dtype, device=x.device))
-    days = torch.clamp(y - tau, L, H).reshape(W, span)
-    return torch.cat([days, torch.clamp(x[:, span:], lo[:, span:],
-                                        hi[:, span:])], dim=1)
+    days = torch.clamp(y - tau, L, H).reshape(lead + (W, span))
+    return torch.cat([days, torch.clamp(x[..., span:], lo[..., span:],
+                                        hi[..., span:])], dim=-1)
 
 
 def _projection(p: FleetProblem, lo: Tensor, hi: Tensor):

@@ -45,6 +45,13 @@
 // `scal` is read on the device, so mu and the Adam step count t0 cost the
 // host no sync. Moments are stored as float or bf16 (template parameter),
 // with float arithmetic.
+//
+// Lanes: one launch runs N independent solves' steps (a sweep's policies
+// or an ensemble's scenarios), `blockIdx.y` the lane. Each lane has its
+// own x, m, v, rowp and `scal` row (coef0, mu, 1/scale, lr_scale, t0 read
+// per lane, never folded into rows, so a lane computes bit for bit what a
+// one-lane call on its slices computes); usage, jobs, lo, hi and cvec
+// have run-time lane strides, 0 where the lanes share them.
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -65,6 +72,9 @@ constexpr int kRowp = 12;
 struct Params {
   int W, T, mode, k_steps, day_hours, cvec_stride;
   float beta1, beta2, omb1, omb2, eps;
+  // Lanes, and each shared-or-not operand's lane stride in elements (x, m,
+  // v and their outputs: W * T; rowp: W * kRowp; scal: 8).
+  int lanes, ls_usage, ls_jobs, ls_lo, ls_hi, ls_cvec;
 };
 
 template <typename M>
@@ -445,12 +455,35 @@ __device__ __forceinline__ void step_rows(const Operands<M>& o,
   store_run<H>(o.v_out + off, nv, pairs, s);
 }
 
+// The operands of lane `lane`.
+template <typename M>
+__device__ __forceinline__ Operands<M> at_lane(Operands<M> o, const Params& p,
+                                               int lane) {
+  const size_t l = static_cast<size_t>(lane);
+  const size_t state = l * p.W * p.T;
+  o.x += state;
+  o.m += state;
+  o.v += state;
+  o.x_out += state;
+  o.m_out += state;
+  o.v_out += state;
+  o.usage += l * p.ls_usage;
+  o.jobs += l * p.ls_jobs;
+  o.lo += l * p.ls_lo;
+  o.hi += l * p.ls_hi;
+  o.cvec += l * p.ls_cvec;
+  o.rowp += l * p.W * kRowp;
+  o.scal += l * 8;
+  return o;
+}
+
 // Launch bounds of at least one block an SM: with the thread count alone
 // ptxas aims at an occupancy and spills a few bytes in some
 // instantiations.
 template <int H, bool kAlignedDays, bool kWhole, typename M>
 __global__ void __launch_bounds__(kThreads, 1)
-al_step_kernel(const Operands<M> o, const Params p, bool pairs) {
+al_step_kernel(const Operands<M> lanes, const Params p, bool pairs) {
+  const Operands<M> o = at_lane(lanes, p, blockIdx.y);
   const int r = blockIdx.x * kBlockRows + threadIdx.x / kLanes;
   const int row = r < p.W ? r : -1;
   const bool batch =
@@ -469,8 +502,11 @@ bool aligned(const void* p, std::uintptr_t bytes) {
 
 template <int H, typename M>
 int launch(const Operands<M>& o, const Params& p, cudaStream_t stream) {
-  const int blocks = (p.W + kBlockRows - 1) / kBlockRows;
-  bool pairs = H % 2 == 0 && p.T % 2 == 0;
+  const dim3 blocks((p.W + kBlockRows - 1) / kBlockRows, p.lanes);
+  // Pairs stay aligned in every lane where each lane stride is even.
+  bool pairs = H % 2 == 0 && p.T % 2 == 0 &&
+               (p.lanes == 1 || (p.ls_usage | p.ls_jobs | p.ls_lo | p.ls_hi |
+                                 p.ls_cvec) % 2 == 0);
   const void* const f32[] = {o.x, o.usage, o.jobs, o.lo, o.hi, o.cvec,
                              o.x_out};
   const void* const moments[] = {o.m, o.v, o.m_out, o.v_out};
@@ -515,20 +551,24 @@ Operands<M> operands(const float* x, const void* m, const void* v,
 
 }  // namespace
 
-extern "C" int al_step_launch(const float* x, const void* m, const void* v,
-                              const float* usage, const float* jobs,
-                              const float* lo, const float* hi,
-                              const float* rowp, const float* cvec,
-                              int cvec_stride, const float* scal,
-                              float* x_out, void* m_out, void* v_out, int W,
-                              int T, int mode, int k_steps, int day_hours,
-                              float beta1, float beta2, float omb1, float omb2,
-                              float eps, int bf16_moments, void* stream) {
-  if (T < 1 || T > rowscan::kMaxHours || day_hours < 1)
+// `lanes` solves in one launch; `ls_*` are the lane strides of usage,
+// jobs, lo, hi and cvec in elements (0: shared by every lane). x, m, v
+// and the outputs are (lanes, W, T), rowp (lanes, W, 12), scal (lanes, 8).
+extern "C" int al_step_lanes_launch(
+    const float* x, const void* m, const void* v, const float* usage,
+    const float* jobs, const float* lo, const float* hi, const float* rowp,
+    const float* cvec, int cvec_stride, const float* scal, float* x_out,
+    void* m_out, void* v_out, int W, int T, int mode, int k_steps,
+    int day_hours, float beta1, float beta2, float omb1, float omb2,
+    float eps, int bf16_moments, int lanes, int ls_usage, int ls_jobs,
+    int ls_lo, int ls_hi, int ls_cvec, void* stream) {
+  if (T < 1 || T > rowscan::kMaxHours || day_hours < 1 || lanes < 1 ||
+      lanes > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   day_hours = day_hours < T ? day_hours : T;  // a horizon under a day is one day
-  const Params p{W,     T,     mode, k_steps, day_hours, cvec_stride,
-                 beta1, beta2, omb1, omb2,    eps};
+  const Params p{W,     T,     mode,     k_steps, day_hours, cvec_stride,
+                 beta1, beta2, omb1,     omb2,    eps,       lanes,
+                 ls_usage, ls_jobs, ls_lo, ls_hi, ls_cvec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_moments)
     return dispatch(operands<__nv_bfloat16>(x, m, v, usage, jobs, lo, hi,
@@ -538,4 +578,21 @@ extern "C" int al_step_launch(const float* x, const void* m, const void* v,
   return dispatch(operands<float>(x, m, v, usage, jobs, lo, hi, rowp, cvec,
                                   scal, x_out, m_out, v_out),
                   p, s);
+}
+
+// One lane: the interface of the kernel before it had lanes.
+extern "C" int al_step_launch(const float* x, const void* m, const void* v,
+                              const float* usage, const float* jobs,
+                              const float* lo, const float* hi,
+                              const float* rowp, const float* cvec,
+                              int cvec_stride, const float* scal,
+                              float* x_out, void* m_out, void* v_out, int W,
+                              int T, int mode, int k_steps, int day_hours,
+                              float beta1, float beta2, float omb1, float omb2,
+                              float eps, int bf16_moments, void* stream) {
+  return al_step_lanes_launch(x, m, v, usage, jobs, lo, hi, rowp, cvec,
+                              cvec_stride, scal, x_out, m_out, v_out, W, T,
+                              mode, k_steps, day_hours, beta1, beta2, omb1,
+                              omb2, eps, bf16_moments, 1, 0, 0, 0, 0, 0,
+                              stream);
 }

@@ -13,6 +13,13 @@ pass loop (`csrc/row_scan.cuh`, `csrc/al_step.cu`). There is no padding
 copy.
 `scal` stays on the device and the kernel reads it, so mu and t0 never
 sync the host. `al_step_cuda.launches` counts the launches.
+
+Lanes: with x of shape (N, W, T) one launch runs N independent solves'
+steps (`blockIdx.y` is the lane). x, m, v, rowp (N, W, 12) and scal
+(N, 8) are per lane; usage, jobs, lo and hi are (W, T), shared by every
+lane, or (N, W, T); cvec is (1, T) or (W, T) shared, or (N, 1, T) or
+(N, W, T). A lane computes bit for bit what a one-lane call on its
+slices computes.
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 @functools.cache
 def _launch_fn():
     lib = build.load("al_step")
-    fn = lib.al_step_launch
+    fn = lib.al_step_lanes_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([p] * 9 + [i] + [p] * 4 + [i] * 5 + [f] * 5 + [i, p])
+    fn.argtypes = ([p] * 9 + [i] + [p] * 4 + [i] * 5 + [f] * 5 + [i] * 7
+                   + [p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -42,14 +50,18 @@ def al_step_cuda(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, *,
                  beta2: float = 0.999, eps: float = 1e-8,
                  day_hours: int = 24):
     """`k_steps` fused AL inner steps on CUDA tensors; returns new
-    (x, m, v). Same arguments and semantics as `ref.al_step_ref`."""
+    (x, m, v). Same arguments and semantics as `ref.al_step_ref`, with
+    an optional leading lane axis (the module docstring)."""
     if mode not in MODES:
         raise ValueError(f"mode must be cr1|cr2, got {mode!r}")
     if x.device.type != "cuda":
         raise ValueError(f"al_step_cuda needs CUDA tensors; got {x.device}")
-    if x.dim() != 2:
-        raise ValueError(f"x must be (W, T); got shape {tuple(x.shape)}")
-    W, T = x.shape
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x must be (W, T) or (N, W, T); got shape "
+                         f"{tuple(x.shape)}")
+    lead = tuple(x.shape[:-2])
+    N = lead[0] if lead else 1
+    W, T = x.shape[-2:]
     build.check_hours(T)
     if m.dtype not in _MOMENT_DTYPES or v.dtype != m.dtype:
         raise ValueError(f"moments must both be float32 or bfloat16; got "
@@ -58,20 +70,28 @@ def al_step_cuda(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, *,
         raise ValueError("k_steps and day_hours must be >= 1")
     day_hours = min(day_hours, T)  # a horizon under a day is one day
     dev = x.device
-    for name, t in (("x", x), ("usage", usage), ("jobs", jobs), ("lo", lo),
+    build.check_operand("x", x, torch.float32, lead + (W, T), dev)
+    build.check_operand("m", m, m.dtype, lead + (W, T), dev)
+    build.check_operand("v", v, m.dtype, lead + (W, T), dev)
+    build.check_operand("rowp", rowp, torch.float32, lead + (W, 12), dev)
+    build.check_operand("scal", scal, torch.float32, (N, 8), dev)
+    strides = []        # lane strides of usage, jobs, lo, hi, cvec
+    for name, t in (("usage", usage), ("jobs", jobs), ("lo", lo),
                     ("hi", hi)):
-        build.check_operand(name, t, torch.float32, (W, T), dev)
-    build.check_operand("m", m, m.dtype, (W, T), dev)
-    build.check_operand("v", v, m.dtype, (W, T), dev)
-    build.check_operand("rowp", rowp, torch.float32, (W, 12), dev)
-    cvec_rows = 1 if cvec.shape[0] == 1 else W
-    build.check_operand("cvec", cvec, torch.float32, (cvec_rows, T), dev)
+        own = lead and t.dim() == 3
+        build.check_operand(name, t, torch.float32,
+                            (lead if own else ()) + (W, T), dev)
+        strides.append(W * T if own else 0)
+    cvec_rows = 1 if cvec.shape[-2] == 1 else W
+    own = lead and cvec.dim() == 3
+    build.check_operand("cvec", cvec, torch.float32,
+                        (lead if own else ()) + (cvec_rows, T), dev)
     cvec_stride = 0 if cvec_rows == 1 else T
-    build.check_operand("scal", scal, torch.float32, (1, 8), dev)
+    strides.append(cvec_rows * T if own else 0)
     x_out = torch.empty_like(x)
     m_out = torch.empty_like(m)
     v_out = torch.empty_like(v)
-    if W == 0:
+    if W == 0 or N == 0:
         return x_out, m_out, v_out
     lib, fn = _launch_fn()
     with torch.cuda.device(dev):
@@ -81,7 +101,7 @@ def al_step_cuda(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, *,
                  scal.data_ptr(), x_out.data_ptr(), m_out.data_ptr(),
                  v_out.data_ptr(), W, T, MODES.index(mode), k_steps,
                  day_hours, beta1, beta2, 1.0 - beta1, 1.0 - beta2, eps,
-                 int(m.dtype == torch.bfloat16),
+                 int(m.dtype == torch.bfloat16), N, *strides,
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "al_step")
     al_step_cuda.launches += 1

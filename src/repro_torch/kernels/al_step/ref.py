@@ -55,6 +55,12 @@ where `coef0 = lam · pen_norm` (CR1 penalty weight; unused for CR2),
 taken this outer round (bias correction resumes at t0 + 1).
 
 `cvec` is (1, T), or (W, T) for per-row carbon weights.
+
+Lanes: x, m, v and rowp may lead with a lane axis N (N independent
+solves, a sweep's policies or an ensemble's scenarios), `scal` is then
+(N, 8), one row per lane, and usage, jobs, lo, hi and cvec are either
+shared ((W, T); cvec (1, T) or (W, T)) or per lane ((N, W, T); cvec
+(N, 1, T) or (N, W, T)). Each lane is the one-lane call on its slices.
 """
 from __future__ import annotations
 
@@ -126,9 +132,20 @@ def al_step_ref(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, *,
     x: (W, T) f32 primal iterate; m/v: (W, T) Adam moments (f32 or bf16,
     up-cast for arithmetic and stored back in their dtype); cvec: (1, T)
     or (W, T); rowp/scal: packed parameters, see the module docstring.
+    With a leading lane axis on x, each lane is run on its own slices.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be cr1|cr2, got {mode!r}")
+    kw = dict(mode=mode, k_steps=k_steps, beta1=beta1, beta2=beta2, eps=eps,
+              day_hours=day_hours)
+    if x.dim() == 3:
+        def lane(a, i):
+            return a[i] if a.dim() == 3 else a
+
+        outs = [al_step_ref(x[i], m[i], v[i], *(lane(a, i) for a in (
+            usage, jobs, lo, hi)), rowp[i], lane(cvec, i), scal[i:i + 1],
+            **kw) for i in range(x.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
     f32 = torch.float32
     x = x.to(f32)
     mdt = m.dtype

@@ -683,3 +683,131 @@ def test_day_without_kernels_runs_eagerly_on_the_card(dev, fleets):
     fused = solve_day(p, pol, stack, ctx=SolveContext(), **DAY_STEPS)
     assert abs(generic.last.carbon_reduction_pct
                - fused.last.carbon_reduction_pct) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# Batched lanes: al_step with a lane axis, stacked dr_features rows, sweeps
+# ---------------------------------------------------------------------------
+def _lane_args(fleets, N, mode, shared, bf16, T_, dev, seed=0, **kw):
+    """chip_smoke's lane inputs on the W = 130 fleet at horizon T_: the
+    per-lane argument lists and the stacked ones, on the card."""
+    lanes, stacked = _load_chip_smoke().al_step_lane_inputs(
+        np, fleets[130], N, mode=mode, seed=seed, shared=shared, **kw)
+
+    def prep(arrs):
+        out = [_f32(a, dev) for a in arrs]
+        hours = torch.arange(T_, device=dev) % T
+        out = [a[..., hours].contiguous() if a.shape[-1] == T else a
+               for a in out]
+        if bf16:
+            out[1], out[2] = out[1].bfloat16(), out[2].bfloat16()
+        return out
+
+    return [prep(a) for a in lanes], prep(stacked)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("T_", [24, 48, 45])
+@pytest.mark.parametrize("N", [1, 3, 16])
+def test_al_step_lanes_are_one_lane_calls_bitwise(dev, fleets, N, T_, shared,
+                                                  bf16):
+    """N lanes in one launch equal N one-lane calls bit for bit: mixed
+    rows ordered by kind, 8 steps, per-lane scalars (lam, mu, lr scale,
+    t0), shared or per-lane fleet constants and carbon rows."""
+    for mode in ("cr1", "cr2"):
+        lanes, args = _lane_args(fleets, N, mode, shared, bf16, T_, dev,
+                                 seed=N + T_, rts_only=False, stable=True)
+        kw = dict(mode=mode, k_steps=8)
+        before = al_step_cuda.launches
+        got = al_step_cuda(*args, **kw)
+        assert al_step_cuda.launches == before + 1
+        for i, one in enumerate(lanes):
+            for g, o in zip(got, al_step_cuda(*one, **kw)):
+                assert g.dtype == o.dtype
+                assert torch.equal(g[i], o), (mode, i)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_al_step_lanes_match_plain(dev, fleets, shared):
+    """The batched kernel against its plain version at the one-lane
+    tolerance (RTS rows, 8 steps)."""
+    lanes, args = _lane_args(fleets, 4, "cr2", shared, False, T, dev, seed=3)
+    kw = dict(mode="cr2", k_steps=8)
+    for g, w in zip(al_step_cuda(*args, **kw), al_step_ref(*args, **kw)):
+        _close(g, w, 1e-5)
+
+
+def test_al_step_lanes_reject_bad_operands(dev, fleets):
+    _, args = _lane_args(fleets, 3, "cr1", False, False, T, dev)
+    bad = list(args)
+    bad[9] = args[9][:2]
+    with pytest.raises(ValueError, match="scal"):
+        al_step_cuda(*bad, mode="cr1", k_steps=1)
+    bad = list(args)
+    bad[3] = args[3][:2]
+    with pytest.raises(ValueError, match="usage"):
+        al_step_cuda(*bad, mode="cr1", k_steps=1)
+
+
+def test_dr_features_on_stacked_rows(dev, fleets):
+    """`fleet_penalties` on (N, W, T) lanes: one dr_features launch for
+    all N·W rows, each lane's penalties those of its one-lane call."""
+    import dataclasses
+    from repro_torch.core.fleet_solver import device_view, fleet_penalties
+    p = device_view(fleets[130], dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    D = 0.3 * torch.randn((5,) + tuple(p.usage.shape), generator=gen,
+                          device=dev)
+    scale = torch.linspace(0.8, 1.2, 5, device=dev)[:, None, None]
+    for q in (p, dataclasses.replace(p, usage=p.usage * scale,
+                                     jobs=p.jobs * scale)):
+        before = dr_features_cuda.launches
+        pens = fleet_penalties(q, D)
+        assert dr_features_cuda.launches == before + 1
+        for i in range(5):
+            one = q if q.usage.dim() == 2 else dataclasses.replace(
+                q, usage=q.usage[i], jobs=q.jobs[i])
+            _close(pens[i], fleet_penalties(one, D[i]), 1e-6)
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_sweep_lanes_match_solve_loop(dev, fleets, policy):
+    """A sweep at W = 130 through the kernels: ceil(steps / 8) al_step
+    launches per round for all lanes, each lane within 0.01 pp of its
+    `solve()`."""
+    from repro_torch.core.api import CR1, CR2, SolveContext, solve, sweep
+    p = fleets[130]
+    pols = ([CR1(lam=lam) for lam in (1.0, 1.45, 2.2)] if policy == "cr1"
+            else [CR2(cap_frac=c, outer=2) for c in (0.74, 0.82)])
+    ctx = SolveContext(steps=100)
+    before = al_step_cuda.launches
+    got = sweep(p, pols, ctx=ctx)
+    assert al_step_cuda.launches - before == getattr(pols[0], "outer",
+                                                     1) * 13
+    for pl, r in zip(pols, got):
+        one = solve(p, pl, ctx=ctx)
+        assert abs(r.carbon_reduction_pct - one.carbon_reduction_pct) < 0.01
+        assert abs(r.total_penalty_pct - one.total_penalty_pct) < 0.01
+
+
+def test_overloaded_rows_end_at_their_nearest_day_sum(dev, fleets):
+    """Usage jittered above entitlement (FleetJitter) inverts some hours'
+    box (U - E > 0.5 E); `_bounds` keeps lo <= hi, so the kernel's day
+    projection, like its plain version's clip, ends every batch day at the
+    nearest sum its box allows (with lo > hi it held such hours at lo and
+    left days up to 103 NP·h off at W = 10,000)."""
+    from repro_torch.core.api import CR1, SolveContext, solve
+    from repro_torch.core.scenario import FleetJitter
+    p = fleets[130]
+    stack = FleetJitter(2, seed=2, usage_sigma=0.6,
+                        entitlement_sigma=0.0).generate(p)
+    cs = _load_chip_smoke()
+    for s in range(stack.S):
+        q = stack.problem(p, s)
+        isb = np.asarray(q.is_batch)
+        assert (np.asarray(q.usage)[isb]
+                > 1.5 * np.asarray(q.entitlement)[isb, None]).any()
+        r = solve(q, CR1(), ctx=SolveContext(steps=80))
+        gap, n_days = cs.day_sum_gap(np, q, r.D)
+        assert n_days > 0 and gap < 1e-3

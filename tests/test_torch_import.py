@@ -36,7 +36,7 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "models.transformer", "launch.serve", "configs.mamba2_780m",
               "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
               "kernels.ssd_scan.ref", "models.ssm", "core.streaming",
-              "core.daygraph"):
+              "core.daygraph", "core.scenario", "core.ensemble"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -87,7 +87,8 @@ def test_solve_wants_the_card_by_default():
 @pytest.mark.parametrize("entry", [
     "cr2_reference_fleet", "fit_lasso_cv", "init_params", "init_cache",
     "transformer_params_from_arrays", "init_params_ssm", "init_cache_ssm",
-    "solve_day", "rolling_horizon_step"])
+    "solve_day", "rolling_horizon_step", "sweep", "ensemble",
+    "streaming_ensemble"])
 def test_other_entry_points_want_the_card_by_default(entry):
     """Entry points below `solve`, and the model's, take the card too when
     no device is named, and raise without one rather than run on the CPU."""
@@ -96,8 +97,9 @@ def test_other_entry_points_want_the_card_by_default(entry):
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import transformer_params_from_arrays
     from repro_torch.core.fleet_solver import cr2_reference_fleet
-    from repro_torch.core.api import solve_day
+    from repro_torch.core.api import ensemble, solve_day, sweep
     from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.ensemble import run_streaming_ensemble
     from repro_torch.core.lasso import fit_lasso_cv
     from repro_torch.core.streaming import RollingHorizonSolver
     from repro_torch.models import transformer as tf
@@ -119,6 +121,10 @@ def test_other_entry_points_want_the_card_by_default(entry):
             _tiny_problem(), CR1(), np.stack([_tiny_problem().mci] * 2)),
         "rolling_horizon_step": lambda: RollingHorizonSolver(
             _tiny_problem(), ForecastStream.caiso(n_ticks=2)).step(),
+        "sweep": lambda: sweep(_tiny_problem(), [CR1(lam=1.0), CR1()]),
+        "ensemble": lambda: ensemble(_tiny_problem(), CR1(), "duck_perturb"),
+        "streaming_ensemble": lambda: run_streaming_ensemble(
+            _tiny_problem(), CR1(), [ForecastStream.caiso(n_ticks=2)]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -50,6 +50,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    600 / warm 150, 24 ticks, two streams against solo controllers. The
    CR1 sweep is counted once more by `torch.profiler`; at W = 130 the
    sweeps through the kernels are held against the generic engine;
+5d. the policies: CR3 at the same fleet and its default budget (600
+   steps x 3 a clearing round) through the kernels (launch counts reset
+   just before and read just after: dr_features once an inner step and
+   once a round) and then through the plain path (the same rounds and
+   balance, rho within 1e-4, 0.05 pp); a CR3 sweep over rho in {0.01,
+   0.02, 0.04} at 150 steps, each lane against its `solve()`; B1(F=0.75)
+   and B3(depth=0.3) against their closed forms in numpy, one dr_features
+   launch each; the paper's four-workload problem (the phase-3 models
+   over `caiso_2021(48)`) through the SLSQP reference in float64 on the
+   card (`solve_slsqp` of CR1(1.45) and CR2(0.78) at 250 iterations,
+   `solve_cr3` at rho 0.02) beside the fleet CR1, CR2 and CR3 on
+   `FleetProblem.from_problem`, held within the JAX package's bounds
+   (`tests/test_engine.py`), and one line of carbon % and penalty % for
+   each of the seven policies;
 6. the serving paths, each at full width (random weights from a seeded
    generator on the card), through `serve_requests` at max_batch 8, then
    4 (launch counts reset just before and read just after each path),
@@ -140,6 +154,14 @@ LANE_PP = 0.01       # batched lane vs its solve() loop (JAX contract)
 SCAN_PP = 0.01       # per-tick loop vs day, realized carbon (JAX contract)
 COMMIT_ATOL = 5e-3   # per-tick loop vs day, committed NP (JAX contract)
 REPLAY_TOL = 1e-6    # graph replay vs the eager day, NP
+# CR3 (phase 5d): the kernel path vs the plain path at the default budget,
+# rho relative; a sweep over rho (the JAX package's sweep test grid around
+# the paper's 0.02) at 150 steps, each lane vs its solve() at the JAX
+# package's sweep bounds (tests/test_api.py: rho 1e-3, 0.05 pp).
+CR3_RHO_RTOL = 1e-4
+CR3_RHOS = (0.01, 0.02, 0.04)
+CR3_SWEEP_STEPS = 150
+CR3_LANE_RHO_RTOL = 1e-3
 
 
 def log(*a):
@@ -1024,6 +1046,228 @@ def phase_lanes(np, torch, p, p_tail):
     return totals
 
 
+def expected_cr3_launches(steps, outer, rounds):
+    """dr_features launches of a CR3 solve: its objective calls
+    `fleet_penalties` once an inner step of every round's best response,
+    and the round's penalties once more; no al_step (CR3 has no fused
+    mode)."""
+    return {"al_step": 0, "dr_features": rounds * (steps * outer + 1)}
+
+
+def _cr3_rounds(r, steps, outer):
+    return r.iters // (steps * outer)
+
+
+def _pp_gaps(a, b):
+    return (abs(a.carbon_reduction_pct - b.carbon_reduction_pct),
+            abs(a.total_penalty_pct - b.total_penalty_pct))
+
+
+def phase_policies(np, torch, p):
+    """CR3, the baselines and the SLSQP reference: CR3 at the main path's
+    fleet through the kernels (launch counts reset just before and read
+    just after) and through the plain path, a CR3 sweep against its
+    loop, B1/B3 against their closed forms, and the paper's four-workload
+    problem through the SLSQP reference (float64 on the card) beside the
+    fleet engine's CR1/CR2/CR3, with a line per policy. Returns the
+    summed launch counts."""
+    from repro_torch.core import baselines, policies, solver
+    from repro_torch.core.api import (B1, B3, CR1, CR2, CR3, SolveContext,
+                                      solve, sweep)
+    from repro_torch.core.carbon import caiso_2021
+    from repro_torch.core.daygraph import COUNTED
+    from repro_torch.core.fleet_solver import FleetProblem, fleet_penalties
+    from repro_torch.core.fleetcache import cached_paper_fleet
+
+    totals = {name: 0 for name in COUNTED}
+
+    def counted(what, fn, want=None):
+        """Run `fn` with the counts reset just before and read just after;
+        `want` (None: any) is the expected count."""
+        for f in COUNTED.values():
+            f.launches = 0
+        out, wall = _timed(torch, fn)
+        got = {n: f.launches for n, f in COUNTED.items()}
+        for k in totals:
+            totals[k] += got[k]
+        if want is not None:
+            want = want(out) if callable(want) else want
+            log(f"[policies] {what}: launches {got} (expected {want}), "
+                f"wall {wall:.4f} s")
+            require(got == want, f"{what}: launches {got} != {want}")
+        return out, wall
+
+    steps, outer = CR3.default_steps, CR3.outer
+    solve(p, CR3(), ctx=SolveContext(steps=2))            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r, wall = counted(
+        f"CR3 at W = {p.W}, {steps} x {outer} steps a round",
+        lambda: solve(p, CR3()),
+        lambda r: expected_cr3_launches(steps, outer,
+                                        _cr3_rounds(r, steps, outer)))
+    peak = torch.cuda.max_memory_allocated()
+    g, gwall = _timed(torch, lambda: solve(
+        p, CR3(), ctx=SolveContext(use_kernel=False)))
+    for name, res, w in (("kernels", r, wall), ("plain", g, gwall)):
+        log(f"[policies] CR3 {name}: wall {w:.4f} s, rounds "
+            f"{_cr3_rounds(res, steps, outer)}, rho {res.extras['rho']:.6g},"
+            f" balanced {res.balanced}, carbon "
+            f"{res.carbon_reduction_pct:.4f} %, penalty "
+            f"{res.total_penalty_pct:.4f} %, preservation "
+            f"{res.preservation_violation:.3e}")
+        require(bool(np.isfinite(res.D).all())
+                and res.D.shape == (p.W, p.T),
+                f"CR3 {name}: plan not finite or not (W, T)")
+    log(f"[policies] CR3 peak memory {peak / 2**20:.1f} MiB")
+    dc, dp = _pp_gaps(r, g)
+    drho = abs(r.extras["rho"] / g.extras["rho"] - 1.0)
+    log(f"[policies] CR3 kernels - plain: {dc:.2e} pp carbon, {dp:.2e} pp "
+        f"penalty (limit {PP_TOL}), rho {drho:.2e} relative (limit "
+        f"{CR3_RHO_RTOL})")
+    require(r.preservation_violation < PRESERVATION_TOL,
+            f"CR3 preservation {r.preservation_violation:.3e}")
+    require(r.iters == g.iters and r.balanced == g.balanced,
+            f"CR3 kernels vs plain: rounds {r.iters} / {g.iters}, "
+            f"balanced {r.balanced} / {g.balanced}")
+    require(drho < CR3_RHO_RTOL, f"CR3 kernels vs plain: rho {drho:.2e}")
+    require(dc < PP_TOL and dp < PP_TOL,
+            f"CR3 kernels vs plain: {dc:.4f} / {dp:.4f} pp")
+
+    # A CR3 sweep over rho, each lane against its solve().
+    ctx = SolveContext(steps=CR3_SWEEP_STEPS)
+    pols = [CR3(rho=rho) for rho in CR3_RHOS]
+    lanes, lw = counted(
+        f"CR3 sweep over rho {CR3_RHOS}, {CR3_SWEEP_STEPS} steps",
+        lambda: sweep(p, pols, ctx=ctx),
+        lambda out: expected_cr3_launches(CR3_SWEEP_STEPS, outer, max(
+            _cr3_rounds(a, CR3_SWEEP_STEPS, outer) for a in out)))
+    loop, loopw = _timed(torch, lambda: [solve(p, pl, ctx=ctx)
+                                         for pl in pols])
+    for pl, a, b in zip(pols, lanes, loop):
+        dc, dp = _pp_gaps(a, b)
+        drho = abs(a.extras["rho"] / b.extras["rho"] - 1.0)
+        log(f"[policies] CR3(rho={pl.rho}) lane: rounds "
+            f"{_cr3_rounds(a, CR3_SWEEP_STEPS, outer)} (loop "
+            f"{_cr3_rounds(b, CR3_SWEEP_STEPS, outer)}), rho "
+            f"{a.extras['rho']:.6g} ({drho:.2e} rel), balanced {a.balanced},"
+            f" lane - loop {dc:.2e} / {dp:.2e} pp")
+        require(a.iters == b.iters and a.balanced == b.balanced,
+                f"CR3(rho={pl.rho}) lane vs loop: rounds or balanced")
+        require(drho < CR3_LANE_RHO_RTOL and dc < PP_TOL and dp < PP_TOL,
+                f"CR3(rho={pl.rho}) lane vs loop: rho {drho:.2e}, "
+                f"{dc:.4f} / {dp:.4f} pp")
+    log(f"[policies] CR3 sweep {lw:.4f} s, its loop {loopw:.4f} s")
+
+    # B1 and B3: a closed form and one dr_features launch each.
+    U, E = np.asarray(p.usage), np.asarray(p.entitlement)
+    b1 = np.maximum(U - 0.75 * E[:, None], 0.0)
+    b3 = np.zeros_like(U)
+    left = 0.3
+    for i in reversed(np.flatnonzero(~np.asarray(p.is_batch))):
+        if left <= 0:
+            break
+        c = min(left, 0.2)
+        b3[i] = np.maximum(U[i] - (1.0 - c) * E[i], 0.0)
+        left -= c
+    for pol, want_D in ((B1(F=0.75), b1), (B3(depth=0.3), b3)):
+        res, _ = counted(f"{pol}", lambda: solve(p, pol),
+                         {"al_step": 0, "dr_features": 1})
+        plain = fleet_penalties(p, torch.as_tensor(want_D, dtype=torch.float32,
+                                                   device="cuda"),
+                                use_kernel=False).sum().item()
+        pen = 100 * plain / float(E.sum())
+        rel = abs(res.total_penalty_pct / pen - 1.0) if pen else abs(
+            res.total_penalty_pct)
+        log(f"[policies] {pol}: carbon {res.carbon_reduction_pct:.4f} %, "
+            f"penalty {res.total_penalty_pct:.6f} % (plain {pen:.6f} %, "
+            f"{rel:.2e} rel)")
+        require(np.array_equal(res.D, want_D), f"{pol}: D != closed form")
+        require(rel < 1e-5, f"{pol}: penalties vs plain {rel:.2e}")
+
+    # The paper's four-workload problem: SLSQP (float64) and the fleet.
+    fleet = cached_paper_fleet(hours=T_MAIN, num_samples=CAL_SAMPLES,
+                               num_jobs=CAL_JOBS, device="cuda")
+    dr = policies.DRProblem(
+        models=tuple(fleet[n] for n in ("RTS1", "RTS2", "AITraining",
+                                        "DataPipeline")),
+        mci=caiso_2021(T_MAIN).mci)
+    fp = FleetProblem.from_problem(dr)
+    E4 = np.asarray(fp.entitlement)
+    rts = ~np.asarray(fp.is_batch)
+    (s1, s1w), (s2, s2w) = (
+        _timed(torch, lambda s=s: solver.solve_slsqp(s, maxiter=250))
+        for s in (policies.cr1_spec(dr, 1.45), policies.cr2_spec(dr, 0.78)))
+    (s3, rho3), s3w = _timed(torch, lambda: solver.solve_cr3(dr, rho=0.02))
+    fleet_runs = (
+        (CR1(lam=1.45), {"al_step": 600 // 8, "dr_features": 1}),
+        (CR2(cap_frac=0.78), {"al_step": CR2.outer * (400 // 8),
+                              "dr_features": 1 + CR2.outer + 1}),
+        (CR3(rho=0.02), lambda r: expected_cr3_launches(
+            steps, outer, _cr3_rounds(r, steps, outer))))
+    (f1, f1w), (f2, f2w), (f3, f3w) = (
+        counted(f"fleet {pol.name} on the four-workload problem",
+                lambda pol=pol: solve(fp, pol), want)
+        for pol, want in fleet_runs)
+    for name, ref, w, got, gw in (("CR1", s1, s1w, f1, f1w),
+                                  ("CR2", s2, s2w, f2, f2w),
+                                  ("CR3", s3, s3w, f3, f3w)):
+        dc, dp = _pp_gaps(got, ref)
+        log(f"[policies] {name}: SLSQP carbon {ref.carbon_reduction_pct:.4f}"
+            f" %, penalty {ref.total_penalty_pct:.4f} %, nit {ref.nit}, "
+            f"{w:.3f} s; fleet carbon {got.carbon_reduction_pct:.4f} %, "
+            f"penalty {got.total_penalty_pct:.4f} %, {gw:.3f} s; gap "
+            f"{dc:.3f} / {dp:.3f} pp")
+    pens = {k: fleet_penalties(fp, torch.as_tensor(
+        f.D, dtype=torch.float32, device="cuda")).cpu().numpy()
+        for k, f in (("CR1", f1), ("CR2", f2))}
+    for name, got, ref in (("CR1", f1, s1), ("CR2", f2, s2)):
+        dc, dp = _pp_gaps(got, ref)
+        require(dc < 1.5 and dp < 1.5, f"fleet {name} vs SLSQP {dc}, {dp}")
+    share1 = np.abs(pens["CR1"] - s1.per_penalty) / E4
+    share2 = np.abs(pens["CR2"] - s2.per_penalty)[rts] / E4[rts]
+    log(f"[policies] per-workload penalty gaps / E: CR1 {share1.max():.4f} "
+        f"(limit 0.03), CR2 RTS {share2.max():.4f} (limit 0.01)")
+    require(share1.max() < 0.03, "fleet CR1 per-workload penalties")
+    require(share2.max() < 0.01, "fleet CR2 RTS penalties")
+    require(bool((pens["CR2"][~rts] <= s2.per_penalty[~rts] + 0.05).all()),
+            "fleet CR2 batch penalties above SLSQP's")
+    paid, collected = policies.cr3_fiscal_balance(dr, f3.D, f3.extras["rho"])
+    dc, dp = _pp_gaps(f3, s3)
+    log(f"[policies] CR3: SLSQP rho {rho3:.6g}, fleet rho "
+        f"{f3.extras['rho']:.6g}; Eq. 6 paid {paid:.4f} <= collected "
+        f"{collected:.4f}; fleet preservation {f3.preservation_violation:.3e}")
+    require(dc < 2.0 and dp < 2.0, f"fleet CR3 vs SLSQP {dc}, {dp}")
+    require(paid <= collected + 1e-6, "fleet CR3: Eq. 6 unmet")
+    require(f3.preservation_violation < PRESERVATION_TOL,
+            "fleet CR3 preservation")
+
+    # The seven policies at one setting each (benchmarks/common.py's ways).
+    def closed(D, name):
+        spec = policies.PolicySpec(name=name, problem=dr,
+                                   objective=dr.total_penalty,
+                                   use_preservation=False)
+        return solver.evaluate(spec, D, solver="closed", nit=0)
+
+    line = {
+        "CR1(1.45)": s1, "CR2(0.78)": s2, "CR3(rho 0.02)": f3,
+        "B1(F 0.75)": closed(baselines.b1_adjustments(dr, 0.75), "B1"),
+        "B2(lam 1.3)": solver.solve_slsqp(baselines.b2_spec(dr, 1.3),
+                                          maxiter=150),
+        "B3(depth 0.3)": closed(baselines.b3_adjustments(
+            dr, 0.3, max_cut=0.3), "B3"),
+        "B4(lam 0.1)": solver.solve_slsqp(baselines.b4_spec(dr, 0.1),
+                                          maxiter=150)}
+    log("[policies] seven policies on the four-workload problem (carbon %, "
+        "penalty %): " + "; ".join(
+            f"{k} {v.carbon_reduction_pct:.4f} / {v.total_penalty_pct:.4f}"
+            for k, v in line.items()))
+    for k, v in line.items():
+        require(bool(np.isfinite(v.D).all()) and v.D.shape == (4, T_MAIN),
+                f"{k}: plan not finite or not (4, T)")
+    return totals
+
+
 def phase_rmsnorm(torch):
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
@@ -1316,6 +1560,8 @@ def main() -> int:
     for name, n in phase_streaming(np, torch, *fleets).items():
         launches[name] += n
     for name, n in phase_lanes(np, torch, *fleets).items():
+        launches[name] += n
+    for name, n in phase_policies(np, torch, fleets[0]).items():
         launches[name] += n
     for path in SERVE_PATHS:
         for name, n in phase_serve(np, torch, *path).items():

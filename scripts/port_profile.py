@@ -4,6 +4,7 @@
     python3 scripts/port_profile.py          # one solve per policy
     python3 scripts/port_profile.py --day    # one rolling-horizon day
     python3 scripts/port_profile.py --lanes  # batched lanes vs their loops
+    python3 scripts/port_profile.py --cr3    # CR3 and the SLSQP reference
 
 Builds chip_smoke's fleet (paper fleet at num_samples=32, num_jobs=1000,
 cloned to W = 10,000, T = 48) and warms up. Without `--day` it solves
@@ -18,7 +19,11 @@ chip_smoke's batched lanes, each beside its loop of `solve()` calls: the
 CR1 sweep over lam in {1.0, 1.2, 1.45, 1.6, 2.2}, the CR2 sweep over
 cap_frac in {0.70, 0.74, 0.78, 0.82}, the S = 16 ensembles of CR1(1.45)
 and CR2(0.78), and the 4-stream CR1 streaming ensemble over 24 ticks
-beside one solo controller. For each it prints the wall time,
+beside one solo controller. With `--cr3` it profiles 100 steps of one
+CR3 best response (CR3(outer=1, clearing_iters=0), the generic engine)
+through the dr_features kernel and through the plain path, and 20
+iterations of `solve_slsqp` of CR1(1.45) on the paper's four-workload
+problem in float64. For each it prints the wall time,
 the device-busy time (the union of the traced kernel and copy
 intervals), the device idle share 1 - busy / wall, al_step's launches
 and mean device time per call, and the device time by kernel name, with
@@ -66,12 +71,16 @@ def _profile(torch, label, fn) -> None:
         print(f"{label}: the trace holds no device events")
         return
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
-    al = [e.time_range.end - e.time_range.start for e in dev
-          if "al_step_kernel" in e.name]
-    per_call = f"{sum(al) / len(al):.2f} us" if al else "none"
+    calls = {}
+    for kernel in ("al_step", "dr_features"):
+        ts = [e.time_range.end - e.time_range.start for e in dev
+              if f"{kernel}_kernel" in e.name]
+        calls[kernel] = (f"{len(ts)} x {sum(ts) / len(ts):.2f} us" if ts
+                         else "none")
     print(f"{label}: wall {wall_us / 1e3:.3f} ms (profiler on), device "
           f"busy {busy / 1e3:.3f} ms, idle share {1.0 - busy / wall_us:.4f}, "
-          f"{len(dev)} device events; al_step {len(al)} x {per_call}")
+          f"{len(dev)} device events; al_step {calls['al_step']}; "
+          f"dr_features {calls['dr_features']}")
     by_name: dict[str, list[float]] = {}
     for e in dev:
         by_name.setdefault(e.name, []).append(
@@ -156,6 +165,29 @@ def _lanes(torch, p) -> None:
                  p, streams[0], policy=CR1(lam=1.45), **kw).run(cs.DAY_TICKS))
 
 
+def _cr3(torch, p) -> None:
+    from repro_torch.core import policies, solver
+    from repro_torch.core.api import CR3, SolveContext, solve
+    from repro_torch.core.carbon import caiso_2021
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    pol = CR3(outer=1, clearing_iters=0)
+    solve(p, pol, ctx=SolveContext(steps=4))                      # warm-up
+    for uk in (True, False):
+        _profile(torch, f"cr3 best response, 100 steps, "
+                 f"{'kernels' if uk else 'plain'}",
+                 lambda: solve(p, pol, ctx=SolveContext(steps=100,
+                                                        use_kernel=uk)))
+    fleet = cached_paper_fleet(hours=48, num_samples=32, num_jobs=1000,
+                               device="cuda")
+    dr = policies.DRProblem(models=tuple(fleet[n] for n in (
+        "RTS1", "RTS2", "AITraining", "DataPipeline")),
+        mci=caiso_2021(48).mci)
+    spec = policies.cr1_spec(dr, 1.45)
+    solver.solve_slsqp(spec, maxiter=2)                           # warm-up
+    _profile(torch, "solve_slsqp cr1, 20 iterations, float64",
+             lambda: solver.solve_slsqp(spec, maxiter=20))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -165,6 +197,9 @@ def main() -> int:
     mode.add_argument("--lanes", action="store_true",
                       help="profile the batched lanes (sweeps, ensembles, "
                            "the streaming ensemble) beside their loops")
+    mode.add_argument("--cr3", action="store_true",
+                      help="profile a CR3 best response (kernels and "
+                           "plain) and the SLSQP reference")
     args = ap.parse_args()
     import torch
 
@@ -180,7 +215,9 @@ def main() -> int:
     fleet = cached_paper_fleet(hours=48, num_samples=32, num_jobs=1000,
                                device="cuda")
     p = synthetic_fleet(10_000, hours=48, seed=0, templates=fleet)
-    (_days if args.day else _lanes if args.lanes else _solves)(torch, p)
+    mode = (_days if args.day else _lanes if args.lanes
+            else _cr3 if args.cr3 else _solves)
+    mode(torch, p)
     return 0
 
 

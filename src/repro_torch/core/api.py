@@ -33,15 +33,27 @@ CR2 grid sharing `outer`, and CR1/CR2 ensembles ride the batched lane:
 the N solves advance together as one engine run over lane-stacked
 tensors (`_cr1_lanes`, `_cr2_lanes`), one `al_step` launch per k steps
 for all lanes, the port's counterpart of the JAX package's one vmapped
-call. Everything else takes the loop lane, a `solve()` per policy.
+call. A CR3 grid sharing `outer` rides a lane of its own: every
+clearing round re-solves all lanes in one engine run, and lanes that
+have cleared keep their frozen plan and state. Everything else takes
+the loop lane, a `solve()` per policy.
 
-Ported so far: CR1 and CR2 on single-region fleets, their day, sweeps
-and ensembles. Meshes, CR3, the baselines and migration are not.
+CR3 (`CR3`) is the fleet's selfish best responses, all W in one
+generic-engine run per clearing round (its objective calls
+`fleet_penalties`, and so the `dr_features` kernel, on every inner
+step), and the coordinator's Eq.-6 fiscal clearing between rounds on
+the host. B1 and B3 are closed forms scored once through
+`fleet_penalties`.
+
+Ported so far: CR1, CR2, CR3, B1 and B3 on single-region fleets; CR1
+and CR2 days, sweeps and ensembles. Meshes, multi-region CR3 and
+migration are not.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, ClassVar, Protocol, Sequence, runtime_checkable
 
 import numpy as np
@@ -49,9 +61,11 @@ import torch
 
 from repro_torch.core.daygraph import DAY_GRAPHS
 from repro_torch.core.engine import EngineConfig, EngineState, al_minimize
-from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, FleetProblem,
+from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, CR3_MU0,
+                                           FleetProblem,
                                            FleetSolveResult, _bounds,
-                                           _enter_tick, _projection, _report,
+                                           _enter_tick, _mean_projection,
+                                           _projection, _report,
                                            cr2_cap_plan, cr2_reference_fleet,
                                            cr2_reference_tensor, device_view,
                                            fleet_penalties,
@@ -62,13 +76,10 @@ from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
 Tensor = torch.Tensor
 f32 = torch.float32
 
-__all__ = ["CR1", "CR2", "DRPolicy", "DayResult", "POLICY_REGISTRY",
-           "SolveContext", "configured_policy", "ensemble", "resolve_policy",
-           "solve", "solve_day", "stack_states", "sweep"]
-
-#: The JAX package's other registered policies, by name (ROADMAP queue 1,
-#: item 8 ports them).
-UNPORTED_POLICIES = {"cr3": "CR3", "b1": "B1", "b3": "B3"}
+__all__ = ["B1", "B3", "CR1", "CR2", "CR3", "DRPolicy", "DayResult",
+           "POLICY_REGISTRY", "SolveContext", "configured_policy",
+           "ensemble", "resolve_policy", "solve", "solve_day",
+           "stack_states", "sweep"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,11 +147,9 @@ def _register(cls):
 
 
 def resolve_policy(policy) -> DRPolicy:
-    """Coerce a registry name, policy class, or policy object to an object.
-    The JAX package's policies that are not ported yet raise
-    `NotImplementedError` by name, unknown names `ValueError`."""
+    """Coerce a registry name, policy class, or policy object to an object;
+    unknown names raise `ValueError`."""
     if isinstance(policy, str):
-        _refuse_unported(policy)
         try:
             return POLICY_REGISTRY[policy]()
         except KeyError:
@@ -156,33 +165,25 @@ def resolve_policy(policy) -> DRPolicy:
     return policy
 
 
-def _refuse_unported(name: str) -> None:
-    if name in UNPORTED_POLICIES:
-        raise NotImplementedError(
-            f"policy {name!r} ({UNPORTED_POLICIES[name]}) is not ported yet "
-            f"(ROADMAP queue 1, item 8: CR3, baselines and the SLSQP "
-            f"reference)")
-
-
 def configured_policy(policy, *, lam: float = 1.45, cap_frac: float = 0.78,
-                      outer: int = 4, rho: float | None = None,
-                      tax_frac: float | None = None) -> DRPolicy:
+                      rho: float = 0.02, tax_frac: float = 0.2,
+                      outer: int = 4) -> DRPolicy:
     """`resolve_policy` with the legacy keyword knobs: registry names
     become objects configured from the matching knobs (CR1: `lam`; CR2:
-    `cap_frac`/`outer`, `outer` defaulting to 4, the JAX package's
-    streaming-controller budget); policy objects pass through unchanged
-    (the knobs are ignored). CR3's knobs `rho`/`tax_frac`, and the names
-    of the policies not ported yet, raise `NotImplementedError`."""
-    for knob, val in (("rho", rho), ("tax_frac", tax_frac)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{knob} configures CR3, which is not ported yet (ROADMAP "
-                f"queue 1, item 8)")
+    `cap_frac`/`outer`; CR3: `rho`/`tax_frac`/`outer`; `outer` defaults
+    to 4, the JAX package's streaming-controller budget); other
+    registered names get default hypers; policy objects pass through
+    unchanged (the knobs are ignored)."""
+    if not isinstance(policy, str):
+        return resolve_policy(policy)
+    if policy not in POLICY_REGISTRY:
+        raise ValueError(
+            f"unknown policy {policy!r}; registered policies: "
+            f"{', '.join(sorted(POLICY_REGISTRY))}")
     by_name = {"cr1": lambda: CR1(lam=lam),
-               "cr2": lambda: CR2(cap_frac=cap_frac, outer=outer)}
-    if isinstance(policy, str) and policy in by_name:
-        return by_name[policy]()
-    return resolve_policy(policy)
+               "cr2": lambda: CR2(cap_frac=cap_frac, outer=outer),
+               "cr3": lambda: CR3(rho=rho, tax_frac=tax_frac, outer=outer)}
+    return by_name.get(policy, POLICY_REGISTRY[policy])()
 
 
 def refuse_mesh(ctx: SolveContext | None) -> None:
@@ -209,9 +210,10 @@ def sweep(problem: FleetProblem, policies: Sequence, *,
     in `policies` order.
 
     A grid from one family with uniform static knobs (`[CR1(lam=l) for l
-    in grid]`, or CR2s sharing `outer`) rides the batched lane: one
-    engine run over lane-stacked tensors, one `al_step` launch per k
-    steps for the whole grid. Mixed families, `ctx.donate`, `shift` and
+    in grid]`, or CR2s or CR3s sharing `outer`) rides the batched lane:
+    one engine run over lane-stacked tensors (for CR1/CR2 one `al_step`
+    launch per k steps for the whole grid; for CR3 one run per clearing
+    round). Mixed families, `ctx.donate`, `shift` and
     `reset_mu` take the loop lane, a `solve()` per policy, where a shared
     `warm` state is reused read-only by every policy (so `donate` is
     dropped for more than one policy). A *stacked* warm state (leading
@@ -226,9 +228,10 @@ def sweep(problem: FleetProblem, policies: Sequence, *,
         return []
     fam = type(pols[0])
     stacked = _stacked_warm(ctx.warm, len(pols))
+    warm_ok = ctx.warm is None or (stacked and fam in (CR1, CR2))
     batched = (all(type(pl) is fam for pl in pols)
-               and fam in (CR1, CR2) and fam._sweep_uniform(pols)
-               and (ctx.warm is None or stacked) and not ctx.donate
+               and fam in (CR1, CR2, CR3) and fam._sweep_uniform(pols)
+               and warm_ok and not ctx.donate
                and not ctx.shift and not ctx.reset_mu)
     if batched:
         return fam._sweep_family(problem, pols, ctx)
@@ -586,6 +589,318 @@ class CR2:
 
 
 # ---------------------------------------------------------------------------
+# CR3: Fair-Decentralized DR (taxes and rebates, Eqs. 5-8)
+# ---------------------------------------------------------------------------
+def _lane_col(v, D: Tensor):
+    """A per-lane hyper (N,) as a column against D's (N, W) rows; a
+    scalar passes through."""
+    if isinstance(v, Tensor) and v.dim() == 1 and D.dim() == 3:
+        return v[:, None]
+    return v
+
+
+def _cr3_pieces(p: FleetProblem, use_kernel: bool, reg_scale: float):
+    """Best-response pieces for the whole fleet (`p` a device view).
+
+    Everything here is row-separable; `reg_scale` is the regularizer
+    normalizer 1e-3/(W·T). Numerics, as the JAX package validates them
+    against the per-workload SLSQP reference:
+      * a tiny quadratic regularizer: a selfish workload takes the
+        minimal adjustment satisfying its allowance (without it any deep
+        feasible point is an equally optimal best response with wildly
+        overpaid rebates);
+      * the day-tangent gradient transform: Adam's per-coordinate
+        normalization would otherwise emit near-uniform steps on batch
+        rows that the day projection then annihilates;
+      * a gentle mu schedule (`_cr3_cfg`): the KKT multipliers are
+        O(1e-3), so a stiff wall makes projected Adam bounce.
+    With lanes, D is (N, W, T) and the hyper (rho, tax) holds (N,)
+    tensors; rho multiplies each lane's own carbon rows."""
+    lo, hi = _bounds(p)
+    usage, E, mci = p.usage, p.entitlement, p.mci
+    tau = 0.02 * E
+
+    def objective(D: Tensor, hyper) -> Tensor:
+        reg = reg_scale * ((D / E[:, None]) ** 2).sum()
+        return (fleet_penalties(p, D, use_kernel) / E).sum() + reg
+
+    def ineq(D: Tensor, hyper) -> Tensor:
+        rho_, tax_ = (_lane_col(h, D) for h in hyper)
+        rebate = rho_ * (D @ mci)
+        peak = tau * torch.logsumexp((usage - D) / tau[:, None], dim=-1)
+        return ((1.0 - tax_) * E + rebate - peak) / E
+
+    W, T = usage.shape[-2:]
+    day_hours = min(p.day_hours, T)   # as `project_days`
+    span = (T // day_hours) * day_hours
+    is_batch = p.is_batch[:, None, None]
+
+    def day_tangent(g: Tensor) -> Tensor:
+        lead = tuple(g.shape[:-2])
+        Gd = g[..., :span].reshape(lead + (W, span // day_hours, day_hours))
+        Gd = torch.where(is_batch, Gd - Gd.mean(dim=-1, keepdim=True), Gd)
+        return torch.cat([Gd.reshape(lead + (W, span)), g[..., span:]],
+                         dim=-1)
+
+    step_scale = torch.clamp(hi - lo, min=1e-6).mean(dim=-1, keepdim=True)
+    return (objective, ineq, _mean_projection(p, lo, hi), step_scale,
+            day_tangent)
+
+
+def _cr3_cfg(steps: int, outer: int) -> EngineConfig:
+    return EngineConfig(inner_steps=steps, outer_steps=outer, lr=0.005,
+                        mu0=CR3_MU0, mu_growth=2.0, beta2=0.99)
+
+
+def _cr3_impl(p: FleetProblem, rho, tax_frac, reg_scale: float,
+              state0: EngineState, steps: int, outer: int, use_kernel: bool,
+              shift: int = 0, reset_mu: bool = False):
+    """All W selfish problems in one AL solve on the device view `p`.
+    Each workload i minimizes its own penalty s.t. the peak-allowance
+    inequality (Eq. 5/8)
+
+        max_t (U_i − d_i) ≤ E_i − T_i + ρ·⟨mci, d_i⟩,   T_i = tax_frac·E_i
+
+    (a smooth max, as `policies.cr3_workload_spec`). Objective, residual
+    and projection are row-separable, so this one engine run is the W
+    best responses. -> (D, penalties, state)."""
+    state0 = _enter_tick(state0, shift, reset_mu, CR3_MU0)
+    objective, ineq, project, step_scale, day_tangent = _cr3_pieces(
+        p, use_kernel, reg_scale)
+    D, aux = al_minimize(objective, project, state0.x,
+                         hyper=(rho, tax_frac), ineq_residual=ineq,
+                         step_scale=step_scale, grad_transform=day_tangent,
+                         init=state0, cfg=_cr3_cfg(steps, outer))
+    with torch.no_grad():
+        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+
+
+def _cr3_unbalanced_warn(clearing_iters: int, deficit: float, rho: float,
+                         caller: str) -> None:
+    warnings.warn(
+        f"{caller}: fiscal clearing did not converge in "
+        f"{clearing_iters} iterations — rebates exceed taxes by "
+        f"{deficit:.4g} at rho={rho:.4g} (Eq. 6 unmet)",
+        RuntimeWarning, stacklevel=3)
+
+
+def _next_rho(rho, paid, collected):
+    """The coordinator's price cut when rebates exceed taxes."""
+    return rho * np.maximum(0.5, 0.9 * collected / np.maximum(paid, 1e-9))
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class CR3:
+    """Fair-Decentralized DR: the W selfish best responses in one engine
+    run, and the coordinator's fiscal-balance clearing (Eqs. 5-8).
+
+    The coordinator lowers the carbon price ρ until rebates are covered
+    by taxes (Eq. 6, `policies.cr3_fiscal_balance`): it reads the rebates
+    paid on the host once a round. Each clearing round warm-starts from
+    the previous round's engine state with the mu schedule restarted
+    (the allowance multipliers track the shrinking ρ); `ctx.warm` seeds
+    round 0 the same way for rolling-horizon re-solves. CR3 has no fused
+    kernel mode: its objective goes through `fleet_penalties`, and so
+    the `dr_features` kernel on the card, on every inner step.
+
+    If `clearing_iters` is exhausted with rebates still exceeding taxes,
+    `result.extras` carries `balanced=False` and the remaining
+    `fiscal_deficit` (rebates − taxes, NP·kgCO2/MWh), and a
+    `RuntimeWarning` is emitted: `extras["rho"]` is then not
+    market-clearing. Multi-region clearing (a price per region) is not
+    ported yet (ROADMAP queue 1, item 9)."""
+
+    rho: float = 0.02
+    tax_frac: float = 0.2
+    outer: int = 3
+    clearing_iters: int = 8
+
+    name: ClassVar[str] = "cr3"
+    default_steps: ClassVar[int] = 600
+    mu0: ClassVar[float] = CR3_MU0
+
+    def solve(self, p: FleetProblem,
+              ctx: SolveContext = SolveContext()) -> FleetSolveResult:
+        p = single_region_view(p)
+        device = resolve_device(ctx.device)
+        use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+        steps = ctx.resolved_steps(self)
+        mci = np.asarray(p.mci)
+        collected = self.tax_frac * float(np.asarray(p.entitlement).sum())
+        rho_cur = float(self.rho)
+        pv = device_view(p, device)
+        state = ctx.warm or EngineState.cold(_cold_x(p, device), n_in=p.W,
+                                             mu0=CR3_MU0)
+        reg_scale = 1e-3 / (p.W * p.T)
+
+        def best_response(st, shift_, reset_):
+            D, pens, st = _cr3_impl(pv, rho_cur, self.tax_frac, reg_scale,
+                                    st, steps, self.outer, use_kernel,
+                                    shift_, reset_)
+            return D.cpu().numpy(), pens, st
+
+        D, pens, state = best_response(state, ctx.shift, ctx.reset_mu)
+        rounds = 1
+        paid = rho_cur * float((D @ mci).sum())
+        for _ in range(self.clearing_iters):
+            if paid <= collected + 1e-9:
+                break
+            rho_cur = float(_next_rho(rho_cur, paid, collected))
+            # Carry the primal and the allowance multipliers; restart the
+            # mu schedule so every round keeps the gentle wall.
+            D, pens, state = best_response(state, 0, True)
+            rounds += 1
+            paid = rho_cur * float((D @ mci).sum())
+        balanced = paid <= collected + 1e-9
+        deficit = 0.0 if balanced else paid - collected
+        if not balanced:
+            _cr3_unbalanced_warn(self.clearing_iters, deficit, rho_cur,
+                                 "CR3.solve")
+        return _report(p, D, pens.cpu().numpy(),
+                       iters=steps * self.outer * rounds, state=state,
+                       extras={"rho": rho_cur, "balanced": balanced,
+                               "fiscal_deficit": deficit})
+
+    # -- the sweep lane -----------------------------------------------------
+    @classmethod
+    def _sweep_uniform(cls, policies: Sequence["CR3"]) -> bool:
+        # `outer` shapes the engine run; per-lane rho/tax are tensors and
+        # per-lane clearing_iters ride the host's lockstep loop.
+        return len({pl.outer for pl in policies}) == 1
+
+    @classmethod
+    def _sweep_family(cls, p: FleetProblem, policies: Sequence["CR3"],
+                      ctx: SolveContext) -> list[FleetSolveResult]:
+        device = resolve_device(ctx.device)
+        use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+        steps = ctx.resolved_steps(cls)
+        outer = policies[0].outer
+        n = len(policies)
+        mci = np.asarray(p.mci)
+        pv = device_view(p, device)
+        reg_scale = 1e-3 / (p.W * p.T)
+        states = dataclasses.replace(
+            cold_lanes(n, p, device, 0, CR3_MU0),
+            lam_in=torch.zeros((n, p.W), dtype=f32, device=device))
+        rho_cur = np.asarray([pl.rho for pl in policies], float)
+        taxes = np.asarray([pl.tax_frac for pl in policies], float)
+        iters_cap = np.asarray([pl.clearing_iters for pl in policies])
+        collected = taxes * float(np.asarray(p.entitlement).sum())
+        tax_t = torch.tensor(taxes, dtype=f32, device=device)
+
+        def rounds_all(st, reset_mu):
+            rho_t = torch.tensor(rho_cur, dtype=f32, device=device)
+            return _cr3_impl(pv, rho_t, tax_t, reg_scale, st, steps, outer,
+                             use_kernel, 0, reset_mu)
+
+        Ds, pens, states = rounds_all(states, False)
+        D_out, pens_out = Ds.cpu().numpy(), pens.cpu().numpy()
+        rounds = np.ones(n, int)
+        paid = rho_cur * np.einsum("nwt,t->n", D_out, mci)
+        while True:
+            active = (paid > collected + 1e-9) & (rounds - 1 < iters_cap)
+            if not active.any():
+                break
+            rho_cur = np.where(active, _next_rho(rho_cur, paid, collected),
+                               rho_cur)
+            # Every lane re-solves in the one run, but lanes that have
+            # cleared keep their frozen plan, penalties and state, so each
+            # lane follows its solo `solve()` trajectory.
+            Ds, pens, new = rounds_all(states, True)
+            D_out = np.where(active[:, None, None], Ds.cpu().numpy(), D_out)
+            pens_out = np.where(active[:, None], pens.cpu().numpy(),
+                                pens_out)
+            act = torch.as_tensor(active, device=device)
+            states = EngineState(*(
+                torch.where(act.reshape((n,) + (1,) * (a.dim() - 1)), a, b)
+                for a, b in ((new.x, states.x), (new.lam_eq, states.lam_eq),
+                             (new.lam_in, states.lam_in),
+                             (new.mu, states.mu))))
+            rounds = rounds + active
+            paid = np.where(active,
+                            rho_cur * np.einsum("nwt,t->n", D_out, mci),
+                            paid)
+        balanced = paid <= collected + 1e-9
+        deficit = np.where(balanced, 0.0, paid - collected)
+        out = []
+        for i, pl in enumerate(policies):
+            if not balanced[i]:
+                _cr3_unbalanced_warn(pl.clearing_iters, float(deficit[i]),
+                                     float(rho_cur[i]), "CR3 sweep")
+            out.append(_report(
+                p, D_out[i], pens_out[i],
+                iters=steps * outer * int(rounds[i]), state=states.lane(i),
+                extras={"rho": float(rho_cur[i]),
+                        "balanced": bool(balanced[i]),
+                        "fiscal_deficit": float(deficit[i])}))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Baselines: closed-form prior-work policies as DRPolicy values
+# ---------------------------------------------------------------------------
+def _closed_form(p: FleetProblem, D: np.ndarray,
+                 ctx: SolveContext) -> FleetSolveResult:
+    """Score a closed-form plan: its penalties in one `fleet_penalties`
+    call (one `dr_features` launch on the card)."""
+    device = resolve_device(ctx.device)
+    pens = fleet_penalties(p, torch.as_tensor(D, dtype=f32, device=device),
+                           resolve_use_kernel(ctx.use_kernel, device))
+    return _report(p, D, pens.cpu().numpy(), iters=0)
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class B1:
+    """Proportional Power Capping (paper §V-B, eBuff-style): cap every
+    workload at L_i = F·E_i, d = max(U − L, 0), the fleet-array form of
+    `baselines.b1_adjustments`. Closed form: of `ctx`, only the device
+    and `use_kernel` matter (no engine state to warm)."""
+
+    F: float = 0.75
+
+    name: ClassVar[str] = "b1"
+    default_steps: ClassVar[int] = 0
+
+    def solve(self, p: FleetProblem,
+              ctx: SolveContext = SolveContext()) -> FleetSolveResult:
+        D = np.maximum(np.asarray(p.usage)
+                       - self.F * np.asarray(p.entitlement)[:, None], 0.0)
+        return _closed_form(p, D, ctx)
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class B3:
+    """Prioritized Power Capping (paper §V-B, Dynamo): curtail RTS
+    workloads only, lowest priority (= last RTS row) first, each up to
+    `max_cut` depth, the fleet-array form of `baselines.b3_adjustments`
+    with row order as the priority order. Closed form like `B1`."""
+
+    depth: float = 0.3
+    max_cut: float = 0.2
+
+    name: ClassVar[str] = "b3"
+    default_steps: ClassVar[int] = 0
+
+    def solve(self, p: FleetProblem,
+              ctx: SolveContext = SolveContext()) -> FleetSolveResult:
+        usage = np.asarray(p.usage)
+        D = np.zeros_like(usage)
+        remaining = float(self.depth)
+        rts_rows = [i for i in range(p.W) if not bool(p.is_batch[i])]
+        for i in reversed(rts_rows):
+            if remaining <= 0:
+                break
+            c = min(remaining, self.max_cut)
+            L = (1.0 - c) * float(p.entitlement[i])
+            D[i] = np.maximum(usage[i] - L, 0.0)
+            remaining -= c
+        return _closed_form(p, D, ctx)
+
+
+# ---------------------------------------------------------------------------
 # A whole rolling-horizon day: one CUDA-graph replay on the card
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
@@ -653,8 +968,9 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
         raise ValueError("mci_stack holds no tick")
     if not isinstance(policy, (CR1, CR2)):
         raise NotImplementedError(
-            f"solve_day supports CR1/CR2; {policy.name} needs host-side "
-            f"control flow, use the per-tick solve()/step() loop")
+            f"solve_day supports CR1/CR2 (pure scannable engine "
+            f"backends); {policy.name} needs host-side control flow — "
+            f"use the per-tick solve()/step() loop")
     device = resolve_device(ctx.device)
     use_kernel = resolve_use_kernel(ctx.use_kernel, device)
     if cold_steps is None:

@@ -303,9 +303,9 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
     `scenarios` is a `ScenarioStack`, a scenario generator (or
     `SCENARIO_REGISTRY` name), or a sequence of those (concatenated).
     CR1/CR2 run all S scenarios as one batched lane on `ctx.device` (the
-    card unless "cpu"); other policies and warm, donated, shifted or
-    mu-reset contexts fall back to a loop of `api.solve` with the same
-    semantics. `batched` forces the lane (True raises if there is no
+    card unless "cpu"); other policies (CR3, B1, B3, as in the JAX
+    package) and warm, donated, shifted or mu-reset contexts fall back
+    to a loop of `api.solve` with the same semantics. `batched` forces the lane (True raises if there is no
     batched lane for the policy and context; False forces the loop, the
     parity hook)."""
     ctx = ctx or SolveContext()
@@ -338,7 +338,8 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
             # per-workload penalties are not part of FleetSolveResult, so
             # they are evaluated once per scenario on the solved plans
             penalties=np.stack([
-                fleet_penalties(ps, torch.as_tensor(r.D, device=device),
+                fleet_penalties(ps, torch.as_tensor(r.D, dtype=f32,
+                                                    device=device),
                                 use_kernel).cpu().numpy()
                 for ps, r in zip(probs, results)]),
             entitlement=ent,

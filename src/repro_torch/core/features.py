@@ -27,11 +27,24 @@ def _pos(x: Tensor, smooth: float = 0.0) -> Tensor:
     return torch.maximum(x, torch.zeros_like(x))
 
 
+def jobs_rate(d: Tensor, usage: Tensor, jobs: Tensor) -> Tensor:
+    """J·d/U, the hourly rate of deferred jobs. The one expression for it:
+    the `dr_features` backward takes its hinge indicators from running
+    sums of this rate, so they agree with the forward's bit for bit."""
+    return jobs * d / usage
+
+
+def squared_rate(d: Tensor, usage: Tensor, jobs: Tensor) -> Tensor:
+    """J·d·|d|/U, the hourly rate of the convexity feature (as
+    `jobs_rate`)."""
+    return jobs * d * torch.abs(d) / usage
+
+
 def waiting_time_jobs(d: Tensor, usage: Tensor, jobs: Tensor,
                       smooth: float = 0.0) -> Tensor:
     """Σ_t ( Σ_{t'<=t} J_{t'} · d_{t'}/U_{t'} )⁺   [job·hour]."""
-    rate = jobs * d / usage
-    return _pos(torch.cumsum(rate, dim=-1), smooth).sum(dim=-1)
+    return _pos(torch.cumsum(jobs_rate(d, usage, jobs), dim=-1),
+                smooth).sum(dim=-1)
 
 
 def waiting_time_power(d: Tensor, smooth: float = 0.0) -> Tensor:
@@ -43,8 +56,8 @@ def waiting_time_squared(d: Tensor, usage: Tensor, jobs: Tensor,
                          smooth: float = 0.0) -> Tensor:
     """Σ_t ( Σ_{t'<=t} J_{t'} · d_{t'}·|d_{t'}|/U_{t'} )⁺ — the convexity
     feature; signed d·|d| so that boosts relieve the queue integral."""
-    rate = jobs * d * torch.abs(d) / usage
-    return _pos(torch.cumsum(rate, dim=-1), smooth).sum(dim=-1)
+    return _pos(torch.cumsum(squared_rate(d, usage, jobs), dim=-1),
+                smooth).sum(dim=-1)
 
 
 def num_jobs_delayed(d: Tensor, usage: Tensor, jobs: Tensor,
@@ -56,7 +69,7 @@ def num_jobs_delayed(d: Tensor, usage: Tensor, jobs: Tensor,
 def total_tardiness(d: Tensor, usage: Tensor, jobs: Tensor, slo_hours: int,
                     smooth: float = 0.0) -> Tensor:
     """Σ_t ( Σ_{t'<=t-SLO} J_{t'} · d_{t'}/U_{t'} )⁺ — overdue queue hours."""
-    cum = torch.cumsum(jobs * d / usage, dim=-1)
+    cum = torch.cumsum(jobs_rate(d, usage, jobs), dim=-1)
     T = cum.shape[-1]
     if slo_hours >= T:
         return torch.zeros(cum.shape[:-1], dtype=cum.dtype, device=cum.device)

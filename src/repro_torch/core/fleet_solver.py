@@ -20,11 +20,13 @@ to the single-region form first, as in the JAX package).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import features as feat
 from repro_torch.core.engine import EngineState
 from repro_torch.core.penalty import PenaltyModel
 from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
@@ -35,6 +37,7 @@ f32 = torch.float32
 # Initial AL penalty weights per policy.
 CR1_MU0 = 10.0
 CR2_MU0 = 10.0
+CR3_MU0 = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +76,58 @@ class FleetProblem:
     @property
     def is_multiregion(self) -> bool:
         return np.ndim(self.mci) == 2
+
+    @classmethod
+    def from_problem(cls, p) -> "FleetProblem":
+        """Stack a per-workload `DRProblem` (`core/policies.py`) into the
+        fleet representation.
+
+        The fleet path implements the default DRProblem subset: equality
+        day-preservation, curtail-only RTS, and no datacenter capacity
+        inequality (Eq. 10, never active for the paper fleet's 1.2
+        buffer). Other `preservation`/`rts_boost` settings would silently
+        change meaning here, so they are rejected."""
+        if p.preservation != "equality" or p.rts_boost:
+            raise ValueError(
+                "FleetProblem supports preservation='equality' and "
+                f"rts_boost=False only (got preservation={p.preservation!r},"
+                f" rts_boost={p.rts_boost})")
+        return from_models(p.models, p.mci, day_hours=p.day_hours,
+                           max_curtail_frac=p.max_curtail_frac)
+
+    def to_problem(self, **overrides):
+        """Rebuild the per-workload `DRProblem` (the SLSQP reference's
+        view); `overrides` replace its fields."""
+        from repro_torch.core.policies import DRProblem
+        if self.is_multiregion:
+            raise ValueError(
+                "to_problem() needs a single-region fleet (mci (T,)); the "
+                "per-workload SLSQP reference has no region concept")
+        names = self.names or tuple(f"w{i}" for i in range(self.W))
+        models = []
+        for i in range(self.W):
+            common = dict(name=names[i], usage=np.asarray(self.usage[i]),
+                          entitlement=float(self.entitlement[i]),
+                          k=float(self.k[i]))
+            if bool(self.is_batch[i]):
+                slo = float(self.x2_kind[i]) > 0.5
+                models.append(PenaltyModel(
+                    kind="batch_slo" if slo else "batch_noslo",
+                    params=tuple(float(b) for b in self.betas[i]),
+                    jobs=np.asarray(self.jobs[i]),
+                    feature_names=("waiting_time_power",
+                                   "waiting_time_squared" if slo
+                                   else "num_jobs_delayed"), **common))
+            else:
+                models.append(PenaltyModel(
+                    kind="realtime",
+                    params=tuple(float(a) for a in self.rts_coeffs[i]),
+                    **common))
+        kw = dict(models=tuple(models), mci=np.asarray(self.mci),
+                  max_curtail_frac=self.max_curtail_frac,
+                  day_hours=self.day_hours)
+        kw.update(overrides)
+        return DRProblem(**kw)
 
 
 DATA_FIELDS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
@@ -172,10 +227,10 @@ def _features(d: Tensor, usage: Tensor, jobs: Tensor,
         rows = [a.expand(d.shape).reshape(-1, T) for a in (d, usage, jobs)]
         return dr_features(*rows).reshape(d.shape[:-1] + (4,))
     zero = torch.zeros((), dtype=d.dtype, device=d.device)
-    rate = jobs * d / usage
+    rate = feat.jobs_rate(d, usage, jobs)
     wait_jobs = torch.maximum(torch.cumsum(rate, dim=-1), zero).sum(-1)
     wait_power = torch.maximum(torch.cumsum(d, dim=-1), zero).sum(-1)
-    rate_sq = jobs * d * torch.abs(d) / usage
+    rate_sq = feat.squared_rate(d, usage, jobs)
     wait_sq = torch.maximum(torch.cumsum(rate_sq, dim=-1), zero).sum(-1)
     njobs = (jobs * torch.maximum(d, zero) / usage).sum(-1)
     return torch.stack([wait_jobs, wait_power, wait_sq, njobs], dim=-1)
@@ -256,7 +311,21 @@ class FleetSolveResult:
     preservation_violation: float
     # Reusable engine carry for warm-started re-solves (rolling horizon).
     state: EngineState | None = None
+    # Policy-specific outputs. CR3's fiscal clearing (Eq. 6) reports
+    # "rho" (the clearing carbon price), "balanced" (did taxes cover
+    # rebates) and "fiscal_deficit" (rebates − taxes when they did not,
+    # NP·kgCO2/MWh); the other policies leave it empty.
     extras: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def balanced(self) -> bool:
+        """CR3's Eq.-6 clearing converged (always True for the others)."""
+        return bool(self.extras.get("balanced", True))
+
+    @property
+    def fiscal_deficit(self) -> float:
+        """Rebates − taxes left when clearing failed (0.0 when balanced)."""
+        return float(self.extras.get("fiscal_deficit", 0.0))
 
 
 def _bounds(p: FleetProblem) -> tuple[Tensor, Tensor]:
@@ -335,6 +404,34 @@ def _projection(p: FleetProblem, lo: Tensor, hi: Tensor):
     return lambda D: project_days(D, lo, hi, is_batch, p.day_hours)
 
 
+def _mean_projection(p: FleetProblem, lo: Tensor, hi: Tensor):
+    """The JAX package's projection: a box clip, then 3 rounds of batch
+    day-mean removal, each followed by the clip. CR3's best responses
+    take it, as the JAX package's do: the clearing rounds are discrete
+    decisions on the plan's rebates, and the exact projection
+    (`_projection`) moves them (2 rounds against the JAX package's 3 on
+    a 16-row fleet at 150 steps). Lanes: x (N, W, T)."""
+    W, T = lo.shape[-2:]
+    day_hours = min(p.day_hours, T)   # as `project_days`
+    n_days = T // day_hours
+    span = n_days * day_hours
+    is_batch = torch.as_tensor(p.is_batch, dtype=torch.bool,
+                               device=lo.device)[:, None, None]
+
+    def project(D: Tensor) -> Tensor:
+        lead = tuple(D.shape[:-2])
+        D = torch.clamp(D, lo, hi)
+        for _ in range(3):
+            Dd = D[..., :span].reshape(lead + (W, n_days, day_hours))
+            Dd = torch.where(is_batch, Dd - Dd.mean(dim=-1, keepdim=True),
+                             Dd)
+            D = torch.clamp(torch.cat([Dd.reshape(lead + (W, span)),
+                                       D[..., span:]], dim=-1), lo, hi)
+        return D
+
+    return project
+
+
 def _report(p: FleetProblem, D: np.ndarray, pens: np.ndarray,
             iters: int, state: EngineState | None = None,
             extras: dict | None = None) -> FleetSolveResult:
@@ -355,3 +452,85 @@ def _report(p: FleetProblem, D: np.ndarray, pens: np.ndarray,
         / float(np.asarray(p.entitlement).sum()),
         iters=iters, preservation_violation=viol, state=state,
         extras=extras or {})
+
+
+# ---------------------------------------------------------------------------
+# Deprecated per-policy entry points (thin shims over repro_torch.core.api)
+# ---------------------------------------------------------------------------
+def _warn_deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"{old} is deprecated; use {new} from repro_torch.core.api",
+        DeprecationWarning, stacklevel=3)
+
+
+def solve_cr1_fleet(p: FleetProblem, lam: float = 1.45, steps: int = 600,
+                    use_kernel: bool | None = None,
+                    warm: EngineState | None = None, *, mesh=None,
+                    donate: bool = False, shift: int = 0,
+                    reset_mu: bool = False,
+                    device: str | torch.device | None = None,
+                    ) -> FleetSolveResult:
+    """Deprecated: `api.solve(p, CR1(lam=...), ctx=SolveContext(...))`."""
+    from repro_torch.core.api import CR1, SolveContext, solve
+    _warn_deprecated("solve_cr1_fleet",
+                     "solve(p, CR1(lam=...), ctx=SolveContext(...))")
+    return solve(p, CR1(lam=lam), ctx=SolveContext(
+        device=device, mesh=mesh, donate=donate, shift=shift,
+        reset_mu=reset_mu, warm=warm, use_kernel=use_kernel, steps=steps))
+
+
+def solve_cr1_fleet_sweep(p: FleetProblem, lams: Sequence[float],
+                          steps: int = 600, use_kernel: bool | None = None,
+                          device: str | torch.device | None = None,
+                          ) -> list[FleetSolveResult]:
+    """Deprecated: `api.sweep(p, [CR1(lam=l) for l in lams], ctx=...)`."""
+    from repro_torch.core.api import CR1, SolveContext, sweep
+    _warn_deprecated("solve_cr1_fleet_sweep",
+                     "sweep(p, [CR1(lam=l) for l in lams], ctx=...)")
+    return sweep(p, [CR1(lam=float(lam)) for lam in lams],
+                 ctx=SolveContext(device=device, steps=steps,
+                                  use_kernel=use_kernel))
+
+
+def solve_cr2_fleet(p: FleetProblem, cap_frac: float = 0.78,
+                    steps: int = 400, outer: int = 6,
+                    use_kernel: bool | None = None,
+                    warm: EngineState | None = None, *, mesh=None,
+                    donate: bool = False, shift: int = 0,
+                    reset_mu: bool = False,
+                    device: str | torch.device | None = None,
+                    ) -> FleetSolveResult:
+    """Deprecated: `api.solve(p, CR2(cap_frac=..., outer=...), ctx=...)`."""
+    from repro_torch.core.api import CR2, SolveContext, solve
+    _warn_deprecated("solve_cr2_fleet",
+                     "solve(p, CR2(cap_frac=...), ctx=SolveContext(...))")
+    return solve(p, CR2(cap_frac=cap_frac, outer=outer), ctx=SolveContext(
+        device=device, mesh=mesh, donate=donate, shift=shift,
+        reset_mu=reset_mu, warm=warm, use_kernel=use_kernel, steps=steps))
+
+
+def solve_cr3_fleet(p: FleetProblem, rho: float = 0.02,
+                    tax_frac: float = 0.2, steps: int = 600, outer: int = 3,
+                    clearing_iters: int = 8,
+                    use_kernel: bool | None = None,
+                    warm: EngineState | None = None, *, mesh=None,
+                    donate: bool = False, shift: int = 0,
+                    reset_mu: bool = False,
+                    device: str | torch.device | None = None,
+                    ) -> tuple[FleetSolveResult, float]:
+    """Deprecated: `api.solve(p, CR3(rho=..., tax_frac=...), ctx=...)`.
+
+    The unified API returns a single `FleetSolveResult`; the clearing rho
+    this shim's tuple carries lives in `result.extras["rho"]`."""
+    from repro_torch.core.api import CR3, SolveContext, solve
+    _warn_deprecated(
+        "solve_cr3_fleet",
+        "solve(p, CR3(rho=..., tax_frac=...), ctx=SolveContext(...)) "
+        "(clearing rho is result.extras['rho'])")
+    result = solve(p, CR3(rho=rho, tax_frac=tax_frac, outer=outer,
+                          clearing_iters=clearing_iters),
+                   ctx=SolveContext(device=device, mesh=mesh, donate=donate,
+                                    shift=shift, reset_mu=reset_mu,
+                                    warm=warm, use_kernel=use_kernel,
+                                    steps=steps))
+    return result, result.extras["rho"]

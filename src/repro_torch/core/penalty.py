@@ -71,7 +71,9 @@ class PenaltyModel:
     feature_names: tuple[str, str] | None = None
 
     def _const(self, a: np.ndarray, like: Tensor) -> Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+        """A model constant in `like`'s dtype (float32 on the fleet paths,
+        float64 in the SLSQP reference) and on its device."""
+        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
     def raw_loss(self, d: Tensor, smooth: float = 0.0) -> Tensor:
         """Workload-specific performance loss (latency-%·hours for RTS;
@@ -102,6 +104,11 @@ class PenaltyModel:
             z = self.k * raw / smooth
             return smooth * torch.logaddexp(z, torch.zeros_like(z))
         return torch.maximum(self.k * raw, torch.zeros_like(raw))
+
+    def cap_curtailment(self, cap_frac: float) -> np.ndarray:
+        """Curtailment from capping power at cap_frac·E (Eq. 9): any usage
+        above L = cap_frac·E is cut."""
+        return np.maximum(self.usage - cap_frac * self.entitlement, 0.0)
 
     def calibration_curtailment(self, cap: float = CALIBRATION_CAP
                                 ) -> np.ndarray:

@@ -32,8 +32,9 @@ binding, so small per-window residuals wash out as the window slides.
 
 A port of the JAX package's `repro.core.streaming`, single-region and on
 one device: meshes, multi-region problems, the tick ledger, in-solve
-telemetry, the recompile guard and the policies other than CR1/CR2 raise
-`NotImplementedError`, each naming the ROADMAP item that ports it.
+telemetry and the recompile guard raise `NotImplementedError`, each
+naming the ROADMAP item that ports it. CR3, B1 and B3 run tick by tick
+(`step`/`run`); `run_scanned` takes CR1/CR2 only, as `api.solve_day`.
 """
 from __future__ import annotations
 
@@ -123,10 +124,12 @@ class RollingHorizonSolver:
         periodic traces that slide with the window (`np.roll` along time).
       stream: revised-forecast source; `stream.horizon` must equal
         `problem.T` (a sequence of one stream is accepted).
-      policy: a `DRPolicy` object (`CR1(lam=...)`, `CR2(...)`) or a
-        registry name; unknown names raise `ValueError` here.
-      lam, cap_frac, outer: configure the policy when it is given by name
-        (`api.configured_policy`); ignored for a policy object.
+      policy: a `DRPolicy` object (`CR1(lam=...)`, `CR2(...)`,
+        `CR3(...)`, `B1(...)`, `B3(...)`) or a registry name; unknown
+        names raise `ValueError` here.
+      lam, cap_frac, rho, tax_frac, outer: configure the policy when it
+        is given by name (`api.configured_policy`); ignored for a policy
+        object.
       cold_steps: inner Adam steps for the tick-0 cold solve.
       warm_steps: inner steps for warm-started re-solves.
       use_kernel: as `SolveContext.use_kernel` (None: the kernels on
@@ -145,20 +148,22 @@ class RollingHorizonSolver:
         `warm_steps // 4`).
       revision_ref: relative revision magnitude that earns the full
         `warm_steps` (default 0.05).
-      rho, tax_frac, mesh, events, telemetry, guard_recompiles: the JAX
-        package's CR3 knobs, device mesh, tick ledger, in-solve telemetry
-        and recompile guard; not ported yet, they raise
-        `NotImplementedError` when set.
+      mesh, events, telemetry, guard_recompiles: the JAX package's device
+        mesh, tick ledger, in-solve telemetry and recompile guard; not
+        ported yet, they raise `NotImplementedError` when set.
 
-    `last_rho` is kept for the JAX package's interface: CR1/CR2 clear no
-    carbon price, so it stays None.
+    CR3: the policy's `rho` is the configured price, so every window
+    re-clears from it (clearing only ever lowers rho; carrying a lowered
+    price forward would ratchet the fleet onto a depressed price after
+    one transient tick). `last_rho` is the latest cleared price
+    (`plan.extras["rho"]`); None for the policies that clear none.
     """
 
     def __init__(self, problem: FleetProblem,
                  stream: ForecastStream | Sequence[ForecastStream], *,
                  policy: str | DRPolicy = "cr1", lam: float = 1.45,
-                 cap_frac: float = 0.78, rho: float | None = None,
-                 tax_frac: float | None = None, cold_steps: int = 600,
+                 cap_frac: float = 0.78, rho: float = 0.02,
+                 tax_frac: float = 0.2, cold_steps: int = 600,
                  warm_steps: int = 150, outer: int = 4,
                  use_kernel: bool | None = None,
                  device: str | torch.device | None = None,
@@ -188,8 +193,8 @@ class RollingHorizonSolver:
         self.problem = problem
         self.stream = streams[0]
         self.policy = configured_policy(policy, lam=lam, cap_frac=cap_frac,
-                                        outer=outer, rho=rho,
-                                        tax_frac=tax_frac)
+                                        rho=rho, tax_frac=tax_frac,
+                                        outer=outer)
         self.last_rho = getattr(self.policy, "rho", None)
         self.cold_steps = cold_steps
         self.warm_steps = warm_steps
@@ -258,6 +263,8 @@ class RollingHorizonSolver:
                      ctx=self._ctx(shift=0 if warm is None else 1,
                                    reset_mu=warm is not None, warm=warm,
                                    steps=steps))
+        if "rho" in plan.extras:
+            self.last_rho = plan.extras["rho"]
         self._state = plan.state
         self._prev_forecast = mci_hat
         self._tick = tick + 1

@@ -80,8 +80,10 @@ def fleets(tmp_path_factory):
     from repro_torch.core.fleetcache import cached_paper_fleet
     fleet = cached_paper_fleet(num_samples=32, num_jobs=1000, device="cuda",
                                cache_dir=tmp_path_factory.mktemp("fleet"))
-    return {W: synthetic_fleet(W, hours=T, seed=s, templates=fleet)
-            for W, s in ((10_000, 0), (130, 1))}
+    out = {W: synthetic_fleet(W, hours=T, seed=s, templates=fleet)
+           for W, s in ((10_000, 0), (130, 1))}
+    out["templates"] = fleet
+    return out
 
 
 def _al_inputs(fleets, W, mode, seed, dev, **kw):
@@ -811,3 +813,83 @@ def test_overloaded_rows_end_at_their_nearest_day_sum(dev, fleets):
         r = solve(q, CR1(), ctx=SolveContext(steps=80))
         gap, n_days = cs.day_sum_gap(np, q, r.D)
         assert n_days > 0 and gap < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# CR3, the baselines and the SLSQP reference
+# ---------------------------------------------------------------------------
+def test_cr3_kernel_path_matches_plain(dev, fleets):
+    """CR3 at W = 130 through dr_features (one launch an inner step and one
+    a round) against the plain path: off the hinge ties the kernel path's
+    closed-form backward takes the plain path's gradient."""
+    from repro_torch.core.api import CR3, SolveContext, solve
+    p = fleets[130]
+    ctx = SolveContext(steps=150)
+    before = dr_features_cuda.launches
+    got = solve(p, CR3(), ctx=ctx)
+    rounds = got.iters // (150 * 3)
+    assert dr_features_cuda.launches - before == rounds * (150 * 3 + 1)
+    want = solve(p, CR3(), ctx=SolveContext(steps=150, use_kernel=False))
+    assert got.iters == want.iters and got.balanced == want.balanced
+    assert got.extras["rho"] == pytest.approx(want.extras["rho"], rel=1e-4)
+    assert abs(got.carbon_reduction_pct - want.carbon_reduction_pct) < 0.05
+    assert abs(got.total_penalty_pct - want.total_penalty_pct) < 0.05
+    assert got.preservation_violation < 1e-3
+
+
+def test_cr3_gradient_through_the_kernel_is_the_plain_one(dev, fleets):
+    """CR3's objective gradient through dr_features: off the ties the
+    plain path's bit for bit on the card; at D = 0, every running sum a
+    tie, the closed form's strict `>` as on the CPU."""
+    from repro_torch.core.fleet_solver import device_view, fleet_penalties
+
+    def grad(D0, device, uk):
+        p = device_view(fleets[130], torch.device(device))
+        D = _f32(D0, device).requires_grad_(True)
+        (g,) = torch.autograd.grad(
+            (fleet_penalties(p, D, uk) / p.entitlement).sum(), D)
+        return g.cpu()
+
+    D0 = np.random.default_rng(3).normal(0.0, 0.05, (130, T))
+    torch.testing.assert_close(grad(D0, dev, True), grad(D0, dev, False),
+                               rtol=0, atol=0)
+    zero = np.zeros((130, T))
+    torch.testing.assert_close(grad(zero, dev, True),
+                               grad(zero, "cpu", True), rtol=1e-6,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("policy", ["b1", "b3"])
+def test_baselines_launch_dr_features_once(dev, fleets, policy):
+    from repro_torch.core.api import B1, B3, SolveContext, solve
+    p = fleets[130]
+    pol = B1(F=0.75) if policy == "b1" else B3(depth=0.3)
+    before = dr_features_cuda.launches
+    got = solve(p, pol)
+    assert dr_features_cuda.launches - before == 1
+    plain = solve(p, pol, ctx=SolveContext(use_kernel=False))
+    np.testing.assert_array_equal(got.D, plain.D)
+    assert got.total_penalty_pct == pytest.approx(plain.total_penalty_pct,
+                                                  rel=1e-5)
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_slsqp_float64_on_the_card_matches_the_cpu(dev, fleets, policy):
+    """The SLSQP reference with its functions in float64 on the card
+    against the same call on the CPU."""
+    from repro_torch.core import policies, solver
+    from repro_torch.core.carbon import caiso_2021
+    tpl = fleets["templates"]
+    dr = policies.DRProblem(
+        models=tuple(tpl[n] for n in ("RTS1", "RTS2", "AITraining",
+                                      "DataPipeline")),
+        mci=caiso_2021(T).mci)
+    results = []
+    for d in ("cuda", "cpu"):
+        spec = (policies.cr1_spec(dr, 1.45) if policy == "cr1"
+                else policies.cr2_spec(dr, 0.78, device=d))
+        results.append(solver.solve_slsqp(spec, maxiter=60, device=d))
+    got, want = results
+    assert got.nit == want.nit
+    assert abs(got.carbon_reduction_pct - want.carbon_reduction_pct) < 0.01
+    assert abs(got.total_penalty_pct - want.total_penalty_pct) < 0.01

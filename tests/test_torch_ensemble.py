@@ -325,19 +325,65 @@ REFUSALS = {
     "regional_divergence": ("item 9", lambda tp: tens.evaluate_ensemble(
         tp, "cr1", tscen.RegionalDivergence(2),
         ctx=tapi.SolveContext(device="cpu"))),
-    "cr3": ("item 8", lambda tp: tapi.ensemble(
-        tp, "cr3", "duck_perturb", ctx=tapi.SolveContext(device="cpu"))),
-    "b1": ("item 8", lambda tp: tens.run_streaming_ensemble(
-        tp, "b1", [ForecastStream.caiso(n_ticks=2)], device="cpu")),
-    "b3": ("item 8", lambda tp: tens.compare_policies(
-        tp, ["cr1", "b3"], "duck_perturb",
-        ctx=tapi.SolveContext(device="cpu", steps=4))),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS))
+def _cr3_ensemble(mod, prob, ctx):
+    return mod.ensemble(prob, mod.CR3(outer=1), jscen.DuckPerturb(3)
+                        if mod is japi else tscen.DuckPerturb(3), ctx=ctx)
+
+
+def _b1_streams(mod, prob, **kw):
+    stream = (jscen if mod is japi else tscen).ForecastRegime(2, seed=4)
+    run = (jens if mod is japi else tens).run_streaming_ensemble
+    return run(prob, "b1", stream, n_ticks=2, **kw)
+
+
+def _b3_compare(mod, prob, ctx):
+    run = (jens if mod is japi else tens).compare_policies
+    scen = (jscen if mod is japi else tscen).CambiumMix(3, seed=1)
+    return run(prob, ["cr1", "b3"], scen, ctx=ctx)
+
+
+# Policies the port refused by name until CR3 and the baselines were
+# ported: each now takes the JAX package's sequential fallback (a
+# `solve()` loop, or S solo controllers) and is held against it.
+PORTED = {
+    "cr3": lambda tp, p: (
+        _cr3_ensemble(tapi, tp, tapi.SolveContext(device="cpu", steps=20)),
+        _cr3_ensemble(japi, p, japi.SolveContext(use_kernel=False,
+                                                 steps=20))),
+    "b1": lambda tp, p: (_b1_streams(tens, tp, device="cpu"),
+                         _b1_streams(japi, p, use_kernel=False)),
+    "b3": lambda tp, p: (
+        _b3_compare(tapi, tp, tapi.SolveContext(device="cpu", steps=20)),
+        _b3_compare(japi, p, japi.SolveContext(use_kernel=False,
+                                               steps=20))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(PORTED))
 def test_unported_refused_by_name(fleet16, case):
-    _, tp = fleet16
-    item, call = REFUSALS[case]
-    with pytest.raises(NotImplementedError, match=item):
-        call(tp)
+    p, tp = fleet16
+    if case in REFUSALS:
+        item, call = REFUSALS[case]
+        with pytest.raises(NotImplementedError, match=item):
+            call(tp)
+        return
+    got, want = PORTED[case](tp, p)
+    if case == "cr3":
+        assert not got.batched and got.labels == want.labels
+        _close(got, want, PP)
+        assert [e["balanced"] for e in got.extras] \
+            == [e["balanced"] for e in want.extras]
+    elif case == "b1":
+        assert not got.batched and got.total_inner_steps == 0
+        np.testing.assert_allclose(got.committed, want.committed,
+                                   rtol=0, atol=0)
+        np.testing.assert_allclose(got.realized_reduction_pct,
+                                   want.realized_reduction_pct, rtol=1e-12)
+    else:
+        assert list(got) == list(want) == ["cr1", "b3"]
+        for key in got:
+            assert abs(got[key].carbon_mean - want[key].carbon_mean) < PP
+            assert abs(got[key].penalty_mean - want[key].penalty_mean) < PP

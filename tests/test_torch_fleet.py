@@ -168,6 +168,23 @@ def test_fleet_penalties_value_and_grad_match_jax(problems, use_kernel,
                                atol=1e-6)
 
 
+def test_fleet_penalties_kernel_grad_is_plain_grad_off_ties(problems):
+    """Off the hinge ties the kernel path's closed-form backward takes the
+    plain path's gradient bit for bit: its indicators come from the same
+    running sums, its products in autograd's order."""
+    _, tp = problems
+    D = _plan(tp, 3)
+    w = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.5, 1.5, tp.W).astype(np.float32))
+    grads = []
+    for use_kernel in (True, False):
+        Dt = torch.as_tensor(D).requires_grad_(True)
+        pens = tfs.fleet_penalties(tp, Dt, use_kernel=use_kernel)
+        grads.append(torch.autograd.grad((pens * w).sum(), Dt)[0].numpy())
+    assert np.abs(grads[1]).max() > 0
+    np.testing.assert_array_equal(grads[0], grads[1])
+
+
 def test_norms_match_jax(problems):
     p, tp = problems
     pv = tfs.device_view(tp, torch.device("cpu"))

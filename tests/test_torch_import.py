@@ -36,7 +36,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "models.transformer", "launch.serve", "configs.mamba2_780m",
               "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
               "kernels.ssd_scan.ref", "models.ssm", "core.streaming",
-              "core.daygraph", "core.scenario", "core.ensemble"):
+              "core.daygraph", "core.scenario", "core.ensemble",
+              "core.policies", "core.baselines", "core.solver",
+              "core.fleet", "power.model"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -77,6 +79,11 @@ def _tiny_problem():
         is_batch=np.array([False, True]), mci=np.linspace(300, 400, T))
 
 
+def _tiny_dr():
+    """The tiny fleet as the SLSQP reference's per-workload problem."""
+    return _tiny_problem().to_problem()
+
+
 def test_solve_wants_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is valid")
@@ -88,7 +95,8 @@ def test_solve_wants_the_card_by_default():
     "cr2_reference_fleet", "fit_lasso_cv", "init_params", "init_cache",
     "transformer_params_from_arrays", "init_params_ssm", "init_cache_ssm",
     "solve_day", "rolling_horizon_step", "sweep", "ensemble",
-    "streaming_ensemble"])
+    "streaming_ensemble", "cr3", "b1", "b3", "solve_slsqp", "solve_adam",
+    "solve_cr3", "cr2_spec", "coordinator_plan"])
 def test_other_entry_points_want_the_card_by_default(entry):
     """Entry points below `solve`, and the model's, take the card too when
     no device is named, and raise without one rather than run on the CPU."""
@@ -97,8 +105,11 @@ def test_other_entry_points_want_the_card_by_default(entry):
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import transformer_params_from_arrays
     from repro_torch.core.fleet_solver import cr2_reference_fleet
+    from repro_torch.core import policies, solver
     from repro_torch.core.api import ensemble, solve_day, sweep
-    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.carbon import ForecastStream, caiso_2021
+    from repro_torch.core.fleet import FleetCoordinator, FleetJob
+    from repro_torch.power.model import JobPowerModel
     from repro_torch.core.ensemble import run_streaming_ensemble
     from repro_torch.core.lasso import fit_lasso_cv
     from repro_torch.core.streaming import RollingHorizonSolver
@@ -125,6 +136,18 @@ def test_other_entry_points_want_the_card_by_default(entry):
         "ensemble": lambda: ensemble(_tiny_problem(), CR1(), "duck_perturb"),
         "streaming_ensemble": lambda: run_streaming_ensemble(
             _tiny_problem(), CR1(), [ForecastStream.caiso(n_ticks=2)]),
+        "cr3": lambda: solve(_tiny_problem(), "cr3"),
+        "b1": lambda: solve(_tiny_problem(), "b1"),
+        "b3": lambda: solve(_tiny_problem(), "b3"),
+        "solve_slsqp": lambda: solver.solve_slsqp(
+            policies.cr1_spec(_tiny_dr(), 1.45), maxiter=1),
+        "solve_adam": lambda: solver.solve_adam(
+            policies.cr1_spec(_tiny_dr(), 1.45)),
+        "solve_cr3": lambda: solver.solve_cr3(_tiny_dr(), 0.02),
+        "cr2_spec": lambda: policies.cr2_spec(_tiny_dr(), 0.78),
+        "coordinator_plan": lambda: FleetCoordinator(
+            [FleetJob("t", "train", JobPowerModel("t", 8, 0.5, 1.0))],
+            caiso_2021(48)).plan(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

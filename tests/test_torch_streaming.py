@@ -334,24 +334,50 @@ REFUSALS = {
     "events": (dict(events="ticks.jsonl"), "item 10"),
     "telemetry": (dict(telemetry=object()), "item 10"),
     "guard_recompiles": (dict(guard_recompiles=True), "item 10"),
-    "cr3": (dict(policy="cr3"), "item 8"),
-    "b1": (dict(policy="b1"), "item 8"),
-    "b3": (dict(policy="b3"), "item 8"),
-    "rho": (dict(rho=0.02), "item 8"),
-    "tax_frac": (dict(tax_frac=0.2), "item 8"),
+}
+# Options the port refused by name until CR3 and the baselines were
+# ported: each now runs, and is held against the JAX package's controller
+# (2 ticks, cold 16 / warm 8 steps; CR3 by name takes outer 4, as there).
+PORTED = {
+    "cr3": dict(policy="cr3"),
+    "b1": dict(policy="b1"),
+    "b3": dict(policy="b3"),
+    "rho": dict(policy="cr3", rho=0.03),
+    "tax_frac": dict(policy="cr3", tax_frac=0.25),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS))
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(PORTED))
 def test_unported_options_refuse_by_name(fleet16, case):
-    _, tp = fleet16
-    kw, item = REFUSALS[case]
-    with pytest.raises(NotImplementedError, match=item):
-        tstream.RollingHorizonSolver(tp, _streams(n=2)[1], **kw)
+    p, tp = fleet16
+    if case in REFUSALS:
+        kw, item = REFUSALS[case]
+        with pytest.raises(NotImplementedError, match=item):
+            tstream.RollingHorizonSolver(tp, _streams(n=2)[1], **kw)
+        return
+    kw = dict(PORTED[case], cold_steps=16, warm_steps=8)
+    js, ts = _streams(n=2)
+    jrhs = jstream.RollingHorizonSolver(p, js, use_kernel=False, **kw)
+    trhs = tstream.RollingHorizonSolver(tp, ts, device="cpu", **kw)
+    assert trhs.policy == tapi.configured_policy(
+        kw["policy"], **{k: v for k, v in kw.items()
+                         if k in ("rho", "tax_frac")})
+    want, got = jrhs.run(2), trhs.run(2)
+    assert [t.inner_steps for t in got.ticks] \
+        == [t.inner_steps for t in want.ticks]
+    assert abs(got.realized_reduction_pct
+               - want.realized_reduction_pct) < PP
+    if trhs.last_rho is None:
+        assert jrhs.last_rho is None
+    else:
+        # rel: the JAX package's own one-ulp spread of CR3's price
+        # (`test_torch_cr3.py::test_cr3_rho_gap_within_jax_ulp_spread`).
+        assert trhs.last_rho == pytest.approx(jrhs.last_rho, rel=0.02)
+        assert trhs.last_rho == got.ticks[-1].plan.extras["rho"]
 
 
 def test_multi_region_refused(fleet16):
-    _, tp = fleet16
+    p, tp = fleet16
     ts = _streams(n=2)[1]
     with pytest.raises(NotImplementedError, match="item 9"):
         tstream.RollingHorizonSolver(tp, [ts, ts])
@@ -359,9 +385,11 @@ def test_multi_region_refused(fleet16):
                               region=np.arange(tp.W) % 2)
     with pytest.raises(NotImplementedError, match="item 9"):
         tstream.RollingHorizonSolver(two, ts)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.solve_day(tp, "cr3", np.stack([tp.mci] * 2),
-                       ctx=tapi.SolveContext(device="cpu"))
+    for mod, prob, ctx in ((japi, p, None),
+                           (tapi, tp, tapi.SolveContext(device="cpu"))):
+        with pytest.raises(NotImplementedError,
+                           match="cr3 needs host-side control flow"):
+            mod.solve_day(prob, "cr3", np.stack([prob.mci] * 2), ctx=ctx)
 
 
 def test_day_impl_is_solve_day_on_the_cpu(fleet16):

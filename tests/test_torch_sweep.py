@@ -176,14 +176,26 @@ def test_stack_states_names_the_mismatched_lane(fleet16):
 
 @pytest.mark.parametrize("what", ["mesh", "cr3", "b1", "b3"])
 def test_unported_refused_by_name(fleet16, what):
-    _, tp = fleet16
+    """A mesh is still refused by name. CR3, B1 and B3, refused until
+    they were ported, now ride a mixed sweep's loop lane, held against
+    the JAX package's (the CR3 rounds, `balanced` and rho as in
+    `test_torch_cr3.py`)."""
+    p, tp = fleet16
     if what == "mesh":
         with pytest.raises(NotImplementedError, match="item 11"):
             tapi.sweep(tp, [tapi.CR1()], ctx=tapi.SolveContext(
                 device="cpu", mesh=object()))
-    else:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tapi.sweep(tp, ["cr1", what], ctx=_ctx(False))
+        return
+    got = tapi.sweep(tp, ["cr1", what], ctx=_ctx(False, steps=20))
+    want = japi.sweep(p, ["cr1", what], ctx=japi.SolveContext(
+        use_kernel=False, steps=20))
+    _close_pp(got, want, PP)
+    assert got[1].balanced == want[1].balanced
+    if what == "cr3":
+        # rel: the JAX package's own one-ulp spread of CR3's price
+        # (`test_torch_cr3.py::test_cr3_rho_gap_within_jax_ulp_spread`).
+        assert got[1].extras["rho"] == pytest.approx(want[1].extras["rho"],
+                                                     rel=0.02)
 
 
 # ---------------------------------------------------------------------------

@@ -60,10 +60,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
    launch each; the paper's four-workload problem (the phase-3 models
    over `caiso_2021(48)`) through the SLSQP reference in float64 on the
    card (`solve_slsqp` of CR1(1.45) and CR2(0.78) at 250 iterations,
-   `solve_cr3` at rho 0.02) beside the fleet CR1, CR2 and CR3 on
+   CR1 a second time with its iterates held bitwise equal to the first
+   call's, `solve_cr3` at rho 0.02) beside the fleet CR1, CR2 and CR3 on
    `FleetProblem.from_problem`, held within the JAX package's bounds
    (`tests/test_engine.py`), and one line of carbon % and penalty % for
    each of the seven policies;
+5e. multi-region: `synthetic_regional_fleet(10_000, ["CA", "TX", "NY"],
+   hours=48, seed=0, utc_offsets="auto")` on phase 3's templates (R =
+   3, its default topology); CR1(1.45) and CR2(0.78) through the kernels
+   (al_step fed a carbon row per fleet row and per-row step multipliers;
+   launch counts reset just before and read just after each call, as
+   every call below) against the generic engine (0.05 pp), with the
+   fused CR1's device idle share from `torch.profiler`; R = 1 of the
+   main fleet bitwise equal to its single-region solves; a CR1 sweep over
+   lam in {1.0, 1.45, 2.2} against its loop (0.01 pp); CR3 at its
+   defaults through dr_features, and at 150 steps through dr_features
+   and plain (the same rounds, each region's rho within 1e-4); CR1 with
+   the migration post-stage (the plan unchanged, the flows within every
+   cap) and with coupled migration (no less carbon at equal
+   curtailment), and CR1 priced on one region's signal for the whole
+   fleet, per region, at equal curtailment;
 6. the serving paths, each at full width (random weights from a seeded
    generator on the card), through `serve_requests` at max_batch 8, then
    4 (launch counts reset just before and read just after each path),
@@ -78,6 +94,7 @@ Imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 import re
@@ -162,6 +179,13 @@ CR3_RHO_RTOL = 1e-4
 CR3_RHOS = (0.01, 0.02, 0.04)
 CR3_SWEEP_STEPS = 150
 CR3_LANE_RHO_RTOL = 1e-3
+# Multi-region (phase 5e): the R = 3 CA/TX/NY fleet on the UTC clock
+# (the JAX package's acceptance fleet, tests/test_multiregion.py), a lam
+# sweep over its Pareto range, CR3's short budget for its kernel-vs-plain
+# check; per-region rho within CR3_RHO_RTOL there.
+REGION_STATES = ("CA", "TX", "NY")
+REGION_LAMS = (1.0, 1.45, 2.2)
+CR3_REGION_STEPS = 150
 
 
 def log(*a):
@@ -189,7 +213,8 @@ def feature_inputs(np, W, T, seed):
 
 
 def al_step_inputs(np, p, *, mode, seed, rts_only=True, stable=False,
-                   per_row_cvec=False, tiny_v=False, at_bounds=False):
+                   per_row_cvec=False, tiny_v=False, at_bounds=False,
+                   step_rows=False):
     """(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal) in the kernel's
     packed layout, from the rows of fleet `p`, drawn as the JAX package's
     kernel tests draw them (`tests/test_al_step.py`): `rts_only` recasts
@@ -200,7 +225,9 @@ def al_step_inputs(np, p, *, mode, seed, rts_only=True, stable=False,
     mostly below m²: there the step m/√v is ill-conditioned. `at_bounds`
     spreads x over the whole box, many hours at a bound, and zeroes the
     batch betas so no hinge enters the gradient: the day projection then
-    has bounds to fix."""
+    has bounds to fix. `step_rows` draws rowp col 11 per row in [0.5, 2]
+    (a multi-region fleet's per-region step scales ride there, beside its
+    per-row carbon rows, `per_row_cvec`)."""
     W, T = p.usage.shape
     rng = np.random.default_rng(seed)
     usage = p.usage.astype(np.float32)
@@ -229,7 +256,7 @@ def al_step_inputs(np, p, *, mode, seed, rts_only=True, stable=False,
     if mode == "cr2":
         rowp[:, 9] = np.abs(rng.normal(1.0, 0.2, W))
         rowp[:, 10] = rng.normal(0.0, 0.5, W)
-    rowp[:, 11] = 1.0
+    rowp[:, 11] = rng.uniform(0.5, 2.0, W) if step_rows else 1.0
     cvec = rng.normal(-0.5, 0.2, (W if per_row_cvec else 1, T))
     scal = np.array([[1.45, 10.0, 0.8, 0.02, 3.0, 0.0, 0.0, 0.0]])
     return (x, m, v, usage, p.jobs, lo, hi, rowp, cvec, scal)
@@ -508,7 +535,16 @@ def phase_al_step(np, torch, fleets):
             errs.append(compare(to_dev(arrs, False), mode, 8, False,
                                 f"al_step 5-hour days W={W} {mode} k=8",
                                 day_hours=5))
-            n += 5
+            # Multi-region operands: a carbon row per fleet row and
+            # per-row step multipliers (rowp col 11), mixed hinge-stable
+            # rows.
+            for k in (1, 8):
+                arrs = al_step_inputs(np, p, mode=mode, seed=W + 2 * k,
+                                      rts_only=k == 8, stable=True,
+                                      per_row_cvec=True, step_rows=True)
+                errs.append(compare(to_dev(arrs, False), mode, k, False,
+                                    f"al_step regions W={W} {mode} k={k}"))
+            n += 7
     # Timing at the main path's call: the fleet's rows ordered by kind,
     # batch rows first, as make_fused_inner hands them to the kernel, k =
     # 8, f32 moments.
@@ -527,6 +563,18 @@ def phase_al_step(np, torch, fleets):
     nbytes = 10 * W_MAIN * T_MAIN * 4 + W_MAIN * 12 * 4 + T_MAIN * 4 + 32
     rec["bound_ms"], rec["bound_by"] = bound(
         nbytes, al_step_ops(np, arrs[7], T_MAIN, 8, "cr2"), H100_F32_OPS_PER_S)
+    # The multi-region call at the same shape: a (W, T) carbon row per
+    # fleet row adds W·T·4 bytes read; per-row steps ride rowp.
+    regs = al_step_inputs(np, fleets[0], mode="cr2", seed=1, rts_only=False,
+                          stable=True, per_row_cvec=True, step_rows=True)
+    regs = [a[by_kind] if a.shape[0] == W_MAIN else a for a in regs]
+    rargs = to_dev(regs, False)
+    for mode in ("cr1", "cr2"):
+        rec[f"regions_ms_{mode}"] = kernel_ms(
+            torch, lambda: al_step_cuda(*rargs, mode=mode, k_steps=8))
+    rec["regions_bound_ms"], rec["regions_bound_by"] = bound(
+        11 * W_MAIN * T_MAIN * 4 + W_MAIN * 12 * 4 + 32,
+        al_step_ops(np, regs[7], T_MAIN, 8, "cr2"), H100_F32_OPS_PER_S)
     log(f"[check] al_step: {n} cases, max abs err {rec['max_abs_err']:.3e} "
         f"(rtol = atol = 1e-5; bf16 moments {max(bf16_errs):.3e}, to one "
         f"bf16 ulp; tiny v {max(ill_errs):.3e} at 1e-4); k=8 at W = "
@@ -535,6 +583,12 @@ def phase_al_step(np, torch, fleets):
         f"us; plain cr1 {rec['plain_ms_cr1'] * 1e3:.2f} us, cr2 "
         f"{rec['plain_ms_cr2'] * 1e3:.2f} us; bound "
         f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+    log(f"[check] al_step multi-region call ((W, T) carbon rows, per-row "
+        f"steps), k=8 at W = {W_MAIN}: cr1 "
+        f"{rec['regions_ms_cr1'] * 1e3:.2f} us, cr2 "
+        f"{rec['regions_ms_cr2'] * 1e3:.2f} us; bound "
+        f"{rec['regions_bound_ms'] * 1e3:.2f} us "
+        f"({rec['regions_bound_by']})")
     return rec
 
 
@@ -1081,21 +1135,7 @@ def phase_policies(np, torch, p):
 
     totals = {name: 0 for name in COUNTED}
 
-    def counted(what, fn, want=None):
-        """Run `fn` with the counts reset just before and read just after;
-        `want` (None: any) is the expected count."""
-        for f in COUNTED.values():
-            f.launches = 0
-        out, wall = _timed(torch, fn)
-        got = {n: f.launches for n, f in COUNTED.items()}
-        for k in totals:
-            totals[k] += got[k]
-        if want is not None:
-            want = want(out) if callable(want) else want
-            log(f"[policies] {what}: launches {got} (expected {want}), "
-                f"wall {wall:.4f} s")
-            require(got == want, f"{what}: launches {got} != {want}")
-        return out, wall
+    counted = functools.partial(count_launches, torch, totals, "policies")
 
     steps, outer = CR3.default_steps, CR3.outer
     solve(p, CR3(), ctx=SolveContext(steps=2))            # warm-up
@@ -1195,9 +1235,27 @@ def phase_policies(np, torch, p):
     fp = FleetProblem.from_problem(dr)
     E4 = np.asarray(fp.entitlement)
     rts = ~np.asarray(fp.is_batch)
-    (s1, s1w), (s2, s2w) = (
-        _timed(torch, lambda s=s: solver.solve_slsqp(s, maxiter=250))
-        for s in (policies.cr1_spec(dr, 1.45), policies.cr2_spec(dr, 0.78)))
+    # CR1 twice, iterates recorded: the reference must repeat bit for bit
+    # in one process (scripts/port_slsqp_repeat.py looks deeper).
+    its = ([], [])
+    cr1 = policies.cr1_spec(dr, 1.45)
+
+    def slsqp(spec, run=None):
+        cb = None if run is None else (lambda xk: its[run].append(
+            np.array(xk)))
+        return solver.solve_slsqp(spec, maxiter=250, callback=cb)
+
+    (s1, s1w), (s2, s2w) = (_timed(torch, lambda: slsqp(cr1, 0)),
+                            _timed(torch, lambda: slsqp(
+                                policies.cr2_spec(dr, 0.78))))
+    s1b, _ = _timed(torch, lambda: slsqp(cr1, 1))
+    same = (len(its[0]) == len(its[1]) > 0
+            and all(np.array_equal(a, b) for a, b in zip(*its))
+            and np.array_equal(s1.D, s1b.D))
+    log(f"[policies] SLSQP CR1 twice in one process: {len(its[0])} / "
+        f"{len(its[1])} iterates, bitwise equal: {same}; carbon "
+        f"{s1.carbon_reduction_pct!r} / {s1b.carbon_reduction_pct!r} %")
+    require(same, "SLSQP CR1's two calls in one process differ")
     (s3, rho3), s3w = _timed(torch, lambda: solver.solve_cr3(dr, rho=0.02))
     fleet_runs = (
         (CR1(lam=1.45), {"al_step": 600 // 8, "dr_features": 1}),
@@ -1265,6 +1323,229 @@ def phase_policies(np, torch, p):
     for k, v in line.items():
         require(bool(np.isfinite(v.D).all()) and v.D.shape == (4, T_MAIN),
                 f"{k}: plan not finite or not (4, T)")
+    return totals
+
+
+def count_launches(torch, totals, tag, what, fn, want=None):
+    """Run `fn` with every kernel's launch count set to 0 just before and
+    read just after, add the counts to `totals` and, unless `want` is
+    None, hold them to it (a callable computes it from the result).
+    Returns (result, wall s)."""
+    from repro_torch.core.daygraph import COUNTED
+    for f in COUNTED.values():
+        f.launches = 0
+    out, wall = _timed(torch, fn)
+    got = {n: f.launches for n, f in COUNTED.items()}
+    for k in totals:
+        totals[k] += got[k]
+    if want is not None:
+        want = want(out) if callable(want) else want
+        log(f"[{tag}] {what}: launches {got} (expected {want}), wall "
+            f"{wall:.4f} s")
+        require(got == want, f"{tag} {what}: launches {got} != {want}")
+    return out, wall
+
+
+def device_busy(torch, fn):
+    """(wall s, device-busy s) of `fn()` under `torch.profiler`: busy is
+    the union of the traced kernel and copy intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    require(bool(spans), "the profiler traced no device event")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return wall, busy * 1e-6
+
+
+def _plan_feasible(np, p, D, plan, what):
+    """A migration plan meets its link caps exactly, moves nothing onto a
+    region's own diagonal, and stays within supply and headroom."""
+    from repro_torch.core.migration import region_aggregates
+    y = plan.y
+    bw = np.asarray(p.topology.bandwidth)
+    movable, headroom = region_aggregates(p, D)
+    require(bool((y >= 0.0).all() and (y <= bw[:, :, None]).all()),
+            f"{what}: flows outside [0, bandwidth]")
+    require(float(np.abs(np.trace(y.sum(axis=2)))) == 0.0,
+            f"{what}: flows from a region to itself")
+    require(bool((y.sum(axis=1) <= movable * (1 + 1e-9) + 1e-9).all()
+                 and (y.sum(axis=0) <= headroom + 1e-9).all()),
+            f"{what}: supply or headroom exceeded")
+
+
+def phase_regions(np, torch, p_single):
+    """Phase 5e: the multi-region fleet (R = 3) through CR1/CR2 fused and
+    generic, a CR1 sweep, CR3 through dr_features and plain, the
+    migration post-stage and the coupled migration; R = 1 bitwise at the
+    main fleet. Returns the summed launch counts."""
+    from repro_torch.core.api import CR1, CR2, CR3, SolveContext, solve, sweep
+    from repro_torch.core.fleet_solver import (regional_fleet,
+                                               synthetic_regional_fleet)
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    t_phase = time.perf_counter()
+    templates = cached_paper_fleet(hours=T_MAIN, num_samples=CAL_SAMPLES,
+                                   num_jobs=CAL_JOBS, device="cuda")
+    p = synthetic_regional_fleet(W_MAIN, list(REGION_STATES), hours=T_MAIN,
+                                 seed=0, utc_offsets="auto",
+                                 templates=templates)
+    bare = dataclasses.replace(p, topology=None)
+    region = np.asarray(p.region)
+    wmci = np.asarray(p.mci)[region]
+    carbon = float((np.asarray(p.usage) * wmci).sum())
+    log(f"[regions] synthetic_regional_fleet: W = {p.W}, T = {p.T}, R = "
+        f"{p.R} (" + ", ".join(f"{s} {int((region == r).sum())}" for r, s
+                              in enumerate(REGION_STATES))
+        + f" rows), UTC clock; default topology: bandwidth "
+        f"{float(p.topology.bandwidth[0, 1]):.6g} NP a link an hour, toll "
+        f"{float(p.topology.cost[0, 1]):g}")
+    totals = {"al_step": 0, "dr_features": 0}
+    counted = functools.partial(count_launches, torch, totals, "regions")
+
+    def report(what, r):
+        require(bool(np.isfinite(r.D).all()) and r.D.shape == (p.W, p.T),
+                f"regions {what}: plan not finite or not (W, T)")
+        return (f"carbon {r.carbon_reduction_pct:.4f} %, penalty "
+                f"{r.total_penalty_pct:.4f} %, preservation "
+                f"{r.preservation_violation:.3e}")
+
+    for pol in (CR1(lam=1.45), CR2(cap_frac=0.78)):     # warm-up
+        solve(bare, pol, ctx=SolveContext(steps=8))
+    cr1_want = {"al_step": 600 // 8, "dr_features": 1}
+    cr2_want = {"al_step": CR2.outer * (400 // 8),
+                "dr_features": 1 + CR2.outer + 1}
+    fused = {}
+    for pol, want in ((CR1(lam=1.45), cr1_want),
+                      (CR2(cap_frac=0.78), cr2_want)):
+        torch.cuda.reset_peak_memory_stats()
+        r, _ = counted(f"{pol.name} fused", lambda pol=pol: solve(bare, pol),
+                       want)
+        peak = torch.cuda.max_memory_allocated()
+        g, gwall = _timed(torch, lambda pol=pol: solve(
+            bare, pol, ctx=SolveContext(use_kernel=False)))
+        fused[pol.name] = r
+        dc, dp = _pp_gaps(r, g)
+        log(f"[regions] {pol.name} fused: {report(pol.name, r)}, peak "
+            f"{peak / 2**20:.1f} MiB; generic: {report(pol.name, g)}, wall "
+            f"{gwall:.4f} s; fused - generic {dc:.2e} / {dp:.2e} pp (limit "
+            f"{PP_TOL})")
+        require(dc < PP_TOL and dp < PP_TOL,
+                f"regions {pol.name}: fused vs generic {dc:.4f} / {dp:.4f}")
+        require(r.preservation_violation < PRESERVATION_TOL,
+                f"regions {pol.name}: preservation")
+    wall, busy = device_busy(torch, lambda: solve(bare, CR1(lam=1.45)))
+    log(f"[regions] cr1 fused under torch.profiler: wall {wall * 1e3:.3f} "
+        f"ms, device busy {busy * 1e3:.3f} ms, idle share "
+        f"{1.0 - busy / wall:.4f}")
+
+    # R = 1 is the single-region path, bit for bit, at W = 10,000.
+    one = regional_fleet([p_single], np.asarray(p_single.mci)[None])
+    for pol in (CR1(lam=1.45), CR2(cap_frac=0.78)):
+        a, b = solve(p_single, pol), solve(one, pol)
+        require(np.array_equal(a.D, b.D)
+                and a.carbon_reduction_pct == b.carbon_reduction_pct
+                and a.total_penalty_pct == b.total_penalty_pct,
+                f"regions: R = 1 {pol.name} is not the single-region solve")
+    log(f"[regions] R = 1 at W = {p_single.W}: CR1 and CR2 bitwise equal to "
+        f"the single-region solves")
+
+    # A CR1 sweep: the lanes' per-row norms and carbon rows, one launch per
+    # 8 steps for all lanes.
+    pols = [CR1(lam=lam) for lam in REGION_LAMS]
+    lanes, lw = counted(f"CR1 sweep over lam {REGION_LAMS}",
+                        lambda: sweep(bare, pols), cr1_want)
+    loop, loopw = _timed(torch, lambda: [solve(bare, pl) for pl in pols])
+    gaps = [max(_pp_gaps(a, b)) for a, b in zip(lanes, loop)]
+    log(f"[regions] sweep {lw:.4f} s, its loop {loopw:.4f} s; lane - loop "
+        f"max {max(gaps):.2e} pp (limit {LANE_PP})")
+    require(max(gaps) < LANE_PP, f"regions sweep vs loop {max(gaps):.4f}")
+
+    # CR3: a market per region.
+    steps, outer = CR3.default_steps, CR3.outer
+    solve(bare, CR3(), ctx=SolveContext(steps=2))         # warm-up
+    r3, _ = counted(f"CR3 at {steps} x {outer} steps a round",
+                    lambda: solve(bare, CR3()),
+                    lambda r: expected_cr3_launches(
+                        steps, outer, _cr3_rounds(r, steps, outer)))
+    log(f"[regions] CR3: rounds {_cr3_rounds(r3, steps, outer)}, rho "
+        f"{np.array2string(r3.extras['rho'], precision=6)}, balanced "
+        f"{r3.balanced}, {report('CR3', r3)}")
+    require(r3.preservation_violation < PRESERVATION_TOL,
+            "regions CR3 preservation")
+    short = SolveContext(steps=CR3_REGION_STEPS)
+    k3, _ = counted(f"CR3 at {CR3_REGION_STEPS} x {outer} steps a round",
+                    lambda: solve(bare, CR3(), ctx=short),
+                    lambda r: expected_cr3_launches(
+                        CR3_REGION_STEPS, outer,
+                        _cr3_rounds(r, CR3_REGION_STEPS, outer)))
+    g3, g3w = _timed(torch, lambda: solve(bare, CR3(), ctx=dataclasses.replace(
+        short, use_kernel=False)))
+    drho = np.abs(k3.extras["rho"] / g3.extras["rho"] - 1.0)
+    log(f"[regions] CR3 {CR3_REGION_STEPS} steps: kernels rounds "
+        f"{_cr3_rounds(k3, CR3_REGION_STEPS, outer)}, rho "
+        f"{np.array2string(k3.extras['rho'], precision=6)}; plain rounds "
+        f"{_cr3_rounds(g3, CR3_REGION_STEPS, outer)}, wall {g3w:.4f} s; rho "
+        f"kernels - plain {drho.max():.2e} relative (limit {CR3_RHO_RTOL})")
+    require(k3.iters == g3.iters and k3.balanced == g3.balanced,
+            "regions CR3 kernels vs plain: rounds or balance")
+    require(float(drho.max()) < CR3_RHO_RTOL, "regions CR3 rho")
+
+    # Migration: the post-stage, then the coupled refinement, for CR1.
+    post, _ = counted("CR1 with the migration post-stage",
+                      lambda: solve(p, CR1(lam=1.45)), cr1_want)
+    plan = post.extras["migration"]
+    require(np.array_equal(post.D, fused["cr1"].D),
+            "regions: the post-stage changed the plan")
+    _plan_feasible(np, p, post.D, plan, "post-stage plan")
+    coup, _ = counted(
+        "CR1 with coupled migration (4 x 600 generic steps)",
+        lambda: solve(p, CR1(lam=1.45), ctx=SolveContext(
+            coupled_migration=True)),
+        {"al_step": 600 // 8, "dr_features": 1 + 4 * 600 + 1})
+    tot_post, tot_coup = float(post.D.sum()), float(coup.D.sum())
+    log(f"[regions] post-stage: moved {plan.moved_total:.6g} NP·h, net "
+        f"credit {100.0 * plan.net_saved / carbon:.4f} % of carbon, CR1 "
+        f"{post.carbon_reduction_pct:.4f} %; coupled: kept "
+        f"{bool(coup.extras.get('coupled_migration'))}, CR1 "
+        f"{coup.carbon_reduction_pct:.4f} %, net credit "
+        f"{100.0 * coup.extras['migration'].net_saved / carbon:.4f} %, "
+        f"curtailment {tot_coup:.6g} against {tot_post:.6g}")
+    require(coup.carbon_reduction_pct >= post.carbon_reduction_pct,
+            "regions: coupled migration below the post-stage")
+    require(abs(tot_coup - tot_post) <= 2e-3 * max(abs(tot_post), 1.0),
+            "regions: coupled migration moved total curtailment")
+    if coup.extras.get("coupled_migration"):
+        _plan_feasible(np, p, coup.D, coup.extras["migration"],
+                       "coupled plan")
+
+    # Each region priced on its own trace against the best single signal,
+    # at equal total curtailment (a plan scaled down stays feasible).
+    best = []
+    for r in range(p.R):
+        single = dataclasses.replace(p, mci=np.asarray(p.mci)[r],
+                                     region=None, topology=None)
+        rs = solve(single, CR1(lam=1.45))
+        scale = tot_post / max(float(rs.D.sum()), 1e-12)
+        best.append((100.0 * float((rs.D * wmci).sum()) / carbon * scale,
+                     scale))
+    log(f"[regions] CR1 carbon at equal curtailment: per-region pricing + "
+        f"migration {post.carbon_reduction_pct:.4f} %; one signal for the "
+        f"fleet, that of " + ", ".join(
+            f"{s} {b:.4f} % (plan scaled by {k:.4f})"
+            for s, (b, k) in zip(REGION_STATES, best))
+        + f"; margin over the best "
+        f"{post.carbon_reduction_pct - max(b for b, _ in best):.4f} pp")
+    log(f"[regions] phase wall {time.perf_counter() - t_phase:.2f} s")
     return totals
 
 
@@ -1562,6 +1843,8 @@ def main() -> int:
     for name, n in phase_lanes(np, torch, *fleets).items():
         launches[name] += n
     for name, n in phase_policies(np, torch, fleets[0]).items():
+        launches[name] += n
+    for name, n in phase_regions(np, torch, fleets[0]).items():
         launches[name] += n
     for path in SERVE_PATHS:
         for name, n in phase_serve(np, torch, *path).items():

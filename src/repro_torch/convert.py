@@ -18,16 +18,24 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import EngineState
-from repro_torch.core.fleet_solver import DATA_FIELDS, FleetProblem
+from repro_torch.core.fleet_solver import (DATA_FIELDS, FleetProblem,
+                                           RegionTopology)
 from repro_torch.core.penalty import PenaltyModel
 from repro_torch.kernels.dispatch import resolve_device
 
 
 def fleet_problem_from_arrays(*, topology=None, **fields) -> FleetProblem:
-    """A port `FleetProblem` from the reference's data and meta fields.
-    A migration `topology` is not ported yet and must be None."""
+    """A port `FleetProblem` from the reference's data and meta fields; a
+    migration `topology` (the reference's, or anything with its cost,
+    bandwidth, ceiling and labels) becomes the port's `RegionTopology`."""
     if topology is not None:
-        raise NotImplementedError("migration topologies are not ported yet")
+        ceil = topology.ceiling
+        fields["topology"] = RegionTopology(
+            cost=np.asarray(topology.cost, float).copy(),
+            bandwidth=np.asarray(topology.bandwidth, float).copy(),
+            ceiling=None if ceil is None else np.asarray(ceil, float).copy(),
+            labels=None if topology.labels is None
+            else tuple(topology.labels))
     for name in DATA_FIELDS:
         if fields.get(name) is not None:
             fields[name] = np.asarray(fields[name]).copy()

@@ -45,9 +45,18 @@ step), and the coordinator's Eq.-6 fiscal clearing between rounds on
 the host. B1 and B3 are closed forms scored once through
 `fleet_penalties`.
 
-Ported so far: CR1, CR2, CR3, B1 and B3 on single-region fleets; CR1
-and CR2 days, sweeps and ensembles. Meshes, multi-region CR3 and
-migration are not.
+Multi-region fleets (`mci` (R, T), a region per row) solve through
+`solve` and `sweep` under every policy: each region is priced on its own
+trace and normalized on its own reductions (`core/regional.py`), folded
+into operands the `al_step` kernel already reads (a carbon row per fleet
+row, a step multiplier per row), so the kernel stays region-blind. CR3
+clears one Eq.-6 market per region. A topology adds the migration
+post-stage (`core/migration.py`), or with `SolveContext.coupled_migration`
+the joint (curtailment, flow) refinement. R = 1 is canonicalized to the
+single-region path, bit for bit.
+
+Not ported: meshes (ROADMAP queue 1, item 11); multi-region days,
+streams, ensembles and warm refinement sweeps (item 9b).
 """
 from __future__ import annotations
 
@@ -70,7 +79,8 @@ from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, CR3_MU0,
                                            cr2_reference_tensor, device_view,
                                            fleet_penalties,
                                            single_region_view)
-from repro_torch.core.regional import cr1_norms, cr2_norms
+from repro_torch.core.regional import (cr1_norms, cr2_norms, cr3_reg_scale,
+                                       region_totals, segment_sum)
 from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
 
 Tensor = torch.Tensor
@@ -110,6 +120,16 @@ class SolveContext:
         either way.
       mesh: the JAX package's device mesh; not ported yet (ROADMAP
         queue 1, item 11), every entry point refuses it.
+      coupled_migration: move cross-region migration into the solve.
+        After the base (per-region) solve, curtailment and interconnect
+        flows refine jointly under the same engine (per-link caps in the
+        projection, tolls in the objective, supply and ceiling limits as
+        inequality residuals, total curtailment pinned to the base plan),
+        then the flows take `core.migration`'s exact repair. The refined
+        plan is kept only at equal total curtailment and when it beats
+        the post-stage on fleet-wide carbon, so it never loses carbon.
+        CR1/CR2 on multi-region fleets; everything else takes the
+        post-stage.
     """
     device: str | torch.device | None = None
     shift: int = 0
@@ -120,6 +140,7 @@ class SolveContext:
     moment_dtype: str = "float32"
     donate: bool = False
     mesh: Any = None
+    coupled_migration: bool = False
 
     def resolved_steps(self, policy: "DRPolicy") -> int:
         return self.steps if self.steps is not None else policy.default_steps
@@ -201,7 +222,9 @@ def solve(problem: FleetProblem, policy, *,
                         f"{type(problem).__name__}")
     refuse_mesh(ctx)
     problem = single_region_view(problem)
-    return resolve_policy(policy).solve(problem, ctx or SolveContext())
+    ctx = ctx or SolveContext()
+    policy = resolve_policy(policy)
+    return _migrate(problem, policy, policy.solve(problem, ctx), ctx)
 
 
 def sweep(problem: FleetProblem, policies: Sequence, *,
@@ -219,15 +242,29 @@ def sweep(problem: FleetProblem, policies: Sequence, *,
     dropped for more than one policy). A *stacked* warm state (leading
     axis len(policies), `stack_states([r.state for r in results])`)
     warm-starts each lane from its own slice: a refinement sweep of a
-    Pareto front at a fraction of the cold budget."""
+    Pareto front at a fraction of the cold budget (single-region fleets;
+    multi-region ones refuse it, ROADMAP queue 1, item 9b). A topology's
+    migration stage follows each solve, as in `solve`."""
     ctx = ctx or SolveContext()
     refuse_mesh(ctx)
     problem = single_region_view(problem)
     pols = [resolve_policy(pl) for pl in policies]
+    return [_migrate(problem, pl, r, ctx)
+            for pl, r in zip(pols, _sweep(problem, pols, ctx))]
+
+
+def _sweep(problem: FleetProblem, pols: list,
+           ctx: SolveContext) -> list[FleetSolveResult]:
+    """`sweep`'s solves, before the migration stage."""
     if not pols:
         return []
     fam = type(pols[0])
     stacked = _stacked_warm(ctx.warm, len(pols))
+    if stacked and problem.is_multiregion:
+        raise NotImplementedError(
+            "a warm refinement sweep from stack_states of a multi-region "
+            "fleet is not ported yet (ROADMAP queue 1, item 9b: multi-region "
+            "streaming and lanes)")
     warm_ok = ctx.warm is None or (stacked and fam in (CR1, CR2))
     batched = (all(type(pl) is fam for pl in pols)
                and fam in (CR1, CR2, CR3) and fam._sweep_uniform(pols)
@@ -329,20 +366,29 @@ def _cr1_lanes(p: FleetProblem, views, lams: Tensor, state0: EngineState,
     state0 = _enter_tick(state0, shift, reset_mu, CR1_MU0)
     pen_norm, car_norm, step_scale = lane_norms(cr1_norms,
                                                 [(v,) for v in views])
-    coef0 = lams * pen_norm
     lo, hi = _bounds(p)
     cfg = _cr1_cfg(steps, moment_dtype)
+    if p.region is not None:
+        # Per-row norms (N, W), step scales (N, W, 1).
+        coef0, step = lams[:, None] * pen_norm, step_scale
+        wmci = p.mci[p.region]
 
-    def objective(D: Tensor, _) -> Tensor:
-        return ((coef0[:, None] * fleet_penalties(p, D, use_kernel)).sum()
-                - (car_norm[:, None] * _plan_carbon(D, p.mci)).sum())
+        def objective(D: Tensor, _) -> Tensor:
+            return ((coef0 * fleet_penalties(p, D, use_kernel)).sum()
+                    - (car_norm[..., None] * D * wmci).sum())
+    else:
+        coef0, step = lams * pen_norm, step_scale[:, None, None]
+
+        def objective(D: Tensor, _) -> Tensor:
+            return ((coef0[:, None] * fleet_penalties(p, D, use_kernel)).sum()
+                    - (car_norm[:, None] * _plan_carbon(D, p.mci)).sum())
 
     fused = _al_fused_inner(p, "cr1", cfg, car_norm=car_norm,
                             step_scale=step_scale,
                             coef0=coef0) if use_kernel else None
     D, aux = al_minimize(objective, _projection(p, lo, hi), state0.x,
-                         step_scale=step_scale[:, None, None], init=state0,
-                         cfg=cfg, fused_inner=fused)
+                         step_scale=step, init=state0, cfg=cfg,
+                         fused_inner=fused)
     with torch.no_grad():
         return D, fleet_penalties(p, D, use_kernel), aux["state"]
 
@@ -358,19 +404,28 @@ def _cr2_lanes(p: FleetProblem, views, refs: Sequence[Tensor],
     R = torch.stack(list(refs))
     lo, hi = _bounds(p)
     cfg = _cr2_cfg(steps, outer, moment_dtype)
+    if p.region is not None:
+        # Per-row norms (N, W), step scales (N, W, 1).
+        lane_scale, step = scale, step_scale
+        wmci = p.mci[p.region]
 
-    def objective(D: Tensor, _) -> Tensor:
-        return -(car_norm[:, None] * _plan_carbon(D, p.mci)).sum()
+        def objective(D: Tensor, _) -> Tensor:
+            return -(car_norm[..., None] * D * wmci).sum()
+    else:
+        lane_scale, step = scale[:, None], step_scale[:, None, None]
+
+        def objective(D: Tensor, _) -> Tensor:
+            return -(car_norm[:, None] * _plan_carbon(D, p.mci)).sum()
 
     def eq(D: Tensor, _) -> Tensor:
-        return (fleet_penalties(p, D, use_kernel) - R) / scale[:, None]
+        return (fleet_penalties(p, D, use_kernel) - R) / lane_scale
 
     fused = _al_fused_inner(p, "cr2", cfg, car_norm=car_norm,
                             step_scale=step_scale, scale=scale,
                             refs=R) if use_kernel else None
     D, aux = al_minimize(objective, _projection(p, lo, hi), state0.x,
-                         eq_residual=eq, step_scale=step_scale[:, None, None],
-                         init=state0, cfg=cfg, fused_inner=fused)
+                         eq_residual=eq, step_scale=step, init=state0,
+                         cfg=cfg, fused_inner=fused)
     with torch.no_grad():
         return D, fleet_penalties(p, D, use_kernel), aux["state"]
 
@@ -394,14 +449,31 @@ def _al_fused_inner(p: FleetProblem, mode: str, cfg: EngineConfig, *,
     return the chunked dispatcher (`kernels.al_step.ops.make_fused_inner`)
     as the engine's `fused_inner` hook. `p` is a device view. For N
     lanes the normalizers, coef0 and scale are (N,) tensors and refs
-    (N, W), and each lane gets its own carbon row (N, 1, T)."""
+    (N, W), and each lane gets its own carbon row (N, 1, T).
+
+    A multi-region view hands over per-row norms ((W,), or (N, W) with
+    lanes) and folds them into operands the kernel already reads, as the
+    JAX package does, so the kernel stays region-blind: the carbon term
+    becomes a row per fleet row, `-car_w · mci[region]` (W, T); CR1's
+    per-row weight `coef0 = lam · pen_w` folds into `k` (the gradient is
+    linear in k) with coef0 = 1; CR2's residual scale folds `1/scale_w`
+    into `k` and `refs` (h and coef·dpen are unchanged) with scale = 1;
+    the per-row step scale rides rowp column 11."""
     from repro_torch.kernels.al_step.ops import make_fused_inner, pack_rows
     lo, hi = _bounds(p)
-    if car_norm.dim() == 0:
+    k = p.k
+    if p.region is not None:
+        cvec = -car_norm[..., None] * p.mci[p.region]
+        if mode == "cr1":
+            k, coef0 = k * coef0, 1.0
+        else:
+            inv_w = 1.0 / scale
+            k, refs, scale = k * inv_w, refs * inv_w, 1.0
+    elif car_norm.dim() == 0:
         cvec = (-car_norm * p.mci)[None, :]
     else:
         cvec = (-car_norm[:, None] * p.mci)[:, None, :]
-    row_base = pack_rows(p.rts_coeffs, p.betas, p.k, p.x2_kind, p.is_batch,
+    row_base = pack_rows(p.rts_coeffs, p.betas, k, p.x2_kind, p.is_batch,
                          refs=refs)
     return make_fused_inner(p.usage, p.jobs, lo, hi, row_base, cvec,
                             mode=mode, cfg=cfg, step_scale=step_scale,
@@ -414,10 +486,17 @@ def _al_fused_inner(p: FleetProblem, mode: str, cfg: EngineConfig, *,
 def _cr1_pieces(p: FleetProblem, use_kernel: bool, norms):
     lo, hi = _bounds(p)
     pen_norm, car_norm, step_scale = norms
+    if p.region is not None:
+        wmci = p.mci[p.region]
 
-    def objective(D: Tensor, lam) -> Tensor:
-        return (lam * pen_norm * fleet_penalties(p, D, use_kernel).sum()
-                - car_norm * (D @ p.mci).sum())
+        def objective(D: Tensor, lam) -> Tensor:
+            return ((lam * pen_norm
+                     * fleet_penalties(p, D, use_kernel)).sum()
+                    - (car_norm[:, None] * D * wmci).sum())
+    else:
+        def objective(D: Tensor, lam) -> Tensor:
+            return (lam * pen_norm * fleet_penalties(p, D, use_kernel).sum()
+                    - car_norm * (D @ p.mci).sum())
 
     return objective, _projection(p, lo, hi), step_scale
 
@@ -498,9 +577,14 @@ class CR1:
 def _cr2_pieces(p: FleetProblem, refs: Tensor, use_kernel: bool, norms):
     lo, hi = _bounds(p)
     car_norm, scale, step_scale = norms
+    if p.region is not None:
+        wmci = p.mci[p.region]
 
-    def objective(D: Tensor, _) -> Tensor:
-        return -car_norm * (D @ p.mci).sum()
+        def objective(D: Tensor, _) -> Tensor:
+            return -(car_norm[:, None] * D * wmci).sum()
+    else:
+        def objective(D: Tensor, _) -> Tensor:
+            return -car_norm * (D @ p.mci).sum()
 
     def eq(D: Tensor, _) -> Tensor:
         return (fleet_penalties(p, D, use_kernel) - refs) / scale
@@ -599,12 +683,15 @@ def _lane_col(v, D: Tensor):
     return v
 
 
-def _cr3_pieces(p: FleetProblem, use_kernel: bool, reg_scale: float):
+def _cr3_pieces(p: FleetProblem, use_kernel: bool, reg_scale):
     """Best-response pieces for the whole fleet (`p` a device view).
 
     Everything here is row-separable; `reg_scale` is the regularizer
-    normalizer 1e-3/(W·T). Numerics, as the JAX package validates them
-    against the per-workload SLSQP reference:
+    normalizer 1e-3/(W·T). On a multi-region view it is the per-row
+    (W, 1) tensor 1e-3/(W_region·T) and rho an (R,) tensor, so each
+    region's market is its standalone single-region market. Numerics,
+    as the JAX package validates them against the per-workload SLSQP
+    reference:
       * a tiny quadratic regularizer: a selfish workload takes the
         minimal adjustment satisfying its allowance (without it any deep
         feasible point is an equally optimal best response with wildly
@@ -619,16 +706,29 @@ def _cr3_pieces(p: FleetProblem, use_kernel: bool, reg_scale: float):
     lo, hi = _bounds(p)
     usage, E, mci = p.usage, p.entitlement, p.mci
     tau = 0.02 * E
+    if p.region is not None:
+        region, wmci = p.region, mci[p.region]
 
-    def objective(D: Tensor, hyper) -> Tensor:
-        reg = reg_scale * ((D / E[:, None]) ** 2).sum()
-        return (fleet_penalties(p, D, use_kernel) / E).sum() + reg
+        def objective(D: Tensor, hyper) -> Tensor:
+            reg = (reg_scale * (D / E[:, None]) ** 2).sum()
+            return (fleet_penalties(p, D, use_kernel) / E).sum() + reg
 
-    def ineq(D: Tensor, hyper) -> Tensor:
-        rho_, tax_ = (_lane_col(h, D) for h in hyper)
-        rebate = rho_ * (D @ mci)
-        peak = tau * torch.logsumexp((usage - D) / tau[:, None], dim=-1)
-        return ((1.0 - tax_) * E + rebate - peak) / E
+        def ineq(D: Tensor, hyper) -> Tensor:
+            rho_, tax_ = hyper
+            rebate = rho_[region] * (D * wmci).sum(-1)
+            peak = tau * torch.logsumexp((usage - D) / tau[:, None], dim=-1)
+            return ((1.0 - tax_) * E + rebate - peak) / E
+    else:
+        def objective(D: Tensor, hyper) -> Tensor:
+            reg = reg_scale * ((D / E[:, None]) ** 2).sum()
+            return (fleet_penalties(p, D, use_kernel) / E).sum() + reg
+
+        def ineq(D: Tensor, hyper) -> Tensor:
+            rho_, tax_ = (_lane_col(h, D) for h in hyper)
+            rebate = rho_ * (D @ mci)
+            peak = tau * torch.logsumexp((usage - D) / tau[:, None],
+                                         dim=-1)
+            return ((1.0 - tax_) * E + rebate - peak) / E
 
     W, T = usage.shape[-2:]
     day_hours = min(p.day_hours, T)   # as `project_days`
@@ -708,8 +808,8 @@ class CR3:
     `result.extras` carries `balanced=False` and the remaining
     `fiscal_deficit` (rebates − taxes, NP·kgCO2/MWh), and a
     `RuntimeWarning` is emitted: `extras["rho"]` is then not
-    market-clearing. Multi-region clearing (a price per region) is not
-    ported yet (ROADMAP queue 1, item 9)."""
+    market-clearing. A multi-region fleet clears one market per region
+    (`_solve_multiregion`; `extras["rho"]` is then (R,))."""
 
     rho: float = 0.02
     tax_frac: float = 0.2
@@ -723,6 +823,8 @@ class CR3:
     def solve(self, p: FleetProblem,
               ctx: SolveContext = SolveContext()) -> FleetSolveResult:
         p = single_region_view(p)
+        if p.is_multiregion:
+            return self._solve_multiregion(p, ctx)
         device = resolve_device(ctx.device)
         use_kernel = resolve_use_kernel(ctx.use_kernel, device)
         steps = ctx.resolved_steps(self)
@@ -762,6 +864,72 @@ class CR3:
                        extras={"rho": rho_cur, "balanced": balanced,
                                "fiscal_deficit": deficit})
 
+    def _solve_multiregion(self, p: FleetProblem,
+                           ctx: SolveContext) -> FleetSolveResult:
+        """Per-region fiscal clearing: each region runs its own Eq.-6
+        market (its taxes cover its rebates at its own price rho_r), so
+        `extras["rho"]` is (R,). Every round re-solves the whole fleet in
+        one engine run, but the rows of regions that have cleared keep
+        their frozen plan, penalties, iterate and allowance multipliers:
+        each region follows its standalone single-region trajectory."""
+        device = resolve_device(ctx.device)
+        use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+        steps = ctx.resolved_steps(self)
+        region, R = np.asarray(p.region), p.R
+        wmci = np.asarray(p.mci)[region]
+        collected = self.tax_frac * region_totals(region, p.entitlement, R)
+        rho_cur = np.full(R, float(self.rho))
+        pv = device_view(p, device)
+        reg_scale = cr3_reg_scale(pv)
+        state = ctx.warm or EngineState.cold(_cold_x(p, device), n_in=p.W,
+                                             mu0=CR3_MU0)
+
+        def best_response(st, shift_, reset_):
+            rho_t = torch.tensor(rho_cur, dtype=f32, device=device)
+            D, pens, st = _cr3_impl(pv, rho_t, self.tax_frac, reg_scale, st,
+                                    steps, self.outer, use_kernel, shift_,
+                                    reset_)
+            return D.cpu().numpy(), pens.cpu().numpy(), st
+
+        def paid_of(D):
+            return rho_cur * region_totals(region, (D * wmci).sum(1), R)
+
+        D, pens, state = best_response(state, ctx.shift, ctx.reset_mu)
+        rounds = 1
+        paid = paid_of(D)
+        for _ in range(self.clearing_iters):
+            active = paid > collected + 1e-9
+            if not active.any():
+                break
+            rho_cur = np.where(active, _next_rho(rho_cur, paid, collected),
+                               rho_cur)
+            Dn, pens_n, new = best_response(state, 0, True)
+            row = active[region]
+            D = np.where(row[:, None], Dn, D)
+            pens = np.where(row, pens_n, pens)
+            # mu restarts every round; CR3 has no equality multipliers, so
+            # only x and the allowance multipliers freeze per row.
+            mask = torch.as_tensor(row, device=device)
+            state = EngineState(
+                x=torch.where(mask[:, None], new.x, state.x),
+                lam_eq=new.lam_eq,
+                lam_in=torch.where(mask, new.lam_in, state.lam_in),
+                mu=new.mu)
+            rounds += 1
+            paid = paid_of(D)
+        balanced = paid <= collected + 1e-9
+        deficit = np.where(balanced, 0.0, paid - collected)
+        if not balanced.all():
+            worst = int(np.argmax(deficit))
+            _cr3_unbalanced_warn(self.clearing_iters, float(deficit.sum()),
+                                 float(rho_cur[worst]),
+                                 "CR3.solve (multi-region)")
+        return _report(p, D, pens, iters=steps * self.outer * rounds,
+                       state=state,
+                       extras={"rho": rho_cur,
+                               "balanced": bool(balanced.all()),
+                               "fiscal_deficit": float(deficit.sum())})
+
     # -- the sweep lane -----------------------------------------------------
     @classmethod
     def _sweep_uniform(cls, policies: Sequence["CR3"]) -> bool:
@@ -772,6 +940,10 @@ class CR3:
     @classmethod
     def _sweep_family(cls, p: FleetProblem, policies: Sequence["CR3"],
                       ctx: SolveContext) -> list[FleetSolveResult]:
+        if p.is_multiregion:
+            # Multi-region clearing tracks an (R,) price per lane: solve
+            # per policy, as the JAX package does.
+            return [pl.solve(p, ctx) for pl in policies]
         device = resolve_device(ctx.device)
         use_kernel = resolve_use_kernel(ctx.use_kernel, device)
         steps = ctx.resolved_steps(cls)
@@ -901,6 +1073,184 @@ class B3:
 
 
 # ---------------------------------------------------------------------------
+# Migration stages of a multi-region fleet (`core/migration.py`)
+# ---------------------------------------------------------------------------
+def _migrate(p: FleetProblem, policy, res: FleetSolveResult,
+             ctx: SolveContext) -> FleetSolveResult:
+    """The migration stage after a solve: the coupled refinement when
+    `ctx.coupled_migration` asks for it, else the post-stage."""
+    if ctx.coupled_migration:
+        return _coupled_migrate(p, policy, res, ctx)
+    return _maybe_migrate(p, res, ctx)
+
+
+def _credit(p: FleetProblem, res: FleetSolveResult, plan,
+            **extras) -> FleetSolveResult:
+    """`res` with the plan's net saving credited into its carbon reduction
+    and the plan in `extras["migration"]`."""
+    wmci = np.asarray(p.mci)[np.asarray(p.region)]
+    carbon_base = float((np.asarray(p.usage) * wmci).sum())
+    return dataclasses.replace(
+        res, carbon_reduction_pct=res.carbon_reduction_pct
+        + 100.0 * plan.net_saved / carbon_base,
+        extras={**res.extras, "migration": plan, **extras})
+
+
+def _maybe_migrate(p: FleetProblem, res: FleetSolveResult,
+                   ctx: SolveContext) -> FleetSolveResult:
+    """The post-stage (`migration.fleet_migration`): on a multi-region
+    fleet whose topology has a positive bandwidth, move batch load along
+    the network and credit the net carbon saved. The committed plan D is
+    unchanged, so total curtailment and every penalty stay as solved."""
+    if (p.topology is None or not p.is_multiregion
+            or not np.any(np.asarray(p.topology.bandwidth) > 0.0)):
+        return res
+    from repro_torch.core.migration import fleet_migration
+    return _credit(p, res, fleet_migration(p, np.asarray(res.D),
+                                           device=ctx.device))
+
+
+def _coupled_impl(p: FleetProblem, D0: Tensor, hyper, refs, fr: Tensor,
+                  to: Tensor, bw: Tensor, cost: Tensor, ceil: Tensor, *,
+                  mode: str, steps: int, outer: int, use_kernel: bool,
+                  has_ceiling: bool):
+    """The joint (curtailment, interconnect flow) refinement on the device
+    view `p`. The primal is z = [D (W, T); y (L, T)] over the L links of
+    positive bandwidth; one engine run minimizes the policy objective on
+    D less the normalized, toll-adjusted value of the flows, with link
+    caps in the projection, per-region supply (batch load left running
+    >= outflow) and ceiling (headroom >= inflow) as inequality residuals,
+    and the total curtailment pinned to the base plan D0 as an equality
+    residual (CR2 keeps its per-row fairness equalities beside it). The
+    region sums couple rows, so this is the generic engine (the penalties
+    through `dr_features` on the card). Returns (D, y, penalties),
+    eps-feasible; the caller repairs y exactly."""
+    W, T = p.usage.shape
+    L = bw.shape[0]
+    mci, region, usage = p.mci, p.region, p.usage
+    R = mci.shape[0]
+    isb = p.is_batch[:, None]
+    zero = torch.zeros((), dtype=f32, device=usage.device)
+    margin = mci[fr] - mci[to] - cost[:, None]            # (L, T)
+    flow_norm = 100.0 / (usage * mci[region]).sum()
+    if mode == "cr1":
+        obj_D, project_D, step_D = _cr1_pieces(p, use_kernel, cr1_norms(p))
+        eq_D = None
+    else:
+        obj_D, eq_D, project_D, step_D = _cr2_pieces(
+            p, refs, use_kernel, cr2_norms(p, refs))
+
+    def movable_of(D):
+        return segment_sum(torch.where(isb, torch.maximum(usage - D, zero),
+                                       zero), region, R)
+
+    sscale = torch.clamp(movable_of(D0).max(), min=1.0)
+    curt_scale = torch.clamp(D0.abs().sum(), min=1.0)
+    D0_sum = D0.sum()
+    bwcol = bw[:, None]
+
+    def objective(z: Tensor, hyp) -> Tensor:
+        return obj_D(z[:W], hyp) - flow_norm * (z[W:] * margin).sum()
+
+    def project(z: Tensor) -> Tensor:
+        return torch.cat([project_D(z[:W]),
+                          torch.minimum(torch.clamp(z[W:], min=0.0), bwcol)])
+
+    def eq(z: Tensor, hyp) -> Tensor:
+        curt = ((z[:W].sum() - D0_sum) / curt_scale)[None]
+        return curt if eq_D is None else torch.cat([eq_D(z[:W], hyp), curt])
+
+    def ineq(z: Tensor, hyp) -> Tensor:
+        D, y = z[:W], z[W:]
+        res = ((movable_of(D) - segment_sum(y, fr, R)) / sscale).reshape(-1)
+        if has_ceiling:
+            load = segment_sum(usage - D, region, R)
+            inflow = segment_sum(y, to, R)
+            res = torch.cat([res, ((ceil - load - inflow)
+                                   / sscale).reshape(-1)])
+        return res
+
+    step = torch.cat([torch.as_tensor(step_D, dtype=f32,
+                                      device=usage.device).expand(W, 1),
+                      (0.1 * sscale).expand(L, 1)])
+    cfg = EngineConfig(inner_steps=steps, outer_steps=outer, mu0=10.0,
+                       mu_growth=3.0)
+    z0 = torch.cat([D0, torch.zeros((L, T), dtype=f32, device=usage.device)])
+    z, _ = al_minimize(objective, project, z0, hyper=hyper, eq_residual=eq,
+                       ineq_residual=ineq, step_scale=step, cfg=cfg)
+    with torch.no_grad():
+        return z[:W], z[W:], fleet_penalties(p, z[:W], use_kernel)
+
+
+def _coupled_migrate(p: FleetProblem, policy, res: FleetSolveResult,
+                     ctx: SolveContext) -> FleetSolveResult:
+    """In-loop coupled migration (`SolveContext.coupled_migration`):
+    refine (D, flows) jointly from the base solve's plan, repair the flows
+    exactly, and keep the refined plan only when it preserves total
+    curtailment (1e-3 relative) and beats the post-stage on fleet-wide
+    carbon; otherwise the post-stage result is returned."""
+    from repro_torch.core.migration import (MigrationPlan, _repair,
+                                            positive_links,
+                                            region_aggregates)
+    if (p.topology is None or not p.is_multiregion
+            or type(policy) not in (CR1, CR2)):
+        return _maybe_migrate(p, res, ctx)
+    fr, to, bw, cost = positive_links(p.topology)
+    if fr.size == 0:
+        return _maybe_migrate(p, res, ctx)
+    post = _maybe_migrate(p, res, ctx)
+    device = resolve_device(ctx.device)
+    use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+    steps = ctx.resolved_steps(policy)
+    R, T = p.R, p.T
+    mci = np.asarray(p.mci, float)
+    ceiling = p.topology.ceiling
+    ceil = (np.zeros((R, T)) if ceiling is None else np.broadcast_to(
+        np.asarray(ceiling, float).reshape(R, -1), (R, T)))
+    if type(policy) is CR1:
+        hyper, refs, mode, outer = policy.lam, None, "cr1", 4
+    else:
+        refs = torch.as_tensor(cr2_reference_fleet(p, policy.cap_frac,
+                                                   device), device=device)
+        hyper, mode, outer = None, "cr2", max(4, policy.outer)
+
+    def t(a, dtype=f32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    D0 = np.asarray(res.D, float)
+    D_f, y_l, pens = _coupled_impl(
+        device_view(p, device), t(D0), hyper, refs, t(fr, torch.int64),
+        t(to, torch.int64), t(bw), t(cost), t(ceil), mode=mode, steps=steps,
+        outer=outer, use_kernel=use_kernel, has_ceiling=ceiling is not None)
+    D_f = D_f.cpu().numpy().astype(float)
+    tot0 = float(D0.sum())
+    if abs(float(D_f.sum()) - tot0) > 1e-3 * max(abs(tot0), 1.0):
+        return post
+    # The exact repair against the refined plan's aggregates, the
+    # projection the post-stage validates with.
+    cost_f = np.asarray(p.topology.cost, float)
+    bw_f = np.asarray(p.topology.bandwidth, float).copy()
+    np.fill_diagonal(bw_f, 0.0)
+    cap = np.broadcast_to(bw_f[:, :, None], (R, R, T))
+    grad = mci[:, None, :] - mci[None, :, :]
+    movable, headroom = region_aggregates(p, D_f)
+    y = np.zeros((R, R, T))
+    y[fr, to] = y_l.cpu().numpy().astype(float)
+    y = _repair(y, grad - cost_f[:, :, None], cap, movable, headroom)
+    plan = MigrationPlan(
+        y=y, carbon_saved=float((y * grad).sum()),
+        migration_cost=float((y * cost_f[:, :, None]).sum()),
+        moved_total=float(y.sum()))
+    cand = _report(p, D_f, pens.cpu().numpy(),
+                   iters=res.iters + steps * outer, state=res.state,
+                   extras=dict(res.extras))
+    cand = _credit(p, cand, plan, coupled_migration=True)
+    if cand.carbon_reduction_pct <= post.carbon_reduction_pct:
+        return post
+    return cand
+
+
+# ---------------------------------------------------------------------------
 # A whole rolling-horizon day: one CUDA-graph replay on the card
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
@@ -957,6 +1307,10 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
                         f"{type(problem).__name__}")
     refuse_mesh(ctx)
     problem = single_region_view(problem)
+    if problem.is_multiregion:
+        raise NotImplementedError(
+            "solve_day of a multi-region fleet is not ported yet (ROADMAP "
+            "queue 1, item 9b: multi-region streaming and lanes)")
     stack = np.asarray(mci_stack, np.float32)
     if stack.ndim == 3 and stack.shape[1] == 1:
         stack = stack[:, 0]          # degenerate R = 1 stack, canonicalized

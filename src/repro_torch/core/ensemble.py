@@ -28,8 +28,7 @@ of `api.solve` within 0.01 pp on every scenario.
 
 Not ported yet, each refused by name: the device-mesh lanes (ROADMAP
 queue 1, item 11), multi-region stacks and per-region stream groups
-(item 9), and with them the migration credit (the port's fleets have no
-topology).
+(item 9b), and with them the migration credit.
 """
 from __future__ import annotations
 
@@ -311,6 +310,10 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
     ctx = ctx or SolveContext()
     refuse_mesh(ctx)
     problem = single_region_view(problem)
+    if problem.is_multiregion:
+        raise NotImplementedError(
+            "ensembles of a multi-region fleet are not ported yet (ROADMAP "
+            "queue 1, item 9b: multi-region streaming and lanes)")
     policy = resolve_policy(policy)
     stack = resolve_scenarios(scenarios, problem)
     can_batch = (_batched_capable(policy) and ctx.warm is None
@@ -448,11 +451,15 @@ def run_streaming_ensemble(problem: FleetProblem, policy, streams, *,
     `RollingHorizonSolver` loop over S streams at once. Policies without
     a batched lane fall back to S `RollingHorizonSolver` runs. Only hour
     0 of each plan commits. A stream per region (multi-region problems)
-    is not ported yet (ROADMAP queue 1, item 9)."""
+    is not ported yet (ROADMAP queue 1, item 9b)."""
     from repro_torch.core.scenario import ForecastRegime
     from repro_torch.core.streaming import RollingHorizonSolver
     policy = resolve_policy(policy)
     problem = single_region_view(problem)
+    if problem.is_multiregion:
+        raise NotImplementedError(
+            "streaming ensembles of a multi-region fleet are not ported yet "
+            "(ROADMAP queue 1, item 9b: multi-region streaming and lanes)")
     if isinstance(streams, ForecastRegime):
         streams = streams.streams(problem, n_ticks=n_ticks or 1)
     groups = []
@@ -461,7 +468,7 @@ def run_streaming_ensemble(problem: FleetProblem, policy, streams, *,
         if len(g) != 1:
             raise NotImplementedError(
                 "a stream per region is not ported yet (ROADMAP queue 1, "
-                "item 9: multi-region)")
+                "item 9b: multi-region streaming and lanes)")
         groups.append(g[0])
     if not groups:
         raise ValueError("run_streaming_ensemble needs >= 1 stream")

@@ -13,9 +13,11 @@ its float32 tensors once, on the chosen device (`device_view`); the
 functions here take either form and compute on the device of the tensors
 they are given (numpy fields count as the CPU).
 
-Only the single-region part is ported: a problem with a (R, T) carbon
-signal raises `NotImplementedError` at the solve (R = 1 is canonicalized
-to the single-region form first, as in the JAX package).
+Multi-region fleets stack per-region signals as `mci` (R, T) and give
+every workload a region id; `regional_fleet` composes one from R
+single-region fleets and `RegionTopology` adds the migration network
+(`core/migration.py`). R = 1 is canonicalized to the single-region form
+at the entry points (`single_region_view`), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,12 +43,57 @@ CR3_MU0 = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
+class RegionTopology:
+    """Cross-region migration network for a multi-region fleet.
+
+    All matrices are indexed [from_region, to_region]. `bandwidth` caps
+    how much deferrable load (NP) can move over a link per hour; zero
+    (the diagonal is ignored) disables the link, so `bandwidth=0`
+    everywhere reduces the fleet to independent per-region solves. `cost`
+    is the carbon toll per unit moved, subtracted from the migration
+    margin. `ceiling` is an optional per-region power cap (R,) or (R, T)
+    on what a region can absorb on top of its own load; None means
+    uncapped. Host numpy: the migration stages read it (`core/migration`),
+    the per-row solve never does.
+    """
+    cost: np.ndarray                    # (R, R)
+    bandwidth: np.ndarray               # (R, R)
+    ceiling: np.ndarray | None = None   # (R,) or (R, T)
+    labels: tuple[str, ...] | None = None
+
+    @property
+    def R(self) -> int:
+        return np.asarray(self.cost).shape[0]
+
+    def validate(self, R: int, T: int) -> None:
+        cost = np.asarray(self.cost)
+        bw = np.asarray(self.bandwidth)
+        if cost.shape != (R, R) or bw.shape != (R, R):
+            raise ValueError(
+                f"RegionTopology cost/bandwidth must be ({R}, {R}); got "
+                f"{cost.shape} / {bw.shape}")
+        if self.ceiling is not None:
+            ceil = np.asarray(self.ceiling)
+            if ceil.shape not in ((R,), (R, T)):
+                raise ValueError(
+                    f"RegionTopology ceiling must be ({R},) or ({R}, {T}); "
+                    f"got {ceil.shape}")
+        if self.labels is not None and len(self.labels) != R:
+            raise ValueError(
+                f"RegionTopology labels must have {R} entries; got "
+                f"{len(self.labels)}")
+
+
+@dataclasses.dataclass(frozen=True)
 class FleetProblem:
     """Stacked-workload DR instance.
 
-    Single-region fleets have `mci: (T,)` and `region is None`; a (R, T)
-    signal with per-workload `region` ids is a multi-region fleet, which
-    this port does not solve yet.
+    Single-region fleets have `mci: (T,)` and `region is None`.
+    Multi-region fleets stack per-region signals as `mci: (R, T)` and give
+    every workload a region via `region: (W,) int`; an optional `topology`
+    adds the cross-region migration network. A device view
+    (`device_view`) of a multi-region fleet is the one that carries
+    `region`.
     """
     usage: np.ndarray          # (W, T)
     entitlement: np.ndarray    # (W,)
@@ -63,7 +110,10 @@ class FleetProblem:
     # Optional (W, T) operational cap on curtailment, intersected with the
     # entitlement/usage box.
     upper: np.ndarray | None = None
+    # Multi-region fields: per-workload region ids (W,) in [0, R) and the
+    # optional migration network. None for single-region fleets.
     region: np.ndarray | None = None
+    topology: RegionTopology | None = None
 
     @property
     def W(self) -> int:
@@ -72,6 +122,11 @@ class FleetProblem:
     @property
     def T(self) -> int:
         return self.usage.shape[1]
+
+    @property
+    def R(self) -> int:
+        """Number of regions (1 for single-region problems)."""
+        return np.shape(self.mci)[0] if self.is_multiregion else 1
 
     @property
     def is_multiregion(self) -> bool:
@@ -136,7 +191,8 @@ DATA_FIELDS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
 
 def device_view(p: FleetProblem, device: torch.device) -> FleetProblem:
     """The same problem with float32 tensor fields on `device` (bool
-    `is_batch`, int64 `region`), made once per solve; `names` dropped."""
+    `is_batch`, int64 `region`, `mci` (T,) or (R, T)), made once per
+    solve; `names` dropped, the host `topology` kept."""
     def conv(name, a):
         if a is None:
             return None
@@ -148,15 +204,17 @@ def device_view(p: FleetProblem, device: torch.device) -> FleetProblem:
 
 
 def single_region_view(p: FleetProblem) -> FleetProblem:
-    """Canonicalize the degenerate R = 1 problem to the single-region form;
-    raise for R > 1, which this port does not solve yet."""
-    if not p.is_multiregion:
-        return p
-    if np.asarray(p.mci).shape[0] == 1:
-        return dataclasses.replace(p, mci=np.asarray(p.mci)[0], region=None)
-    raise NotImplementedError(
-        "multi-region fleets (mci (R, T), R > 1) are not ported yet "
-        "(ROADMAP queue 1, item 9: multi-region)")
+    """Canonicalize the degenerate R = 1 problem to the single-region form
+    (mci (T,), no region or topology), so that it takes the single-region
+    code path bit for bit; a (T,) problem drops stray region fields too.
+    Everything else passes through."""
+    if p.is_multiregion and np.asarray(p.mci).shape[0] == 1:
+        return dataclasses.replace(p, mci=np.asarray(p.mci)[0], region=None,
+                                   topology=None)
+    if not p.is_multiregion and (p.region is not None
+                                 or p.topology is not None):
+        return dataclasses.replace(p, region=None, topology=None)
+    return p
 
 
 def from_models(models: Sequence[PenaltyModel], mci: np.ndarray,
@@ -210,6 +268,86 @@ def synthetic_fleet(num: int, hours: int = 48, seed: int = 0,
             entitlement=base.entitlement * scale,
             jobs=None if base.jobs is None else base.jobs * scale))
     return from_models(models, caiso_2021(hours).mci)
+
+
+def regional_fleet(fleets: Sequence[FleetProblem], mcis: np.ndarray,
+                   topology: RegionTopology | None = None) -> FleetProblem:
+    """Concatenate R single-region fleets into one (region × workload)
+    fleet: `fleets[r]` supplies region r's workloads (its own `mci` is
+    ignored) and `mcis` is the (R, T) signal stack (e.g.
+    `carbon.regional_traces`). Rows stay region-sorted; names become
+    `label/name`; `upper` is filled with +inf where only some fleets have
+    one."""
+    mcis = np.asarray(mcis, float)
+    R = len(fleets)
+    if mcis.ndim != 2 or mcis.shape[0] != R:
+        raise ValueError(
+            f"mcis must be ({R}, T) — one trace per fleet; got {mcis.shape}")
+    T = mcis.shape[1]
+    if any(f.T != T for f in fleets):
+        raise ValueError("every regional fleet must share the trace length")
+    if any(f.is_multiregion for f in fleets):
+        raise ValueError("regional_fleet composes single-region fleets")
+    if topology is not None:
+        topology.validate(R, T)
+
+    def cat(field):
+        parts = [getattr(f, field) for f in fleets]
+        if any(a is None for a in parts):
+            if all(a is None for a in parts):
+                return None
+            parts = [np.asarray(a, float) if a is not None
+                     else np.full(f.usage.shape, np.inf)
+                     for f, a in zip(fleets, parts)]
+        return np.concatenate([np.asarray(a) for a in parts])
+
+    names = None
+    if all(f.names is not None for f in fleets):
+        labels = topology.labels if topology is not None \
+            and topology.labels is not None else tuple(range(R))
+        names = tuple(f"{labels[r]}/{n}"
+                      for r, f in enumerate(fleets) for n in f.names)
+    region = np.concatenate(
+        [np.full(f.W, r, np.int32) for r, f in enumerate(fleets)])
+    return FleetProblem(
+        usage=cat("usage"), entitlement=cat("entitlement"), k=cat("k"),
+        rts_coeffs=cat("rts_coeffs"), betas=cat("betas"),
+        x2_kind=cat("x2_kind"), jobs=cat("jobs"), is_batch=cat("is_batch"),
+        mci=mcis, day_hours=fleets[0].day_hours,
+        max_curtail_frac=fleets[0].max_curtail_frac, names=names,
+        upper=cat("upper"), region=region, topology=topology)
+
+
+def synthetic_regional_fleet(num: int, states: Sequence[str],
+                             hours: int = 48, seed: int = 0,
+                             year: int = 2050,
+                             topology: RegionTopology | None = None,
+                             utc_offsets=None,
+                             templates: dict[str, PenaltyModel] | None = None,
+                             device: str | torch.device | None = None,
+                             ) -> FleetProblem:
+    """`synthetic_fleet` across R Cambium state mixes: ~num/R workloads
+    per region (region r drawn with seed + r), each region priced on its
+    own `carbon.projection` trace (`utc_offsets` passes through to
+    `carbon.regional_traces`; "auto" rolls each trace onto UTC). Default
+    topology: uniform bandwidth at 5 % of fleet entitlement with a toll of
+    2 per unit moved. `templates` and `device` as `synthetic_fleet`."""
+    from repro_torch.core.carbon import regional_traces
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    R = len(states)
+    mcis, _ = regional_traces(states, year=year, hours=hours, seed=seed,
+                              utc_offsets=utc_offsets)
+    templates = templates or cached_paper_fleet(hours=hours, device=device)
+    per = [num // R + (1 if r < num % R else 0) for r in range(R)]
+    fleets = [synthetic_fleet(per[r], hours=hours, seed=seed + r,
+                              templates=templates) for r in range(R)]
+    if topology is None:
+        ent = float(sum(np.asarray(f.entitlement).sum() for f in fleets))
+        bw = np.full((R, R), 0.05 * ent / max(R - 1, 1))
+        np.fill_diagonal(bw, 0.0)
+        topology = RegionTopology(
+            cost=np.full((R, R), 2.0), bandwidth=bw, labels=tuple(states))
+    return regional_fleet(fleets, mcis, topology=topology)
 
 
 def _features(d: Tensor, usage: Tensor, jobs: Tensor,
@@ -436,10 +574,16 @@ def _report(p: FleetProblem, D: np.ndarray, pens: np.ndarray,
             iters: int, state: EngineState | None = None,
             extras: dict | None = None) -> FleetSolveResult:
     """Carbon reduction, penalty and preservation of a plan, in float64
-    numpy on the host (single-region problems)."""
+    numpy on the host; a multi-region fleet prices each row on its
+    region's trace."""
     mci = np.asarray(p.mci)
-    carbon_base = float((np.asarray(p.usage).sum(0) * mci).sum())
-    car = float((D @ mci).sum())
+    if mci.ndim == 2:
+        wmci = mci[np.asarray(p.region)]
+        carbon_base = float((np.asarray(p.usage) * wmci).sum())
+        car = float((D * wmci).sum())
+    else:
+        carbon_base = float((np.asarray(p.usage).sum(0) * mci).sum())
+        car = float((D @ mci).sum())
     day_hours = min(p.day_hours, p.T)  # as `project_days`
     n_days = p.T // day_hours
     span = n_days * day_hours

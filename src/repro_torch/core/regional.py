@@ -1,47 +1,147 @@
-"""CR1/CR2 fleet-global normalizers (single-region part).
+"""Per-region reductions: the CR1/CR2 normalizers, CR3's regularizer scale
+and the host-side region totals, single- and multi-region.
 
-The JAX package's `repro.core.regional` also holds the per-region
-(segment-summed) twins of these reductions for multi-region fleets; those
-are not ported yet and raise `NotImplementedError`.
+Multi-region fleets price every region on its own normalizers. A
+single-region problem gets the fleet-global scalars (0-d tensors); a
+multi-region one gets their per-region twins scattered back to rows, so
+that with zero migration bandwidth the joint solve decomposes into R
+independent single-region solves:
+
+  * on the device: `region_rows` (each row's region id, carbon trace and
+    region row count), `segment_sum` (per-region sums of rows, (R,) +
+    trailing shape, differentiable) and `region_sum` (a per-region sum
+    of a (W,) quantity gathered back to rows), `cr1_norms`, `cr2_norms`
+    and `cr3_reg_scale`. The sums repeat bit for bit: a masked sum per
+    region, a fixed reduction order, no atomics (`index_add_` and
+    `scatter_add_` on floats take atomics on the card). `region_sum`
+    gathers each region's rows first, so a region's total is the sum its
+    standalone single-region fleet takes;
+  * on the host, exact float64 numpy: `region_totals`, CR3's Eq.-6
+    fiscal sums and the migration aggregates.
+
+The JAX package's `pad_row_norms` and `norm_specs` are mesh plumbing and
+wait for the multi-GPU port (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.fleet_solver import FleetProblem, _bounds
 
+Tensor = torch.Tensor
 f32 = torch.float32
 
 
-def _single_region(p: FleetProblem) -> None:
-    if np.ndim(p.mci) == 2:
-        raise NotImplementedError(
-            "per-region normalizers (mci (R, T)) are not ported yet")
+class RegionReductions(NamedTuple):
+    """Per-row region view of a multi-region fleet (see `region_rows`)."""
+    region: Tensor   #: (W,) int64, each row's region id
+    wmci: Tensor     #: (W, T), each row's region carbon trace
+    counts: Tensor   #: (W,), the row count of each row's region
+
+
+def region_masks(region: Tensor, R: int) -> Tensor:
+    """(R, W) bool: row w lies in region r."""
+    return region[None, :] == torch.arange(R, device=region.device)[:, None]
+
+
+def segment_sum(x: Tensor, region: Tensor, R: int) -> Tensor:
+    """Per-region sums of the rows of `x` (W, ...) -> (R, ...): one masked
+    sum over the rows per region, differentiable, with no atomics."""
+    masks = region_masks(region, R).reshape((R, -1) + (1,) * (x.dim() - 1))
+    return torch.where(masks, x[None], torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)).sum(1)
+
+
+def region_sum(x: Tensor, region: Tensor, R: int) -> Tensor:
+    """Per-row view of a per-region sum of `x` (W,): each region's rows
+    gathered in order and summed (the sum a standalone fleet of those
+    rows takes), gathered back to rows."""
+    total = torch.zeros_like(x)
+    for mask in region_masks(region, R):
+        total = torch.where(mask, x[mask].sum(), total)
+    return total
+
+
+def region_rows(p: FleetProblem) -> RegionReductions:
+    """`(region, wmci, counts)` of a multi-region device view `p`, with
+    `wmci[w] = mci[region[w]]` and `counts[w]` the row count of w's
+    region."""
+    region = p.region
+    ones = torch.ones(region.shape, dtype=f32, device=region.device)
+    return RegionReductions(region, p.mci[region],
+                            region_sum(ones, region, p.mci.shape[0]))
+
+
+def region_totals(region, weights, R: int) -> np.ndarray:
+    """Exact host-side per-region totals of per-row weights: (W,) weights
+    give an (R,) total, (W, T) weights an (R, T) total. `region` may be a
+    masked row subset index-aligned with `weights` (`region[is_batch]`
+    with `residual[is_batch]`)."""
+    region = np.asarray(region)
+    w = np.asarray(weights, float)
+    if w.ndim == 1:
+        return np.bincount(region, weights=w, minlength=R)
+    out = np.zeros((R,) + w.shape[1:])
+    np.add.at(out, region, w)
+    return out
+
+
+def _step_rows(p: FleetProblem, lo: Tensor, hi: Tensor, region: Tensor,
+               counts: Tensor, R: int) -> Tensor:
+    """(W, 1) per-region step scale: the mean over its rows of each row's
+    mean box width, the JAX package's per-region twin of the scalar."""
+    rowmeans = torch.clamp(hi - lo, min=1e-6).mean(dim=1)
+    return (region_sum(rowmeans, region, R) / counts)[:, None]
 
 
 def cr1_norms(p: FleetProblem):
-    """(pen_norm, car_norm, step_scale): CR1's fleet-global reductions,
-    as 0-d float32 tensors on the device of `p`'s tensors."""
-    _single_region(p)
+    """(pen_norm, car_norm, step_scale): CR1's reductions on the device of
+    `p`'s tensors. Single-region: 0-d float32 tensors. Multi-region (a
+    device view with `region`): per-region twins on rows, (W,), (W,) and
+    (W, 1)."""
     lo, hi = _bounds(p)
     dev = lo.device
     mci = torch.as_tensor(p.mci, dtype=f32, device=dev)
     usage = torch.as_tensor(p.usage, dtype=f32, device=dev)
     ent = torch.as_tensor(p.entitlement, dtype=f32, device=dev)
+    if p.region is not None:
+        region, wmci, counts = region_rows(p)
+        R = mci.shape[0]
+        return (100.0 / region_sum(ent, region, R),
+                100.0 / region_sum((usage * wmci).sum(1), region, R),
+                _step_rows(p, lo, hi, region, counts, R))
     return (100.0 / ent.sum(),
             100.0 / (usage.sum(0) * mci).sum(),
             torch.clamp(hi - lo, min=1e-6).mean())
 
 
-def cr2_norms(p: FleetProblem, refs: torch.Tensor):
-    """(car_norm, scale, step_scale): CR2's fleet-global reductions (the
-    carbon normalizer, the equality-residual scale, the step scale)."""
-    _single_region(p)
+def cr2_norms(p: FleetProblem, refs: Tensor):
+    """(car_norm, scale, step_scale): CR2's reductions (the carbon
+    normalizer, the equality-residual scale, the step scale); per-region
+    twins on rows for a multi-region view, as `cr1_norms`."""
     lo, hi = _bounds(p)
     dev = lo.device
     mci = torch.as_tensor(p.mci, dtype=f32, device=dev)
     usage = torch.as_tensor(p.usage, dtype=f32, device=dev)
+    if p.region is not None:
+        region, wmci, counts = region_rows(p)
+        R = mci.shape[0]
+        return (100.0 / region_sum((usage * wmci).sum(1), region, R),
+                torch.clamp(region_sum(refs, region, R) / counts, min=1e-3),
+                _step_rows(p, lo, hi, region, counts, R))
     return (100.0 / (usage.sum(0) * mci).sum(),
             torch.clamp(refs.mean(), min=1e-3),
             torch.clamp(hi - lo, min=1e-6).mean())
+
+
+def cr3_reg_scale(p: FleetProblem) -> Tensor:
+    """CR3's per-row regularizer normalizer for a multi-region device view:
+    1e-3/(W_region·T) on rows, (W, 1), so that each region's market
+    regularizes as its standalone single-region market does."""
+    region = p.region.cpu().numpy()
+    counts = np.bincount(region, minlength=p.R)
+    return torch.as_tensor((1e-3 / (counts * p.T))[region][:, None],
+                           dtype=f32, device=p.region.device)

@@ -4,7 +4,7 @@ A port of the JAX package's `repro.core.scenario`: numpy code that
 produces the same arrays from the same seeds, over the port's
 `FleetProblem` and `carbon` module. `RegionalDivergence`, which needs a
 multi-region base, and the streams of a multi-region base are not
-ported yet (ROADMAP queue 1, item 9) and raise `NotImplementedError`.
+ported yet (ROADMAP queue 1, item 9b) and raise `NotImplementedError`.
 
 The paper stress-tests Carbon Responder on one realized CAISO-2021 trace
 plus two Cambium projections (Fig. 11). A production DR controller must be
@@ -408,8 +408,8 @@ class ForecastRegime(_GeneratorBase):
         if actual.ndim == 2:
             raise NotImplementedError(
                 "ForecastRegime.streams of a multi-region base (a stream per "
-                "region) is not ported yet (ROADMAP queue 1, item 9: "
-                "multi-region)")
+                "region) is not ported yet (ROADMAP queue 1, "
+                "item 9b: multi-region streaming and lanes)")
         reps = -(-(n_ticks + base.T - 1) // actual.shape[0])
         actual = np.tile(actual, max(reps, 1))
         out = []
@@ -447,8 +447,8 @@ class RegionalDivergence(_GeneratorBase):
 
     def generate(self, base: FleetProblem) -> ScenarioStack:
         raise NotImplementedError(
-            "RegionalDivergence needs a multi-region base, which is not "
-            "ported yet (ROADMAP queue 1, item 9: multi-region)")
+            "RegionalDivergence over a multi-region base is not ported "
+            "yet (ROADMAP queue 1, item 9b: multi-region streaming and lanes)")
 
 
 # ---------------------------------------------------------------------------

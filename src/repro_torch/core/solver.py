@@ -124,18 +124,13 @@ def _spec_bounds(spec: PolicySpec) -> tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 # scipy SLSQP (paper-faithful), float64 on the device
 # ---------------------------------------------------------------------------
-def solve_slsqp(spec: PolicySpec, x0: np.ndarray | None = None,
-                maxiter: int = 300, ftol: float = 1e-8,
-                device: str | torch.device | None = None) -> SolveResult:
-    """Solve `spec` with scipy's SLSQP on the host, its functions and
-    exact derivatives in float64 torch on `device` (None = the CUDA
-    device; "cpu" for the plain path). Reports with `evaluate`."""
-    import scipy.optimize as sopt
-
-    device = resolve_device(device)
+def slsqp_functions(spec: PolicySpec, device: torch.device):
+    """The functions `solve_slsqp` hands scipy, on flat float64 numpy
+    iterates: `fun(x) -> (value, gradient)` and the constraint dicts
+    (`fun` and `jac`, the Jacobian by `torch.func.jacrev`), each computed
+    by torch in float64 on `device`."""
     p = spec.problem
     W, T = p.W, p.T
-    lower, upper = _spec_bounds(spec)
 
     def on_device(x: np.ndarray) -> Tensor:
         return torch.as_tensor(np.asarray(x, np.float64), device=device)
@@ -165,11 +160,31 @@ def solve_slsqp(spec: PolicySpec, x0: np.ndarray | None = None,
         out = _np(torch.cat([v.detach().reshape(1), g]))
         return float(out[0]), out[1:]
 
+    return fun, cons
+
+
+def solve_slsqp(spec: PolicySpec, x0: np.ndarray | None = None,
+                maxiter: int = 300, ftol: float = 1e-8,
+                device: str | torch.device | None = None,
+                callback: Callable[[np.ndarray], None] | None = None,
+                ) -> SolveResult:
+    """Solve `spec` with scipy's SLSQP on the host, its functions and
+    exact derivatives in float64 torch on `device` (None = the CUDA
+    device; "cpu" for the plain path; `slsqp_functions`). `callback(xk)`
+    is scipy's, called with the flat iterate after every iteration.
+    Reports with `evaluate`."""
+    import scipy.optimize as sopt
+
+    device = resolve_device(device)
+    p = spec.problem
+    W, T = p.W, p.T
+    lower, upper = _spec_bounds(spec)
+    fun, cons = slsqp_functions(spec, device)
     x_init = (np.zeros(W * T) if x0 is None
               else np.asarray(x0, np.float64).ravel())
     bounds = list(zip(lower.ravel(), upper.ravel()))
     res = sopt.minimize(fun, x_init, jac=True, method="SLSQP",
-                        bounds=bounds, constraints=cons,
+                        bounds=bounds, constraints=cons, callback=callback,
                         options={"maxiter": maxiter, "ftol": ftol})
     return evaluate(spec, res.x.reshape(W, T), solver="slsqp",
                     nit=int(res.nit), device=device)

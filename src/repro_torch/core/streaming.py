@@ -110,6 +110,9 @@ class StreamingReport:
             / max(abs(self.realized_carbon), 1e-12)
 
 
+_ITEM_9B = "item 9b: multi-region streaming and lanes"
+
+
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"RollingHorizonSolver: {what} is not ported yet (ROADMAP queue 1, "
@@ -183,9 +186,9 @@ class RollingHorizonSolver:
         streams = (tuple(stream) if isinstance(stream, (list, tuple))
                    else (stream,))
         if len(streams) != 1:
-            _refuse("a stream per region", "item 9: multi-region")
+            _refuse("a stream per region", _ITEM_9B)
         if np.ndim(problem.mci) == 2 and np.shape(problem.mci)[0] > 1:
-            _refuse("a multi-region problem", "item 9: multi-region")
+            _refuse("a multi-region problem", _ITEM_9B)
         problem = single_region_view(problem)
         if streams[0].horizon != problem.T:
             raise ValueError(f"stream horizon {streams[0].horizon} != "

@@ -44,15 +44,16 @@ def al_step(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, **kw):
 def pack_rows(rts_coeffs, betas, k, x2_kind, is_batch, refs=None):
     """Per-workload penalty parameters -> the (W, 10) static row block
     (cols 0-9 of the kernel's `rowp`; see `ref.py` for the layout).
-    `refs=None` fills zeros (CR1 has no per-row reference); `refs` of
-    shape (N, W), one target vector per lane, gives (N, W, 10)."""
+    `refs=None` fills zeros (CR1 has no per-row reference). `k` or `refs`
+    of shape (N, W), one vector per lane (a multi-region fleet folds its
+    per-row weights into k), give (N, W, 10)."""
     f32 = torch.float32
-    k = k.to(f32)[:, None]
+    k = k.to(f32)[..., None]
     r = torch.zeros_like(k) if refs is None else refs.to(f32)[..., None]
-    lead = tuple(r.shape[:-2])
+    lead = torch.broadcast_shapes(tuple(k.shape[:-2]), tuple(r.shape[:-2]))
     cols = [rts_coeffs.to(f32), betas.to(f32), k, x2_kind.to(f32)[:, None],
-            is_batch.to(f32)[:, None]]
-    return torch.cat([c.expand(lead + tuple(c.shape)) for c in cols] + [r],
+            is_batch.to(f32)[:, None], r]
+    return torch.cat([c.expand(lead + tuple(c.shape[-2:])) for c in cols],
                      dim=-1)
 
 
@@ -71,9 +72,12 @@ def make_fused_inner(usage, jobs, lo, hi, row_base, cvec, *, mode: str,
       mode: "cr1" (fixed penalty weight `coef0 = lam * pen_norm`) or
         "cr2" (equality-multiplier form; needs `scale`).
       cfg: `EngineConfig`: inner_steps, lr, betas, eps, moment dtype.
-      step_scale: the adapter's step scale (multiplies cfg.lr), a scalar
-        tensor or float folded into `lr_scale`; rowp col 11 packs ones.
-      coef0, scale, step_scale: (N,) tensors for N lanes.
+      step_scale: the adapter's step scale (multiplies cfg.lr). A scalar
+        tensor or float (or (N,) for N lanes) folds into `lr_scale` and
+        rowp col 11 packs ones; a per-row (W, 1) tensor (or (N, W, 1)), a
+        multi-region fleet's per-region scale, rides col 11 with
+        `lr_scale = cfg.lr`.
+      coef0, scale: (N,) tensors for N lanes.
       k_steps: fused steps per kernel call; `inner_steps` need not divide
         evenly, the remainder runs as one short call.
 
@@ -98,7 +102,12 @@ def make_fused_inner(usage, jobs, lo, hi, row_base, cvec, *, mode: str,
     k_steps = max(1, min(int(k_steps), steps))
     n_full, rem = divmod(steps, k_steps)
     n_calls = n_full + (1 if rem else 0)
-    step_col = torch.ones(lead + (W, 1), dtype=f32, device=dev)
+    if isinstance(step_scale, torch.Tensor) and step_scale.dim() >= 2:
+        # Per row: rowp col 11, lr_scale = cfg.lr.
+        step_col = step_scale.to(f32)[..., order, :].expand(lead + (W, 1))
+        step_scale = 1.0
+    else:
+        step_col = torch.ones(lead + (W, 1), dtype=f32, device=dev)
     kw = dict(mode=mode, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
               day_hours=day_hours)
     # One scal row per call and lane: [coef0, mu, inv_scale, lr_scale, t0,

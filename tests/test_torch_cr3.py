@@ -376,13 +376,24 @@ def test_configured_policy_takes_cr3_knobs():
 
 
 def test_multiregion_cr3_still_refused(fleet16):
+    """Multi-region CR3 solves now, through `solve` and `CR3.solve`
+    (`tests/test_torch_multiregion_cr3.py` holds it against the JAX
+    package); what stays refused around it is the rolling-horizon
+    controller over regions (ROADMAP queue 1, item 9b) and the mesh (item
+    11)."""
+    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.streaming import RollingHorizonSolver
     _, tp = fleet16
     two = dataclasses.replace(tp, mci=np.stack([tp.mci, tp.mci]),
                               region=np.arange(tp.W) % 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tapi.solve(two, tapi.CR3(), ctx=_ctx(steps=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tapi.CR3().solve(two, _ctx(steps=2))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for res in (tapi.solve(two, tapi.CR3(), ctx=_ctx(steps=2)),
+                    tapi.CR3().solve(two, _ctx(steps=2))):
+            assert np.shape(res.extras["rho"]) == (2,)
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        RollingHorizonSolver(two, ForecastStream.caiso(n_ticks=2),
+                             policy="cr3", device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tapi.solve(tp, tapi.CR3(), ctx=_ctx(mesh=object()))
 

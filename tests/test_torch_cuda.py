@@ -14,7 +14,9 @@ logits through the kernels within 0.05 of those through the plain
 versions; the rolling-horizon day as a CUDA-graph replay
 (`api.solve_day`) within 1e-6 NP of the same day run eagerly through the
 same kernels (bitwise in practice), with its launches per replay counted
-on the device by `torch.profiler`.
+on the device by `torch.profiler`; multi-region solves through the
+kernels within 0.05 pp of the generic engine, and the SLSQP reference
+and the per-region sums repeat bit for bit.
 """
 import importlib.util
 import pathlib
@@ -893,3 +895,90 @@ def test_slsqp_float64_on_the_card_matches_the_cpu(dev, fleets, policy):
     assert got.nit == want.nit
     assert abs(got.carbon_reduction_pct - want.carbon_reduction_pct) < 0.01
     assert abs(got.total_penalty_pct - want.total_penalty_pct) < 0.01
+
+
+def test_slsqp_two_calls_in_one_process_are_bitwise_equal(dev, fleets):
+    """The SLSQP reference repeats on the card: two calls of CR1 in one
+    process take bitwise-equal iterates to a bitwise-equal plan
+    (`scripts/port_slsqp_repeat.py` looks op by op)."""
+    from repro_torch.core import policies, solver
+    from repro_torch.core.carbon import caiso_2021
+    tpl = fleets["templates"]
+    dr = policies.DRProblem(
+        models=tuple(tpl[n] for n in ("RTS1", "RTS2", "AITraining",
+                                      "DataPipeline")),
+        mci=caiso_2021(T).mci)
+    spec = policies.cr1_spec(dr, 1.45)
+    its = ([], [])
+    runs = [solver.solve_slsqp(spec, maxiter=80, callback=lambda x, i=i:
+                               its[i].append(np.array(x)))
+            for i in range(2)]
+    assert len(its[0]) == len(its[1]) > 0
+    for a, b in zip(*its):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(runs[0].D, runs[1].D)
+
+
+# ---------------------------------------------------------------------------
+# Multi-region fleets
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("k_steps", [1, 8])
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_kernel_per_row_carbon_and_steps(dev, fleets, mode, k_steps):
+    """A multi-region solve's operands: a carbon row per fleet row (W, T)
+    and per-row step multipliers in rowp col 11, against the plain
+    version (RTS rows over 8 steps, hinge-stable mixed rows over one)."""
+    args = _al_inputs(fleets, 10_000, mode, seed=6 + k_steps, dev=dev,
+                      rts_only=k_steps == 8, stable=True, per_row_cvec=True,
+                      step_rows=True)
+    assert args[8].shape == (10_000, T)
+    assert float(args[7][:, 11].std()) > 0.1
+    kw = dict(mode=mode, k_steps=k_steps)
+    for g, w in zip(al_step_cuda(*args, **kw), al_step_ref(*args, **kw)):
+        _close(g, w, 1e-5)
+
+
+def test_region_sums_repeat_bitwise_on_the_card(dev, fleets):
+    """The per-region reductions and the normalizers built on them are
+    the same bit for bit call after call on the card."""
+    from repro_torch.core import regional
+    from repro_torch.core.fleet_solver import (device_view,
+                                               synthetic_regional_fleet)
+    p = synthetic_regional_fleet(3000, ["CA", "TX", "NY"], hours=T, seed=0,
+                                 utc_offsets="auto",
+                                 templates=fleets["templates"])
+    view = device_view(p, dev)
+    x = view.usage.sum(1)
+    for fn in (lambda: regional.region_sum(x, view.region, 3),
+               lambda: regional.segment_sum(view.usage, view.region, 3),
+               lambda: regional.cr1_norms(view),
+               lambda: regional.cr2_norms(view, x)):
+        a, b = fn(), fn()
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)
+    want = regional.region_totals(p.region, p.usage, 3)
+    np.testing.assert_allclose(
+        regional.segment_sum(view.usage, view.region, 3).cpu().numpy(),
+        want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_multiregion_fused_matches_generic_on_the_card(dev, fleets, policy):
+    """CR1/CR2 on an R = 3 fleet through al_step (per-row carbon rows and
+    steps) against the generic engine, within 0.05 pp; one al_step launch
+    per 8 steps of each AL round."""
+    from repro_torch.core.api import CR1, CR2, SolveContext, solve
+    from repro_torch.core.fleet_solver import synthetic_regional_fleet
+    p = synthetic_regional_fleet(3000, ["CA", "TX", "NY"], hours=T, seed=0,
+                                 utc_offsets="auto", topology=None,
+                                 templates=fleets["templates"])
+    pol = CR1(lam=1.45) if policy == "cr1" else CR2(cap_frac=0.78, outer=2)
+    before = al_step_cuda.launches
+    got = solve(p, pol, ctx=SolveContext(steps=200))
+    rounds = 1 if policy == "cr1" else 2
+    assert al_step_cuda.launches - before == rounds * 200 // 8
+    want = solve(p, pol, ctx=SolveContext(steps=200, use_kernel=False))
+    assert abs(got.carbon_reduction_pct - want.carbon_reduction_pct) < 0.05
+    assert abs(got.total_penalty_pct - want.total_penalty_pct) < 0.05
+    assert got.preservation_violation < 1e-3

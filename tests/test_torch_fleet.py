@@ -216,17 +216,23 @@ def test_report_matches_jax(problems):
 
 
 def test_multi_region_is_not_ported(problems):
+    """Multi-region fleets are ported (`tests/test_torch_multiregion.py`):
+    R = 1 canonicalizes, R = 2 passes through with per-row normalizers.
+    What stays refused is what the JAX package refuses: the per-workload
+    SLSQP view of a multi-region fleet; and a topology must carry the
+    network's arrays."""
     _, tp = problems
     one = dataclasses.replace(tp, mci=tp.mci[None, :],
                               region=np.zeros(tp.W, np.int32))
     assert tfs.single_region_view(one).mci.shape == (T,)
     two = dataclasses.replace(tp, mci=np.stack([tp.mci, tp.mci]),
                               region=np.arange(tp.W) % 2)
-    with pytest.raises(NotImplementedError):
-        tfs.single_region_view(two)
-    with pytest.raises(NotImplementedError):
-        treg.cr1_norms(two)
-    with pytest.raises(NotImplementedError):
+    assert tfs.single_region_view(two) is two and two.R == 2
+    with pytest.raises(ValueError, match="single-region"):
+        two.to_problem()
+    pen, car, step = treg.cr1_norms(tfs.device_view(two, torch.device("cpu")))
+    assert pen.shape == car.shape == (tp.W,) and step.shape == (tp.W, 1)
+    with pytest.raises(AttributeError):
         convert.fleet_problem_from_arrays(
-            **{f.name: getattr(tp, f.name) for f in dataclasses.fields(tp)},
-            topology=object())
+            **{f.name: getattr(tp, f.name) for f in dataclasses.fields(tp)
+               if f.name != "topology"}, topology=object())

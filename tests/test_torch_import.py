@@ -38,7 +38,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "kernels.ssd_scan.ref", "models.ssm", "core.streaming",
               "core.daygraph", "core.scenario", "core.ensemble",
               "core.policies", "core.baselines", "core.solver",
-              "core.fleet", "power.model"):
+              "core.fleet", "power.model", "core.regional",
+              "core.migration"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

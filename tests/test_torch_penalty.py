@@ -153,3 +153,15 @@ def test_cache_layout_round_trip(both_fleets, tmp_path):
     for name, m in ref.items():
         assert (back[name].k, back[name].params) == (m.k, m.params)
         assert back[name].feature_names == m.feature_names
+
+
+def test_cache_key_names_the_calibrating_device():
+    """A fleet calibrated on the card is cached apart from one calibrated
+    on the CPU (their float32 fits round differently), under the CPU's
+    key with the device type appended."""
+    cpu = tcache.cache_key(48, 100.0, 32, 1000, 0, torch.device("cpu"))
+    assert cpu == "torch_fleet_h48_p100_s32_j1000_r0"
+    assert tcache.cache_key(48, 100.0, 32, 1000, 0,
+                            torch.device("cuda")) == cpu + "_cuda"
+    assert tcache.cache_key(48, 100.0, 32, 1000, 0,
+                            torch.device("cuda", 1)) == cpu + "_cuda"

@@ -37,7 +37,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
 5c. the batched lanes at the same fleet: al_step with 4 lanes (CR1 and
    CR2, f32 and bf16 moments, shared and per-lane fleet constants, rows
    ordered by kind) bitwise against 4 one-lane calls and against its
-   plain version, timed beside them; then, each batched call with its
+   plain version, timed beside them, and with 16 lanes of (W, T) carbon
+   rows and per-row steps beside shared fleet constants (a multi-region
+   ensemble's call) against its plain version and timed; then, each
+   batched call with its
    launch counts reset just before and read just after and held
    against its loop of `solve()` calls: `api.sweep` of CR1 over lam in
    {1.0, 1.2, 1.45, 1.6, 2.2} (600 steps), of CR2 over cap_frac in
@@ -80,6 +83,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
    cap) and with coupled migration (no less carbon at equal
    curtailment), and CR1 priced on one region's signal for the whole
    fleet, per region, at equal curtailment;
+5f. regions in the streaming and batched lanes, on phase 5e's fleet: the
+   per-region sums (index_select over each region's rows) bitwise
+   against their mask form; a 24-tick day of CR1 and of CR2 (budgets as
+   5b) with one stream per region,
+   `ForecastStream.regional(np.tile(mci, (1, 2)), horizon=48,
+   revision_sigma=0.03, seed=7)`: the per-tick loop, the day captured
+   and replayed (launch counts reset just before the replay and read
+   just after, and counted on the device by `torch.profiler` on one more
+   replay, with its idle share), the replay against the eager day, a
+   warm second day, an R = 1 day of the main fleet bitwise against its
+   single-region day; `evaluate_ensemble` of CR1(1.45) and CR2(0.78) over
+   RegionalDivergence(16, seed=0) without the topology, and of CR1 over
+   RegionalDivergence(4, seed=1) with it (each scenario's migration
+   credit in both lanes), each batched against its loop;
+   `run_streaming_ensemble` of CR1 over ForecastRegime(4, seed=0)'s
+   groups of one stream per region, 24 ticks, two groups against solo
+   controllers; the CR1 sweep of 5e refined warm from `stack_states`
+   (150 steps), each lane bitwise its warm `solve()`;
 6. the serving paths, each at full width (random weights from a seeded
    generator on the card), through `serve_requests` at max_batch 8, then
    4 (launch counts reset just before and read just after each path),
@@ -186,6 +207,11 @@ CR3_LANE_RHO_RTOL = 1e-3
 REGION_STATES = ("CA", "TX", "NY")
 REGION_LAMS = (1.0, 1.45, 2.2)
 CR3_REGION_STEPS = 150
+# Regions in the streaming and batched lanes (phase 5f): one stream per
+# region over the fleet's own traces, the regional-divergence ensembles
+# (S = 16 without a topology; S = 4 with it, each post-stage ~2 s).
+REGION_STREAM_SIGMA, REGION_STREAM_SEED = 0.03, 7
+REGION_ENSEMBLE_S, REGION_CREDIT_S = 16, 4
 
 
 def log(*a):
@@ -262,14 +288,17 @@ def al_step_inputs(np, p, *, mode, seed, rts_only=True, stable=False,
     return (x, m, v, usage, p.jobs, lo, hi, rowp, cvec, scal)
 
 
-def al_step_lane_inputs(np, p, n, *, mode, seed, shared, **kw):
+def al_step_lane_inputs(np, p, n, *, mode, seed, shared, lane_cvec=False,
+                        **kw):
     """`al_step_inputs` for `n` lanes, rows ordered by kind (batch rows
     first, as `make_fused_inner` orders them): each lane its own iterate,
     moments, multipliers, carbon row and scalars (lam, mu and t0 differ);
     usage, jobs and bounds shared ((W, T)), or each lane's from the fleet
     scaled by its own factor ((n, W, T)); the carbon row shared ((1, T))
-    or each lane's ((n, 1, T)) alike. Returns the per-lane argument lists
-    and the stacked ones."""
+    or each lane's ((n, 1, T)) alike, or with `lane_cvec` each lane's
+    whatever `shared` says (a multi-region ensemble's (n, W, T) carbon
+    rows beside shared fleet constants, with `per_row_cvec`). Returns the
+    per-lane argument lists and the stacked ones."""
     lanes = []
     for i in range(n):
         f = 1.0 if shared else 1.0 + 0.1 * i
@@ -283,14 +312,15 @@ def al_step_lane_inputs(np, p, n, *, mode, seed, shared, **kw):
     order = np.argsort(-lanes[0][7][:, 8], kind="stable")
     lanes = [[a[order] if a.shape[0] == p.W else a for a in arrs]
              for arrs in lanes]
-    if shared:
+    if shared and not lane_cvec:
         for arrs in lanes:
             arrs[8] = lanes[0][8]
     stacked = [np.stack(a) for a in zip(*lanes)]
     stacked[9] = stacked[9][:, 0]
     if shared:
         stacked[3:7] = lanes[0][3:7]
-        stacked[8] = lanes[0][8]
+        if not lane_cvec:
+            stacked[8] = lanes[0][8]
     return lanes, stacked
 
 
@@ -661,6 +691,35 @@ def phase_al_step_lanes(np, torch, p):
                   + 32)
     ops = sum(al_step_ops(np, one[7], T_MAIN, 8, "cr2") for one in lanes)
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, H100_F32_OPS_PER_S)
+    # A multi-region ensemble's call (phase 5f): S lanes of (W, T) carbon
+    # rows and per-row steps beside shared fleet constants, CR1 and CR2
+    # at k = 8, against the plain version and lane 0's one-lane call.
+    S = REGION_ENSEMBLE_S
+    lanes, stacked = al_step_lane_inputs(
+        np, p, S, mode="cr2", seed=200, shared=True, lane_cvec=True,
+        rts_only=False, stable=True, per_row_cvec=True, step_rows=True)
+    args = to_dev(stacked, False)
+    one = to_dev(lanes[0], False)
+    for mode in ("cr1", "cr2"):
+        opts = dict(mode=mode, k_steps=8)
+        got = al_step_cuda(*args, **opts)
+        want = al_step_ref(*args, **opts)
+        for g, o in zip(got, al_step_cuda(*one, **opts)):
+            require(torch.equal(g[0], o), f"al_step {S} lanes of carbon "
+                    f"rows {mode}: lane 0 differs from its one-lane call")
+        torch.cuda.synchronize()
+        rec["max_abs_err"] = max(
+            rec["max_abs_err"],
+            *(check_close(torch, g, w, 1e-5, 1e-5,
+                          f"al_step {S} lanes of carbon rows {mode} {nm}")
+              for g, w, nm in zip(got, want, "xmv")))
+        rec[f"region_lanes_ms_{mode}"] = kernel_ms(
+            torch, lambda: al_step_cuda(*args, **opts))
+    wt = W_MAIN * T_MAIN * 4
+    rec["region_lanes_bound_ms"], rec["region_lanes_bound_by"] = bound(
+        S * (7 * wt + W_MAIN * 12 * 4 + 32) + 4 * wt,
+        sum(al_step_ops(np, a[7], T_MAIN, 8, "cr2") for a in lanes),
+        H100_F32_OPS_PER_S)
     log(f"[lanes] al_step with {N} lanes: {n} cases bitwise equal to their "
         f"one-lane calls, one launch each; max abs err against the plain "
         f"version {rec['max_abs_err']:.3e} (rtol = atol = 1e-5; bf16 "
@@ -671,6 +730,15 @@ def phase_al_step_lanes(np, torch, p):
         f"{rec['ones_ms_cr2'] * 1e3:.2f} us; bound "
         f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, {N} x the "
         f"one-lane bytes)")
+    log(f"[lanes] al_step with {S} lanes of (W, T) carbon rows and per-row "
+        f"steps, shared fleet constants (a multi-region ensemble's call), "
+        f"k=8 at W = {W_MAIN}: lane 0 bitwise its one-lane call; cr1 "
+        f"{rec['region_lanes_ms_cr1'] * 1e3:.2f} us, cr2 "
+        f"{rec['region_lanes_ms_cr2'] * 1e3:.2f} us; bound "
+        f"{rec['region_lanes_bound_ms'] * 1e3:.2f} us "
+        f"({rec['region_lanes_bound_by']}: per lane x, m, v read and "
+        f"written, its carbon rows, rowp and scal; usage, jobs, lo, hi "
+        f"once)")
     return rec
 
 
@@ -1384,21 +1452,14 @@ def _plan_feasible(np, p, D, plan, what):
             f"{what}: supply or headroom exceeded")
 
 
-def phase_regions(np, torch, p_single):
-    """Phase 5e: the multi-region fleet (R = 3) through CR1/CR2 fused and
-    generic, a CR1 sweep, CR3 through dr_features and plain, the
+def phase_regions(np, torch, p_single, p):
+    """Phase 5e: the multi-region fleet `p` (R = 3) through CR1/CR2 fused
+    and generic, a CR1 sweep, CR3 through dr_features and plain, the
     migration post-stage and the coupled migration; R = 1 bitwise at the
     main fleet. Returns the summed launch counts."""
     from repro_torch.core.api import CR1, CR2, CR3, SolveContext, solve, sweep
-    from repro_torch.core.fleet_solver import (regional_fleet,
-                                               synthetic_regional_fleet)
-    from repro_torch.core.fleetcache import cached_paper_fleet
+    from repro_torch.core.fleet_solver import regional_fleet
     t_phase = time.perf_counter()
-    templates = cached_paper_fleet(hours=T_MAIN, num_samples=CAL_SAMPLES,
-                                   num_jobs=CAL_JOBS, device="cuda")
-    p = synthetic_regional_fleet(W_MAIN, list(REGION_STATES), hours=T_MAIN,
-                                 seed=0, utc_offsets="auto",
-                                 templates=templates)
     bare = dataclasses.replace(p, topology=None)
     region = np.asarray(p.region)
     wmci = np.asarray(p.mci)[region]
@@ -1546,6 +1607,270 @@ def phase_regions(np, torch, p_single):
         + f"; margin over the best "
         f"{post.carbon_reduction_pct - max(b for b, _ in best):.4f} pp")
     log(f"[regions] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return totals
+
+
+def phase_region_fleet():
+    """Phase 5e's fleet: `synthetic_regional_fleet(10_000, ["CA", "TX",
+    "NY"], hours=48, seed=0, utc_offsets="auto")` on phase 3's templates,
+    with its default topology."""
+    from repro_torch.core.fleet_solver import synthetic_regional_fleet
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    templates = cached_paper_fleet(hours=T_MAIN, num_samples=CAL_SAMPLES,
+                                   num_jobs=CAL_JOBS, device="cuda")
+    return synthetic_regional_fleet(W_MAIN, list(REGION_STATES),
+                                    hours=T_MAIN, seed=0, utc_offsets="auto",
+                                    templates=templates)
+
+
+def phase_region_lanes(np, torch, p_single, p):
+    """Phase 5f: the multi-region fleet `p` (R = 3) in the streaming and
+    batched lanes: the per-region sums against their mask form; a 24-tick
+    CR1 and CR2 day with one stream per region (loop, capture, replay,
+    eager, warm second day, R = 1 bitwise); RegionalDivergence ensembles
+    (with and without the migration credit); a streaming ensemble of
+    per-region stream groups; the warm refinement sweep. Each call's
+    launch counts are reset just before and read just after. Returns the
+    summed counts."""
+    from repro_torch.core import api, regional
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core import scenario as scen
+    from repro_torch.core.api import (CR1, CR2, SolveContext,
+                                      configured_policy, solve, solve_day,
+                                      stack_states, sweep)
+    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    from repro_torch.core.fleet_solver import device_view, regional_fleet
+    from repro_torch.core.streaming import RollingHorizonSolver
+    t_phase = time.perf_counter()
+    bare = dataclasses.replace(p, topology=None)
+    totals = {"al_step": 0, "dr_features": 0}
+    counted = functools.partial(count_launches, torch, totals, "regions 5f")
+
+    # The per-region sums: index_select over each region's rows (found once
+    # on the host) against x[mask].sum(), which reads a count on the host.
+    view = device_view(bare, torch.device("cuda"))
+    quantities = {"usage row sums": view.usage.sum(1),
+                  "entitlements": view.entitlement,
+                  "carbon row sums": (view.usage
+                                      * view.mci[view.region]).sum(1)}
+    for what, x in quantities.items():
+        got = regional.region_sum(x, view.region, view.region_index)
+        want = torch.zeros_like(x)
+        for r in range(p.R):
+            mask = view.region == r
+            want = torch.where(mask, x[mask].sum(), want)
+        require(torch.equal(got, want),
+                f"regions 5f: region_sum of {what} differs from the mask sum")
+    log(f"[regions 5f] region_sum (index_select over rows "
+        f"{view.region_index.counts}) bitwise equal to the mask sums of "
+        + ", ".join(quantities))
+
+    # Days: one stream per region over the fleet's own traces.
+    streams = ForecastStream.regional(
+        np.tile(np.asarray(p.mci), (1, 2)), horizon=T_MAIN,
+        revision_sigma=REGION_STREAM_SIGMA, seed=REGION_STREAM_SEED)
+    stack = np.stack([np.stack([st.forecast(t) for st in streams])
+                      for t in range(DAY_TICKS)])
+    window = dataclasses.replace(bare, mci=stack[0])
+    one = regional_fleet([p_single], np.asarray(p_single.mci)[None])
+    single_stream = ForecastStream.caiso(n_ticks=DAY_TICKS, horizon=T_MAIN,
+                                         seed=DAY_SEED)
+    for name, cold, warm, rounds in DAY_POLICIES:
+        pol = configured_policy(name, outer=rounds)
+        kw = dict(policy=pol, cold_steps=cold, warm_steps=warm)
+        loop, loop_wall = _timed(torch, lambda: RollingHorizonSolver(
+            p, streams, **kw).run(DAY_TICKS))
+        a, b = (RollingHorizonSolver(p, streams, **kw) for _ in range(2))
+        n0 = DAY_GRAPHS.captures
+        torch.cuda.reset_peak_memory_stats()
+        first, capture_wall = _timed(torch, lambda: a.run_scanned(DAY_TICKS))
+        capture_peak = torch.cuda.max_memory_allocated()
+        require(DAY_GRAPHS.captures == n0 + 1,
+                f"regions {name}: the first day did not capture one graph")
+        want = expected_day_launches(cold, warm, rounds, DAY_TICKS)
+        torch.cuda.reset_peak_memory_stats()
+        scan, replay_wall = counted(f"{name} day replay",
+                                    lambda: b.run_scanned(DAY_TICKS), want)
+        replay_peak = torch.cuda.max_memory_allocated()
+        require(DAY_GRAPHS.captures == n0 + 1,
+                f"regions {name}: the second day captured again")
+
+        def replay():
+            return solve_day(window, pol, stack, ctx=SolveContext(),
+                             cold_steps=cold, warm_steps=warm)
+
+        on_device = device_launches(torch, replay)
+        require(on_device == want, f"regions {name}: the device ran "
+                f"{on_device} in a replay, expected {want}")
+        wall, busy = device_busy(torch, replay)
+        res = replay()
+        _, _, day, inputs = api._day_setup(window, pol, stack, SolveContext(),
+                                           cold, warm)
+        require(day.R == p.R and day.region_counts
+                == view.region_index.counts, f"regions {name}: day key")
+        with torch.no_grad():
+            eager, eager_wall = _timed(torch, lambda: api._day_impl(day,
+                                                                   inputs))
+        st = res.last.state
+        got = [res.committed, res.last.D,
+               *(t.cpu().numpy() for t in (st.x, st.lam_eq, st.mu))]
+        ref = [t.cpu().numpy() for t in eager[:2]] + [
+            t.cpu().numpy() for t in (eager[3], eager[4], eager[6])]
+        replay_err = max(float(np.abs(g - r).max(initial=0.0))
+                         for g, r in zip(got, ref))
+        require(np.array_equal(first.committed, scan.committed),
+                f"regions {name}: the captured day differs from its replay")
+        d_pp = abs(scan.realized_reduction_pct - loop.realized_reduction_pct)
+        d_commit = float(np.abs(scan.committed - loop.committed).max())
+        pres = scan.ticks[-1].plan.preservation_violation
+        by_region = np.sum([t.committed_by_region for t in scan.ticks], 0)
+        log(f"[regions 5f] {name} day: kernels the card ran in one replay, "
+            f"by torch.profiler: {on_device}; realized carbon loop "
+            f"{loop.realized_reduction_pct:.4f} %, day "
+            f"{scan.realized_reduction_pct:.4f} % ({d_pp:.2e} pp, limit "
+            f"{SCAN_PP}); committed max |day - loop| {d_commit:.3e} NP "
+            f"(limit {COMMIT_ATOL}); replay vs eager max |diff| "
+            f"{replay_err:.3e} (limit {REPLAY_TOL:g}); committed NP·h by "
+            f"region {np.array2string(by_region, precision=2)}; last plan "
+            f"preservation {pres:.3e}")
+        require(d_pp < SCAN_PP, f"regions {name}: loop vs day {d_pp:.4f} pp")
+        require(d_commit <= COMMIT_ATOL,
+                f"regions {name}: committed {d_commit:.3e}")
+        require(replay_err <= REPLAY_TOL,
+                f"regions {name}: replay vs eager {replay_err:.3e}")
+        require(pres < PRESERVATION_TOL,
+                f"regions {name}: preservation {pres:.3e}")
+        for r in (loop, scan):
+            require(bool(np.isfinite(r.committed).all())
+                    and r.committed.shape == (p.W, DAY_TICKS),
+                    f"regions {name}: committed hours not finite or not "
+                    f"(W, 24)")
+        n1 = DAY_GRAPHS.captures
+        b2, warm_capture_wall = _timed(torch, lambda: b.run_scanned(DAY_TICKS))
+        a2, warm_wall = _timed(torch, lambda: a.run_scanned(DAY_TICKS))
+        require(DAY_GRAPHS.captures == n1 + 1,
+                f"regions {name}: the warm days did not share one graph")
+        require(np.array_equal(a2.committed, b2.committed),
+                f"regions {name}: two replays of one warm day differ")
+        require(bool(np.isfinite(a2.committed).all())
+                and a2.ticks[-1].plan.preservation_violation
+                < PRESERVATION_TOL, f"regions {name}: warm day")
+        log(f"[regions 5f] {name} day walls (host clock, synchronized): "
+            f"per-tick loop {loop_wall:.4f} s; first day (warm-up + capture "
+            f"+ replay) {capture_wall:.4f} s; replay {replay_wall:.4f} s "
+            f"(under torch.profiler {wall * 1e3:.3f} ms, device busy "
+            f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / wall:.4f}); the "
+            f"eager day {eager_wall:.4f} s; warm second day: capture "
+            f"{warm_capture_wall:.4f} s, replay {warm_wall:.4f} s (realized "
+            f"{a2.realized_reduction_pct:.4f} %); peak memory first day "
+            f"{capture_peak / 2**20:.1f} MiB, replay "
+            f"{replay_peak / 2**20:.1f} MiB")
+        # R = 1 of the main fleet is its single-region day, bit for bit.
+        s1, s2 = (RollingHorizonSolver(q, [single_stream], **kw)
+                  .run_scanned(DAY_TICKS) for q in (p_single, one))
+        require(np.array_equal(s1.committed, s2.committed)
+                and s1.realized_carbon == s2.realized_carbon,
+                f"regions {name}: the R = 1 day is not the single-region day")
+        log(f"[regions 5f] {name}: R = 1 day at W = {p_single.W} bitwise "
+            f"equal to the single-region day")
+
+    # Ensembles over RegionalDivergence, batched against their loop.
+    def held(what, got, loop, lw):
+        dc = float(np.abs(got.carbon_reduction_pct
+                          - loop.carbon_reduction_pct).max())
+        dp = float(np.abs(got.total_penalty_pct
+                          - loop.total_penalty_pct).max())
+        pres = float(got.preservation_violation.max())
+        log(f"[regions 5f] {what}: loop of {got.S} solve() {lw:.4f} s; "
+            f"batched - loop max {dc:.2e} pp carbon, {dp:.2e} pp penalty "
+            f"(limit {LANE_PP}); carbon p5/p50/p95 "
+            + "/".join(f"{np.percentile(got.carbon_reduction_pct, q):.4f}"
+                       for q in (5, 50, 95))
+            + f" %; preservation max {pres:.3e}")
+        require(bool(np.isfinite(got.D).all())
+                and got.D.shape == (got.S, p.W, p.T),
+                f"{what}: plans not finite or not (S, W, T)")
+        require(got.batched and not loop.batched, f"{what}: lanes")
+        require(dc < LANE_PP and dp < LANE_PP,
+                f"{what}: batched vs loop {dc:.4f} / {dp:.4f} pp")
+        require(pres < PRESERVATION_TOL, f"{what}: preservation {pres:.3e}")
+
+    divergence = scen.RegionalDivergence(REGION_ENSEMBLE_S, seed=0)
+    for pol, want in ((CR1(lam=1.45), expected_lane_launches(600, 1)),
+                      (CR2(cap_frac=0.78), expected_lane_launches(
+                          400, CR2.outer, n_targets=1))):
+        what = f"{pol.name} ensemble over RegionalDivergence(" \
+               f"{REGION_ENSEMBLE_S})"
+        torch.cuda.reset_peak_memory_stats()
+        got, _ = counted(what, lambda pol=pol: ens.evaluate_ensemble(
+            bare, pol, divergence), want)
+        peak = torch.cuda.max_memory_allocated()
+        loop, lw = _timed(torch, lambda pol=pol: ens.evaluate_ensemble(
+            bare, pol, divergence, batched=False))
+        held(what, got, loop, lw)
+        log(f"[regions 5f] {what}: peak {peak / 2**20:.1f} MiB")
+    credit = scen.RegionalDivergence(REGION_CREDIT_S, seed=1)
+    what = (f"cr1 ensemble over RegionalDivergence({REGION_CREDIT_S}) with "
+            f"the default topology")
+    got, _ = counted(what, lambda: ens.evaluate_ensemble(
+        p, CR1(lam=1.45), credit), expected_lane_launches(600, 1))
+    loop, lw = _timed(torch, lambda: ens.evaluate_ensemble(
+        p, CR1(lam=1.45), credit, batched=False))
+    held(what, got, loop, lw)
+    require(all("migration" in e for e in got.extras + loop.extras),
+            f"{what}: the credit is missing from a lane")
+    carbon = [float((np.asarray(q.usage) * np.asarray(q.mci)[
+        np.asarray(q.region)]).sum()) for q in credit.generate(p).problems(p)]
+    log(f"[regions 5f] {what}: net credit per scenario, batched "
+        + ", ".join(f"{100.0 * e['migration'].net_saved / c:.4f}"
+                    for e, c in zip(got.extras, carbon))
+        + " %, loop "
+        + ", ".join(f"{100.0 * e['migration'].net_saved / c:.4f}"
+                    for e, c in zip(loop.extras, carbon)) + " % of carbon")
+
+    # The streaming ensemble: S groups of one stream per region.
+    groups = scen.ForecastRegime(STREAM_LANES, seed=0).streams(
+        p, n_ticks=DAY_TICKS)
+    kw = dict(cold_steps=600, warm_steps=150)
+    rep, rep_wall = counted(
+        f"cr1 streaming ensemble, {STREAM_LANES} groups of {p.R} streams x "
+        f"{DAY_TICKS} ticks", lambda: ens.run_streaming_ensemble(
+            p, CR1(lam=1.45), groups, n_ticks=DAY_TICKS, **kw),
+        expected_day_launches(600, 150, 1, DAY_TICKS))
+    require(bool(np.isfinite(rep.committed).all())
+            and rep.committed.shape == (STREAM_LANES, p.W, DAY_TICKS),
+            "regions streaming ensemble: committed hours")
+    for s in (0, STREAM_LANES - 1):
+        solo, sw = _timed(torch, lambda: RollingHorizonSolver(
+            p, groups[s], policy=CR1(lam=1.45), **kw).run(DAY_TICKS))
+        d = abs(rep.realized_reduction_pct[s] - solo.realized_reduction_pct)
+        dcom = float(np.abs(rep.committed[s] - solo.committed).max())
+        log(f"[regions 5f] stream group {s}: realized "
+            f"{rep.realized_reduction_pct[s]:.4f} % batched, "
+            f"{solo.realized_reduction_pct:.4f} % solo ({d:.2e} pp, limit "
+            f"{LANE_PP}); committed max |diff| {dcom:.3e} NP; solo "
+            f"controller {sw:.4f} s")
+        require(d < LANE_PP, f"regions stream group {s}: {d:.4f} pp")
+
+    # The warm refinement sweep from stack_states: each lane its warm solve.
+    pols = [CR1(lam=lam) for lam in REGION_LAMS]
+    cold = sweep(bare, pols)
+    warm_ctx = SolveContext(steps=REFINE_STEPS,
+                            warm=stack_states([r.state for r in cold]))
+    ref, ref_wall = counted(
+        f"CR1 refinement over lam {REGION_LAMS} from stack_states, "
+        f"{REFINE_STEPS} steps", lambda: sweep(bare, pols, ctx=warm_ctx),
+        expected_lane_launches(REFINE_STEPS, 1))
+    loopw, ww = _timed(torch, lambda: [solve(bare, pl, ctx=SolveContext(
+        steps=REFINE_STEPS, warm=r.state)) for pl, r in zip(pols, cold)])
+    for a, b in zip(ref, loopw):
+        require(np.array_equal(a.D, b.D)
+                and a.carbon_reduction_pct == b.carbon_reduction_pct,
+                "regions refinement: a lane differs from its warm solve()")
+    log(f"[regions 5f] refinement: lanes bitwise equal to their warm "
+        f"solve(); batched {ref_wall:.4f} s, loop {ww:.4f} s")
+    log(f"[regions 5f] phase wall {time.perf_counter() - t_phase:.2f} s")
     return totals
 
 
@@ -1844,8 +2169,10 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_policies(np, torch, fleets[0]).items():
         launches[name] += n
-    for name, n in phase_regions(np, torch, fleets[0]).items():
-        launches[name] += n
+    p_regions = phase_region_fleet()
+    for phase in (phase_regions, phase_region_lanes):
+        for name, n in phase(np, torch, fleets[0], p_regions).items():
+            launches[name] += n
     for path in SERVE_PATHS:
         for name, n in phase_serve(np, torch, *path).items():
             launches[name] = launches.get(name, 0) + n

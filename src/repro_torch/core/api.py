@@ -46,17 +46,20 @@ the host. B1 and B3 are closed forms scored once through
 `fleet_penalties`.
 
 Multi-region fleets (`mci` (R, T), a region per row) solve through
-`solve` and `sweep` under every policy: each region is priced on its own
-trace and normalized on its own reductions (`core/regional.py`), folded
-into operands the `al_step` kernel already reads (a carbon row per fleet
-row, a step multiplier per row), so the kernel stays region-blind. CR3
-clears one Eq.-6 market per region. A topology adds the migration
-post-stage (`core/migration.py`), or with `SolveContext.coupled_migration`
-the joint (curtailment, flow) refinement. R = 1 is canonicalized to the
+every entry point under every policy it takes: `solve`, `sweep` (cold
+and warm from `stack_states`), `solve_day` (an (n_ticks, R, T)
+forecast stack), the ensembles and the streaming controller. Each region
+is priced on its own trace and normalized on its own reductions
+(`core/regional.py`, sums over index tensors found once on the host, so
+a captured day holds them), folded into operands the `al_step` kernel
+already reads (a carbon row per fleet row, per lane in the lanes, and a
+step multiplier per row), so the kernel stays region-blind. CR3 clears
+one Eq.-6 market per region. A topology adds the migration post-stage
+(`core/migration.py`), or with `SolveContext.coupled_migration` the
+joint (curtailment, flow) refinement. R = 1 is canonicalized to the
 single-region path, bit for bit.
 
-Not ported: meshes (ROADMAP queue 1, item 11); multi-region days,
-streams, ensembles and warm refinement sweeps (item 9b).
+Not ported: meshes (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -72,7 +75,8 @@ from repro_torch.core.daygraph import DAY_GRAPHS
 from repro_torch.core.engine import EngineConfig, EngineState, al_minimize
 from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, CR3_MU0,
                                            FleetProblem,
-                                           FleetSolveResult, _bounds,
+                                           FleetSolveResult, RegionIndex,
+                                           _bounds,
                                            _enter_tick, _mean_projection,
                                            _projection, _report,
                                            cr2_cap_plan, cr2_reference_fleet,
@@ -242,9 +246,9 @@ def sweep(problem: FleetProblem, policies: Sequence, *,
     dropped for more than one policy). A *stacked* warm state (leading
     axis len(policies), `stack_states([r.state for r in results])`)
     warm-starts each lane from its own slice: a refinement sweep of a
-    Pareto front at a fraction of the cold budget (single-region fleets;
-    multi-region ones refuse it, ROADMAP queue 1, item 9b). A topology's
-    migration stage follows each solve, as in `solve`."""
+    Pareto front at a fraction of the cold budget, single- or
+    multi-region. A topology's migration stage follows each solve, as in
+    `solve`."""
     ctx = ctx or SolveContext()
     refuse_mesh(ctx)
     problem = single_region_view(problem)
@@ -260,11 +264,6 @@ def _sweep(problem: FleetProblem, pols: list,
         return []
     fam = type(pols[0])
     stacked = _stacked_warm(ctx.warm, len(pols))
-    if stacked and problem.is_multiregion:
-        raise NotImplementedError(
-            "a warm refinement sweep from stack_states of a multi-region "
-            "fleet is not ported yet (ROADMAP queue 1, item 9b: multi-region "
-            "streaming and lanes)")
     warm_ok = ctx.warm is None or (stacked and fam in (CR1, CR2))
     batched = (all(type(pl) is fam for pl in pols)
                and fam in (CR1, CR2, CR3) and fam._sweep_uniform(pols)
@@ -351,6 +350,13 @@ def lane_norms(norms_of, lanes) -> tuple[Tensor, ...]:
     return tuple(torch.stack(col) for col in zip(*rows))
 
 
+def lane_rows(p: FleetProblem) -> Tensor:
+    """Each fleet row's carbon trace of a multi-region view, gathered
+    along the region axis: (W, T) for a shared (R, T) `mci`, (N, W, T)
+    for a lane-leading (N, R, T) overlay (each lane its own rows)."""
+    return p.mci[..., p.region, :]
+
+
 def _plan_carbon(D: Tensor, mci: Tensor) -> Tensor:
     """(N, W) carbon of each lane's rows, mci (T,) shared or (N, T)."""
     return torch.matmul(D, mci[..., None])[..., 0]
@@ -371,7 +377,7 @@ def _cr1_lanes(p: FleetProblem, views, lams: Tensor, state0: EngineState,
     if p.region is not None:
         # Per-row norms (N, W), step scales (N, W, 1).
         coef0, step = lams[:, None] * pen_norm, step_scale
-        wmci = p.mci[p.region]
+        wmci = lane_rows(p)
 
         def objective(D: Tensor, _) -> Tensor:
             return ((coef0 * fleet_penalties(p, D, use_kernel)).sum()
@@ -407,7 +413,7 @@ def _cr2_lanes(p: FleetProblem, views, refs: Sequence[Tensor],
     if p.region is not None:
         # Per-row norms (N, W), step scales (N, W, 1).
         lane_scale, step = scale, step_scale
-        wmci = p.mci[p.region]
+        wmci = lane_rows(p)
 
         def objective(D: Tensor, _) -> Tensor:
             return -(car_norm[..., None] * D * wmci).sum()
@@ -454,7 +460,9 @@ def _al_fused_inner(p: FleetProblem, mode: str, cfg: EngineConfig, *,
     A multi-region view hands over per-row norms ((W,), or (N, W) with
     lanes) and folds them into operands the kernel already reads, as the
     JAX package does, so the kernel stays region-blind: the carbon term
-    becomes a row per fleet row, `-car_w · mci[region]` (W, T); CR1's
+    becomes a row per fleet row, `-car_w · mci[region]` (W, T), or
+    (N, W, T) with lanes (an ensemble's lanes each price on their own
+    (R, T) trace); CR1's
     per-row weight `coef0 = lam · pen_w` folds into `k` (the gradient is
     linear in k) with coef0 = 1; CR2's residual scale folds `1/scale_w`
     into `k` and `refs` (h and coef·dpen are unchanged) with scale = 1;
@@ -463,7 +471,7 @@ def _al_fused_inner(p: FleetProblem, mode: str, cfg: EngineConfig, *,
     lo, hi = _bounds(p)
     k = p.k
     if p.region is not None:
-        cvec = -car_norm[..., None] * p.mci[p.region]
+        cvec = -car_norm[..., None] * lane_rows(p)
         if mode == "cr1":
             k, coef0 = k * coef0, 1.0
         else:
@@ -1276,6 +1284,10 @@ class _Day:
     outer: int
     W: int
     T: int
+    R: int
+    # Rows per region of a multi-region fleet (() single-region): the
+    # captured sums gather index tensors of these lengths.
+    region_counts: tuple[int, ...]
     n_ticks: int
     first_steps: int
     warm_steps: int
@@ -1291,28 +1303,26 @@ class _Day:
 
 
 _FLEET_BUFFERS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
-                  "x2_kind", "jobs", "is_batch", "upper")
+                  "x2_kind", "jobs", "is_batch", "upper", "region")
 
 
 def _day_setup(problem: FleetProblem, policy, mci_stack,
                ctx: SolveContext, cold_steps: int | None,
                warm_steps: int | None):
     """Validate a day and lay it out: returns (problem, mci_stack, day,
-    inputs) with the single-region problem, the float32 (n_ticks, T)
-    stack, the static `_Day` and the day's tensors on its device (the
-    fleet's fields, the stack, CR1's lam or CR2's float64 cap plan in
-    float32, and a warm state, cloned)."""
+    inputs) with the problem (R = 1 canonicalized), the float32
+    (n_ticks, T) or (n_ticks, R, T) stack, the static `_Day` and the
+    day's tensors on its device (the fleet's fields with a multi-region
+    fleet's region ids and region-sorted rows, the stack, CR1's lam or
+    CR2's float64 cap plan in float32, and a warm state, cloned)."""
     if not isinstance(problem, FleetProblem):
         raise TypeError(f"solve_day() takes a FleetProblem; got "
                         f"{type(problem).__name__}")
     refuse_mesh(ctx)
     problem = single_region_view(problem)
-    if problem.is_multiregion:
-        raise NotImplementedError(
-            "solve_day of a multi-region fleet is not ported yet (ROADMAP "
-            "queue 1, item 9b: multi-region streaming and lanes)")
     stack = np.asarray(mci_stack, np.float32)
-    if stack.ndim == 3 and stack.shape[1] == 1:
+    if (not problem.is_multiregion and stack.ndim == 3
+            and stack.shape[1] == 1):
         stack = stack[:, 0]          # degenerate R = 1 stack, canonicalized
     want = np.asarray(problem.mci).shape
     if stack.ndim != len(want) + 1 or stack.shape[1:] != want:
@@ -1332,9 +1342,13 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
     if warm_steps is None:
         warm_steps = max(1, cold_steps // 4)
     warm = ctx.warm is not None
+    view = device_view(problem, device)
+    index = view.region_index
     day = _Day(policy=policy.name,
                outer=policy.outer if isinstance(policy, CR2) else 1,
-               W=problem.W, T=problem.T, n_ticks=stack.shape[0],
+               W=problem.W, T=problem.T, R=problem.R,
+               region_counts=() if index is None else index.counts,
+               n_ticks=stack.shape[0],
                first_steps=warm_steps if warm else cold_steps,
                warm_steps=warm_steps,
                first_shift=(ctx.shift or 1) if warm else 0, first_reset=warm,
@@ -1343,9 +1357,10 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
                max_curtail_frac=float(problem.max_curtail_frac),
                has_upper=problem.upper is not None, use_kernel=use_kernel,
                device=str(device))
-    view = device_view(problem, device)
     inputs = {n: getattr(view, n) for n in _FLEET_BUFFERS
               if getattr(view, n) is not None}
+    if index is not None:
+        inputs["region_order"] = index.order
     inputs["mci"] = torch.as_tensor(stack, device=device)
     if isinstance(policy, CR1):
         inputs["lam"] = torch.full((), policy.lam, dtype=f32, device=device)
@@ -1368,14 +1383,20 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
 def _day_impl(day: _Day, inputs: dict[str, Tensor]):
     """The day's tick loop, plain code on the tensors of `inputs`: tick 0
     with its own budget, shift and mu reset, then for every later tick
-    roll usage, jobs, `upper` (and CR2's cap plan) an hour, shift the
-    plan (`EngineState.shifted`), reset mu and re-solve warm. The same on
-    the CPU and on the card, where `solve_day` captures it. Returns
-    (committed (n_ticks, W), D, penalties, x, lam_eq, lam_in, mu) of the
-    last tick."""
+    roll usage, jobs, `upper` (and CR2's cap plan) an hour, install the
+    tick's forecast ((T,), or (R, T) over regions), shift the plan
+    (`EngineState.shifted`), reset mu and re-solve warm. A multi-region
+    tick recomputes its per-region norms from the rolled window, its
+    per-row carbon rows and step scales among them, on the device. The
+    same on the CPU and on the card, where `solve_day` captures it.
+    Returns (committed (n_ticks, W), D, penalties, x, lam_eq, lam_in, mu)
+    of the last tick."""
+    index = (RegionIndex(inputs["region_order"], day.region_counts)
+             if day.region_counts else None)
     p = FleetProblem(**{n: inputs.get(n) for n in _FLEET_BUFFERS},
                      mci=inputs["mci"][0], day_hours=day.day_hours,
-                     max_curtail_frac=day.max_curtail_frac)
+                     max_curtail_frac=day.max_curtail_frac,
+                     region_index=index)
     if day.warm:
         state = EngineState(x=inputs["x"], lam_eq=inputs["lam_eq"],
                             lam_in=inputs["lam_in"], mu=inputs["mu"])
@@ -1415,17 +1436,21 @@ def solve_day(problem: FleetProblem, policy, mci_stack, *,
     """Solve a whole rolling-horizon day.
 
     `mci_stack` is the (n_ticks, T) forecast-revision stack: row i is the
-    forecast the controller sees at tick i. Tick 0 solves with
-    `cold_steps` (the policy's default when None) from `ctx.warm` or a
-    cold state; every later tick rolls the window an hour, shifts the
-    plan, resets mu and re-solves with `warm_steps` (default
-    `cold_steps // 4`). A warm-started day runs every tick at
+    forecast the controller sees at tick i; a multi-region fleet's is
+    (n_ticks, R, T), one (R, T) forecast per tick, each tick's
+    per-region norms recomputed from its window. As in the JAX package,
+    no migration stage runs on a tick (only hour 0 commits). Tick 0
+    solves with `cold_steps` (the policy's default when None) from
+    `ctx.warm` or a cold state; every later tick rolls the window an
+    hour, shifts the plan, resets mu and re-solves with `warm_steps`
+    (default `cold_steps // 4`). A warm-started day runs every tick at
     `warm_steps`, its first shifted `ctx.shift or 1` hours.
 
     On CUDA with the kernels (`use_kernel`, on by default there) the day
     is one CUDA-graph replay (`core/daygraph.py`): captured on the first
-    day of each static configuration (policy and `outer`, W, T, n_ticks,
-    the step budgets, the first tick's shift and reset, `moment_dtype`,
+    day of each static configuration (policy and `outer`, W, T, R and
+    the rows per region, n_ticks, the step budgets, the first tick's
+    shift and reset, `moment_dtype`,
     `day_hours`, `max_curtail_frac`, whether `upper` is given), replayed
     after that with the day's data (fleet, forecasts, warm state, lam or
     the cap plan) copied into its buffers. A failed capture raises.

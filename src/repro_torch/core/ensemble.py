@@ -1,7 +1,7 @@
 """Batched scenario-ensemble evaluation and risk reports.
 
-A port of the JAX package's `repro.core.ensemble`, single-region and on
-one device. `repro_torch.core.scenario` materializes S grid/fleet
+A port of the JAX package's `repro.core.ensemble` on one device, single-
+and multi-region. `repro_torch.core.scenario` materializes S grid/fleet
 scenarios as a `ScenarioStack` (per-field overlays with a leading S
 axis); this module evaluates a `DRPolicy` across the whole stack:
 
@@ -16,19 +16,28 @@ axis); this module evaluates a `DRPolicy` across the whole stack:
     independent forecast streams through one batched controller. Each
     tick stacks the S revised forecasts and re-solves all S lanes as one
     batched run, each warm from its own previous state (shift and mu
-    reset folded in), and commits hour 0 per scenario.
+    reset folded in), and commits hour 0 per scenario. A multi-region
+    problem takes S groups of R streams, one per region; the scenario
+    axis then carries (S, R, T) forecast stacks.
   * `EnsembleResult.report()` / `EnsembleReport`: quantiles and CVaR of
     carbon reduction and fleet penalty, per-workload penalty
     distributions and SLO-violation probabilities, fairness dispersion
     per scenario (Jain index, max/min share ratio), and
     `compare_policies` tables.
 
+Multi-region stacks (`RegionalDivergence`'s (S, R, T) overlays, or
+any generator over a multi-region base) ride the same batched lane: each
+lane gathers its own (W, T) carbon rows along the region axis and takes
+its per-region norms from its own one-scenario view, and the batched
+lane then applies each scenario's migration post-stage exactly as the
+loop lane's `solve()` does (`_apply_migration_credit`).
+`SolveContext.coupled_migration` takes the loop lane.
+
 Parity contract (the JAX package's): the batched lane matches the loop
 of `api.solve` within 0.01 pp on every scenario.
 
-Not ported yet, each refused by name: the device-mesh lanes (ROADMAP
-queue 1, item 11), multi-region stacks and per-region stream groups
-(item 9b), and with them the migration credit.
+Not ported yet: the device-mesh lanes (ROADMAP queue 1, item 11),
+refused by name.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, FleetProblem,
                                            fleet_penalties,
                                            single_region_view)
 from repro_torch.core.metrics import jain_index, max_min_ratio
+from repro_torch.core.regional import region_totals
 from repro_torch.core.scenario import ScenarioStack, resolve_scenarios
 from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
 
@@ -271,8 +281,13 @@ def _result_from_stacks(base: FleetProblem, stack: ScenarioStack, policy,
                         ) -> EnsembleResult:
     """`fleet_solver._report`, vectorized over the scenario axis."""
     mci, usage, ent = _stack_arrays(base, stack)
-    carbon_base = (usage.sum(axis=1) * mci).sum(axis=1)          # (S,)
-    car = np.einsum("swt,st->s", D, mci)
+    if mci.ndim == 3:                # multi-region: (S, R, T) MCI stacks
+        wmci = mci[:, np.asarray(base.region), :]                # (S, W, T)
+        carbon_base = (usage * wmci).sum(axis=(1, 2))            # (S,)
+        car = (D * wmci).sum(axis=(1, 2))
+    else:
+        carbon_base = (usage.sum(axis=1) * mci).sum(axis=1)      # (S,)
+        car = np.einsum("swt,st->s", D, mci)
     day_hours = min(base.day_hours, base.T)   # as `project_days`
     n_days = base.T // day_hours
     span = n_days * day_hours
@@ -302,27 +317,26 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
     `scenarios` is a `ScenarioStack`, a scenario generator (or
     `SCENARIO_REGISTRY` name), or a sequence of those (concatenated).
     CR1/CR2 run all S scenarios as one batched lane on `ctx.device` (the
-    card unless "cpu"); other policies (CR3, B1, B3, as in the JAX
-    package) and warm, donated, shifted or mu-reset contexts fall back
-    to a loop of `api.solve` with the same semantics. `batched` forces the lane (True raises if there is no
+    card unless "cpu"), a multi-region fleet's with each scenario's
+    migration post-stage after it; other policies (CR3, B1, B3, as in
+    the JAX package) and warm, donated, shifted, mu-reset or coupled-
+    migration contexts fall back to a loop of `api.solve` with the same
+    semantics. `batched` forces the lane (True raises if there is no
     batched lane for the policy and context; False forces the loop, the
     parity hook)."""
     ctx = ctx or SolveContext()
     refuse_mesh(ctx)
     problem = single_region_view(problem)
-    if problem.is_multiregion:
-        raise NotImplementedError(
-            "ensembles of a multi-region fleet are not ported yet (ROADMAP "
-            "queue 1, item 9b: multi-region streaming and lanes)")
     policy = resolve_policy(policy)
     stack = resolve_scenarios(scenarios, problem)
     can_batch = (_batched_capable(policy) and ctx.warm is None
-                 and not ctx.donate and not ctx.shift and not ctx.reset_mu)
+                 and not ctx.donate and not ctx.shift and not ctx.reset_mu
+                 and not ctx.coupled_migration)
     if batched is True and not can_batch:
         raise ValueError(
             f"no batched ensemble lane for policy "
             f"{getattr(policy, 'name', policy)!r} under this context "
-            "(CR1/CR2, no warm/donate/shift/reset_mu)")
+            "(CR1/CR2, no warm/donate/shift/reset_mu/coupled_migration)")
     device = resolve_device(ctx.device)
     use_kernel = resolve_use_kernel(ctx.use_kernel, device)
     if batched is False or not can_batch:
@@ -354,8 +368,32 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
                               steps=ctx.resolved_steps(policy),
                               use_kernel=use_kernel, device=device,
                               moment_dtype=ctx.moment_dtype)
-    return _result_from_stacks(problem, stack, policy, D.cpu().numpy(),
-                               pens.cpu().numpy(), batched=True)
+    res = _result_from_stacks(problem, stack, policy, D.cpu().numpy(),
+                              pens.cpu().numpy(), batched=True)
+    return _apply_migration_credit(problem, stack, res, device)
+
+
+def _apply_migration_credit(base: FleetProblem, stack: ScenarioStack,
+                            res: EnsembleResult, device) -> EnsembleResult:
+    """Each scenario's migration post-stage for the batched lane: what
+    `api.solve` applies in the loop lane (`api._maybe_migrate`, the net
+    saving credited on the scenario's own carbon base), so the two lanes
+    agree on multi-region fleets with a topology of positive
+    bandwidth."""
+    if (base.topology is None or not base.is_multiregion
+            or not np.any(np.asarray(base.topology.bandwidth) > 0.0)):
+        return res
+    from repro_torch.core.migration import fleet_migration
+    car = res.carbon_reduction_pct.copy()
+    extras = []
+    for s, ps in enumerate(stack.problems(base)):
+        plan = fleet_migration(ps, np.asarray(res.D[s]), device=device)
+        wmci = np.asarray(ps.mci)[np.asarray(ps.region)]
+        carbon_base = float((np.asarray(ps.usage) * wmci).sum())
+        car[s] += 100.0 * plan.net_saved / carbon_base
+        extras.append({"migration": plan})
+    return dataclasses.replace(res, carbon_reduction_pct=car,
+                               extras=tuple(extras))
 
 
 def compare_policies(problem: FleetProblem, policies: Sequence, scenarios,
@@ -450,47 +488,56 @@ def run_streaming_ensemble(problem: FleetProblem, policy, streams, *,
     its own previous `EngineState` (shift and mu reset folded in): the
     `RollingHorizonSolver` loop over S streams at once. Policies without
     a batched lane fall back to S `RollingHorizonSolver` runs. Only hour
-    0 of each plan commits. A stream per region (multi-region problems)
-    is not ported yet (ROADMAP queue 1, item 9b)."""
+    0 of each plan commits, so no migration stage runs on a tick.
+
+    A multi-region problem takes one stream per region per scenario: a
+    sequence of R-tuples, as `ForecastRegime.streams` yields for a
+    multi-region base. The scenario axis then carries (S, R, T) forecast
+    stacks; each region's committed total is priced on its own trace."""
     from repro_torch.core.scenario import ForecastRegime
     from repro_torch.core.streaming import RollingHorizonSolver
     policy = resolve_policy(policy)
     problem = single_region_view(problem)
-    if problem.is_multiregion:
-        raise NotImplementedError(
-            "streaming ensembles of a multi-region fleet are not ported yet "
-            "(ROADMAP queue 1, item 9b: multi-region streaming and lanes)")
+    multi = problem.is_multiregion
+    R = problem.R
     if isinstance(streams, ForecastRegime):
         streams = streams.streams(problem, n_ticks=n_ticks or 1)
     groups = []
     for item in streams:
         g = tuple(item) if isinstance(item, (tuple, list)) else (item,)
-        if len(g) != 1:
-            raise NotImplementedError(
-                "a stream per region is not ported yet (ROADMAP queue 1, "
-                "item 9b: multi-region streaming and lanes)")
-        groups.append(g[0])
+        if len(g) != R:
+            raise ValueError(
+                f"need {R} stream(s) per scenario (one per region), "
+                f"got {len(g)}")
+        groups.append(g)
     if not groups:
         raise ValueError("run_streaming_ensemble needs >= 1 stream")
-    for st in groups:
-        if st.horizon != problem.T:
-            raise ValueError(
-                f"stream horizon {st.horizon} != problem.T {problem.T}")
-    max_ticks = min(st.n_ticks for st in groups)
+    for g in groups:
+        for st in g:
+            if st.horizon != problem.T:
+                raise ValueError(
+                    f"stream horizon {st.horizon} != problem.T {problem.T}")
+    max_ticks = min(st.n_ticks for g in groups for st in g)
     n = max_ticks if n_ticks is None else n_ticks
     if not 0 < n <= max_ticks:
         raise ValueError(f"n_ticks {n} outside (0, {max_ticks}]")
     S = len(groups)
-    labels = tuple(f"stream[sigma={st.revision_sigma:.3f},seed={st.seed}]"
-                   for st in groups)
+    labels = tuple(
+        f"stream[sigma={g[0].revision_sigma:.3f},seed={g[0].seed}]"
+        for g in groups)
     device = resolve_device(device)
     base_usage = np.asarray(problem.usage, float)
+    if multi:
+        # Per-region totals of the committed hours, exact in float64.
+        onehot = np.zeros((problem.W, R))
+        onehot[np.arange(problem.W), np.asarray(problem.region)] = 1.0
+        usage_by_region = region_totals(problem.region, base_usage, R)
 
     if not _batched_capable(policy):
         reports = [RollingHorizonSolver(
-            problem, st, policy=policy, cold_steps=cold_steps,
+            problem, g, policy=policy, cold_steps=cold_steps,
             warm_steps=warm_steps, use_kernel=use_kernel,
-            device=device).run(n) for st in groups]
+            device=device).run(n) for g in groups]
         return StreamingEnsembleReport(
             labels=labels,
             committed=np.stack([r.committed for r in reports]),
@@ -511,7 +558,8 @@ def run_streaming_ensemble(problem: FleetProblem, policy, streams, *,
     states: EngineState | None = None
     total_steps = 0
     for t in range(n):
-        mcis = np.stack([st.forecast(t) for st in groups])
+        mcis = np.stack([[st.forecast(t) for st in g] if multi
+                         else g[0].forecast(t) for g in groups])
 
         def roll(a):
             return None if a is None else np.roll(a, -t, axis=1)
@@ -526,10 +574,19 @@ def run_streaming_ensemble(problem: FleetProblem, policy, streams, *,
             shift=0 if t == 0 else 1, reset_mu=t > 0)
         committed[:, :, t] = D[:, :, 0].cpu().numpy()
         total_steps += steps * (policy.outer if type(policy) is CR2 else 1)
-        real_t = np.asarray([st.realized(t) for st in groups])
-        realized += committed[:, :, t].sum(axis=1) * real_t
-        forecast += committed[:, :, t].sum(axis=1) * mcis[:, 0]
-        baseline += real_t * base_usage[:, t % base_usage.shape[1]].sum()
+        hour = t % base_usage.shape[1]
+        if multi:
+            real_t = np.asarray([[st.realized(t) for st in g]
+                                 for g in groups])                 # (S, R)
+            by_reg = committed[:, :, t] @ onehot                   # (S, R)
+            realized += (by_reg * real_t).sum(axis=1)
+            forecast += (by_reg * mcis[:, :, 0]).sum(axis=1)
+            baseline += (usage_by_region[:, hour] * real_t).sum(axis=1)
+        else:
+            real_t = np.asarray([g[0].realized(t) for g in groups])
+            realized += committed[:, :, t].sum(axis=1) * real_t
+            forecast += committed[:, :, t].sum(axis=1) * mcis[:, 0]
+            baseline += real_t * base_usage[:, hour].sum()
     return StreamingEnsembleReport(
         labels=labels, committed=committed, realized_carbon=realized,
         forecast_carbon=forecast, realized_baseline=baseline,

@@ -17,13 +17,15 @@ Multi-region fleets stack per-region signals as `mci` (R, T) and give
 every workload a region id; `regional_fleet` composes one from R
 single-region fleets and `RegionTopology` adds the migration network
 (`core/migration.py`). R = 1 is canonicalized to the single-region form
-at the entry points (`single_region_view`), as in the JAX package.
+at the entry points (`single_region_view`), as in the JAX package. A
+multi-region device view carries its `RegionIndex`, each region's rows
+found once on the host, so that per-region sums need no host sync.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -84,6 +86,28 @@ class RegionTopology:
                 f"{len(self.labels)}")
 
 
+class RegionIndex(NamedTuple):
+    """Each region's rows of a multi-region fleet, found once on the host
+    (`region_index`): per-region sums gather them with `index_select`,
+    which needs no host sync and so runs inside a CUDA-graph capture."""
+    order: Tensor             #: (W,) int64 row ids by region, ascending
+    counts: tuple[int, ...]   #: each region's row count (fixed by shape)
+
+    def rows(self) -> tuple[Tensor, ...]:
+        """Each region's row ids, ascending: views of `order`."""
+        return torch.split(self.order, self.counts)
+
+
+def region_index(region, R: int, device) -> RegionIndex:
+    """The `RegionIndex` of host region ids (W,) in [0, R)."""
+    region = np.asarray(region)
+    order = np.argsort(region, kind="stable")
+    counts = np.bincount(region, minlength=R)
+    return RegionIndex(torch.as_tensor(order, dtype=torch.int64,
+                                       device=device),
+                       tuple(int(c) for c in counts))
+
+
 @dataclasses.dataclass(frozen=True)
 class FleetProblem:
     """Stacked-workload DR instance.
@@ -92,8 +116,8 @@ class FleetProblem:
     Multi-region fleets stack per-region signals as `mci: (R, T)` and give
     every workload a region via `region: (W,) int`; an optional `topology`
     adds the cross-region migration network. A device view
-    (`device_view`) of a multi-region fleet is the one that carries
-    `region`.
+    (`device_view`) of a multi-region fleet carries `region` as a tensor
+    and its `region_index`.
     """
     usage: np.ndarray          # (W, T)
     entitlement: np.ndarray    # (W,)
@@ -114,6 +138,9 @@ class FleetProblem:
     # optional migration network. None for single-region fleets.
     region: np.ndarray | None = None
     topology: RegionTopology | None = None
+    # Each region's rows on the device (`device_view` of a multi-region
+    # fleet); None on the host.
+    region_index: RegionIndex | None = None
 
     @property
     def W(self) -> int:
@@ -192,15 +219,18 @@ DATA_FIELDS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
 def device_view(p: FleetProblem, device: torch.device) -> FleetProblem:
     """The same problem with float32 tensor fields on `device` (bool
     `is_batch`, int64 `region`, `mci` (T,) or (R, T)), made once per
-    solve; `names` dropped, the host `topology` kept."""
+    solve, and a multi-region fleet's `region_index`; `names` dropped,
+    the host `topology` kept."""
     def conv(name, a):
         if a is None:
             return None
         dtype = {"is_batch": torch.bool, "region": torch.int64}.get(name, f32)
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    index = None if p.region is None else region_index(p.region, p.R, device)
     return dataclasses.replace(
-        p, names=None, **{n: conv(n, getattr(p, n)) for n in DATA_FIELDS})
+        p, names=None, region_index=index,
+        **{n: conv(n, getattr(p, n)) for n in DATA_FIELDS})
 
 
 def single_region_view(p: FleetProblem) -> FleetProblem:
@@ -210,10 +240,11 @@ def single_region_view(p: FleetProblem) -> FleetProblem:
     Everything else passes through."""
     if p.is_multiregion and np.asarray(p.mci).shape[0] == 1:
         return dataclasses.replace(p, mci=np.asarray(p.mci)[0], region=None,
-                                   topology=None)
+                                   topology=None, region_index=None)
     if not p.is_multiregion and (p.region is not None
                                  or p.topology is not None):
-        return dataclasses.replace(p, region=None, topology=None)
+        return dataclasses.replace(p, region=None, topology=None,
+                                   region_index=None)
     return p
 
 

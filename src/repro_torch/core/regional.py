@@ -11,11 +11,13 @@ independent single-region solves:
     region row count), `segment_sum` (per-region sums of rows, (R,) +
     trailing shape, differentiable) and `region_sum` (a per-region sum
     of a (W,) quantity gathered back to rows), `cr1_norms`, `cr2_norms`
-    and `cr3_reg_scale`. The sums repeat bit for bit: a masked sum per
-    region, a fixed reduction order, no atomics (`index_add_` and
-    `scatter_add_` on floats take atomics on the card). `region_sum`
-    gathers each region's rows first, so a region's total is the sum its
-    standalone single-region fleet takes;
+    and `cr3_reg_scale`. The sums repeat bit for bit: a fixed reduction
+    order, no atomics (`index_add_` and `scatter_add_` on floats take
+    atomics on the card). `region_sum` gathers each region's rows in
+    ascending order with `index_select` on the view's `RegionIndex`
+    (found once on the host), so a region's total is the sum its
+    standalone single-region fleet takes, and nothing reads a device
+    value on the host: the CR1/CR2 norms run inside a captured day;
   * on the host, exact float64 numpy: `region_totals`, CR3's Eq.-6
     fiscal sums and the migration aggregates.
 
@@ -29,7 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.fleet_solver import FleetProblem, _bounds
+from repro_torch.core.fleet_solver import (FleetProblem, RegionIndex,
+                                           _bounds)
 
 Tensor = torch.Tensor
 f32 = torch.float32
@@ -55,24 +58,28 @@ def segment_sum(x: Tensor, region: Tensor, R: int) -> Tensor:
                                                    device=x.device)).sum(1)
 
 
-def region_sum(x: Tensor, region: Tensor, R: int) -> Tensor:
+def region_sum(x: Tensor, region: Tensor, index: RegionIndex) -> Tensor:
     """Per-row view of a per-region sum of `x` (W,): each region's rows
-    gathered in order and summed (the sum a standalone fleet of those
-    rows takes), gathered back to rows."""
-    total = torch.zeros_like(x)
-    for mask in region_masks(region, R):
-        total = torch.where(mask, x[mask].sum(), total)
-    return total
+    gathered in ascending order (`index`) and summed, the sum a
+    standalone fleet of those rows takes (and the sum of `x[mask]`, the
+    same elements in the same order), gathered back to rows by
+    `region`."""
+    sums = torch.stack([x.index_select(0, rows).sum()
+                        for rows in index.rows()])
+    return sums[region]
 
 
 def region_rows(p: FleetProblem) -> RegionReductions:
     """`(region, wmci, counts)` of a multi-region device view `p`, with
     `wmci[w] = mci[region[w]]` and `counts[w]` the row count of w's
     region."""
-    region = p.region
+    region, index = p.region, p.region_index
+    if index is None:
+        raise ValueError("a multi-region view needs its region_index: "
+                         "make it with fleet_solver.device_view")
     ones = torch.ones(region.shape, dtype=f32, device=region.device)
     return RegionReductions(region, p.mci[region],
-                            region_sum(ones, region, p.mci.shape[0]))
+                            region_sum(ones, region, index))
 
 
 def region_totals(region, weights, R: int) -> np.ndarray:
@@ -90,11 +97,11 @@ def region_totals(region, weights, R: int) -> np.ndarray:
 
 
 def _step_rows(p: FleetProblem, lo: Tensor, hi: Tensor, region: Tensor,
-               counts: Tensor, R: int) -> Tensor:
+               counts: Tensor) -> Tensor:
     """(W, 1) per-region step scale: the mean over its rows of each row's
     mean box width, the JAX package's per-region twin of the scalar."""
     rowmeans = torch.clamp(hi - lo, min=1e-6).mean(dim=1)
-    return (region_sum(rowmeans, region, R) / counts)[:, None]
+    return (region_sum(rowmeans, region, p.region_index) / counts)[:, None]
 
 
 def cr1_norms(p: FleetProblem):
@@ -109,10 +116,10 @@ def cr1_norms(p: FleetProblem):
     ent = torch.as_tensor(p.entitlement, dtype=f32, device=dev)
     if p.region is not None:
         region, wmci, counts = region_rows(p)
-        R = mci.shape[0]
-        return (100.0 / region_sum(ent, region, R),
-                100.0 / region_sum((usage * wmci).sum(1), region, R),
-                _step_rows(p, lo, hi, region, counts, R))
+        index = p.region_index
+        return (100.0 / region_sum(ent, region, index),
+                100.0 / region_sum((usage * wmci).sum(1), region, index),
+                _step_rows(p, lo, hi, region, counts))
     return (100.0 / ent.sum(),
             100.0 / (usage.sum(0) * mci).sum(),
             torch.clamp(hi - lo, min=1e-6).mean())
@@ -128,10 +135,11 @@ def cr2_norms(p: FleetProblem, refs: Tensor):
     usage = torch.as_tensor(p.usage, dtype=f32, device=dev)
     if p.region is not None:
         region, wmci, counts = region_rows(p)
-        R = mci.shape[0]
-        return (100.0 / region_sum((usage * wmci).sum(1), region, R),
-                torch.clamp(region_sum(refs, region, R) / counts, min=1e-3),
-                _step_rows(p, lo, hi, region, counts, R))
+        index = p.region_index
+        return (100.0 / region_sum((usage * wmci).sum(1), region, index),
+                torch.clamp(region_sum(refs, region, index) / counts,
+                            min=1e-3),
+                _step_rows(p, lo, hi, region, counts))
     return (100.0 / (usage.sum(0) * mci).sum(),
             torch.clamp(refs.mean(), min=1e-3),
             torch.clamp(hi - lo, min=1e-6).mean())

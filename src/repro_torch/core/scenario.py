@@ -2,9 +2,7 @@
 
 A port of the JAX package's `repro.core.scenario`: numpy code that
 produces the same arrays from the same seeds, over the port's
-`FleetProblem` and `carbon` module. `RegionalDivergence`, which needs a
-multi-region base, and the streams of a multi-region base are not
-ported yet (ROADMAP queue 1, item 9b) and raise `NotImplementedError`.
+`FleetProblem` and `carbon` module, single- and multi-region.
 
 The paper stress-tests Carbon Responder on one realized CAISO-2021 trace
 plus two Cambium projections (Fig. 11). A production DR controller must be
@@ -42,8 +40,7 @@ MCI generators: `DuckPerturb` (shape/peak/trough jitter),
 (2024/2050 `carbon.projection` mixes), `ForecastRegime` (per-scenario
 `ForecastStream` sigma/seed — also the streaming ensemble's stream
 factory), `RegionalDivergence` (per-region grid jitter over a
-multi-region base — (S, R, T) overlays; not ported yet). Fleet
-generators:
+multi-region base — (S, R, T) overlays). Fleet generators:
 `FleetJitter` (usage/entitlement scale), `FlexMixShift` (per-scenario
 sheddable fraction via the `upper` operational cap + batch/online
 usage mix shift).
@@ -405,11 +402,17 @@ class ForecastRegime(_GeneratorBase):
         `ensemble.run_streaming_ensemble` and `RollingHorizonSolver`
         expect."""
         actual = np.asarray(base.mci, float)
-        if actual.ndim == 2:
-            raise NotImplementedError(
-                "ForecastRegime.streams of a multi-region base (a stream per "
-                "region) is not ported yet (ROADMAP queue 1, "
-                "item 9b: multi-region streaming and lanes)")
+        if actual.ndim == 2:       # multi-region: S groups of R streams
+            reps = -(-(n_ticks + base.T - 1) // actual.shape[1])
+            tiled = np.tile(actual, (1, max(reps, 1)))
+            out = []
+            for s in range(self.n_scenarios):
+                sig, sd = self._params(s)
+                out.append(tuple(
+                    ForecastStream(actual=tiled[r], horizon=base.T,
+                                   revision_sigma=sig, seed=sd + r)
+                    for r in range(tiled.shape[0])))
+            return tuple(out)
         reps = -(-(n_ticks + base.T - 1) // actual.shape[0])
         actual = np.tile(actual, max(reps, 1))
         out = []
@@ -421,9 +424,15 @@ class ForecastRegime(_GeneratorBase):
 
     def generate(self, base: FleetProblem) -> ScenarioStack:
         streams = self.streams(base)
-        mcis = np.stack([st.forecast(0) for st in streams])
-        labels = tuple(f"forecast{i}[sigma={st.revision_sigma:.3f}]"
-                       for i, st in enumerate(streams))
+        if base.is_multiregion:
+            mcis = np.stack([[st.forecast(0) for st in g]
+                             for g in streams])
+            labels = tuple(f"forecast{i}[sigma={g[0].revision_sigma:.3f}]"
+                           for i, g in enumerate(streams))
+        else:
+            mcis = np.stack([st.forecast(0) for st in streams])
+            labels = tuple(f"forecast{i}[sigma={st.revision_sigma:.3f}]"
+                           for i, st in enumerate(streams))
         return ScenarioStack(mci=mcis, labels=labels)
 
 
@@ -446,9 +455,32 @@ class RegionalDivergence(_GeneratorBase):
     name: ClassVar[str] = "regional_divergence"
 
     def generate(self, base: FleetProblem) -> ScenarioStack:
-        raise NotImplementedError(
-            "RegionalDivergence over a multi-region base is not ported "
-            "yet (ROADMAP queue 1, item 9b: multi-region streaming and lanes)")
+        if not base.is_multiregion:
+            raise ValueError(
+                "RegionalDivergence needs a multi-region base problem "
+                "(mci of shape (R, T)); build one with "
+                "fleet_solver.regional_fleet / synthetic_regional_fleet")
+        mci = np.asarray(base.mci, float)
+        R = mci.shape[0]
+        n_days = max(1, base.T // base.day_hours)
+        mcis, labels = [], []
+        for s in range(self.n_scenarios):
+            rows = []
+            for reg in range(R):
+                r = _rng(self.seed, s, reg + 1)
+                level = float(np.exp(
+                    self.level_sigma * r.standard_normal()))
+                sev = float(np.clip(
+                    self.trough_sigma * abs(r.standard_normal()), 0.0, 0.95))
+                row = mci[reg] * level
+                if sev > 0.0:
+                    row = carbon.apply_drought(
+                        row, 0, n_days=n_days, severity=sev,
+                        day_hours=base.day_hours)
+                rows.append(row)
+            mcis.append(np.stack(rows))
+            labels.append(f"regional_div{s}")
+        return ScenarioStack(mci=np.stack(mcis), labels=tuple(labels))
 
 
 # ---------------------------------------------------------------------------

@@ -30,11 +30,16 @@ Receding-horizon caveat: batch day-preservation is enforced over the
 sliding window's 24 h blocks each re-solve; only committed hours are
 binding, so small per-window residuals wash out as the window slides.
 
-A port of the JAX package's `repro.core.streaming`, single-region and on
-one device: meshes, multi-region problems, the tick ledger, in-solve
-telemetry and the recompile guard raise `NotImplementedError`, each
-naming the ROADMAP item that ports it. CR3, B1 and B3 run tick by tick
-(`step`/`run`); `run_scanned` takes CR1/CR2 only, as `api.solve_day`.
+Multi-region problems take one stream per region: each tick installs
+the stacked (R, T) forecast, and the ledger prices each region's
+committed total on its own forecast and realized trace. Only hour 0 of
+each plan commits, so no migration stage runs on a tick.
+
+A port of the JAX package's `repro.core.streaming` on one device: meshes,
+the tick ledger, in-solve telemetry and the recompile guard raise
+`NotImplementedError`, each naming the ROADMAP item that ports it. CR3,
+B1 and B3 run tick by tick (`step`/`run`); `run_scanned` takes CR1/CR2
+only, as `api.solve_day`.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from repro_torch.core.carbon import ForecastStream
 from repro_torch.core.engine import EngineState
 from repro_torch.core.fleet_solver import (FleetProblem, FleetSolveResult,
                                            single_region_view)
+from repro_torch.core.regional import region_totals
 
 
 def _rel_revision(prev: np.ndarray | None, cur: np.ndarray) -> float:
@@ -72,19 +78,26 @@ class TickResult:
     long-lived controller holds O(W) per tick, not O(W·T)."""
     tick: int
     committed: np.ndarray        # (W,) NP adjustments enforced this hour
-    forecast_mci: float          # hour-0 forecast
-    realized_mci: float          # actual MCI once the hour elapsed
+    forecast_mci: float | np.ndarray   # hour-0 forecast ((R,) multi-region)
+    realized_mci: float | np.ndarray   # actual MCI once the hour elapsed
     inner_steps: int             # engine iterations spent on this re-solve
     plan: FleetSolveResult | None
+    committed_by_region: np.ndarray | None = None  # (R,) multi-region only
 
     @property
     def forecast_carbon(self) -> float:
         """kg CO2 the plan expected to eliminate this hour."""
+        if np.ndim(self.forecast_mci):
+            return float((self.committed_by_region
+                          * np.asarray(self.forecast_mci)).sum())
         return float(self.committed.sum() * self.forecast_mci)
 
     @property
     def realized_carbon(self) -> float:
         """kg CO2 actually eliminated this hour."""
+        if np.ndim(self.realized_mci):
+            return float((self.committed_by_region
+                          * np.asarray(self.realized_mci)).sum())
         return float(self.committed.sum() * self.realized_mci)
 
 
@@ -110,9 +123,6 @@ class StreamingReport:
             / max(abs(self.realized_carbon), 1e-12)
 
 
-_ITEM_9B = "item 9b: multi-region streaming and lanes"
-
-
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"RollingHorizonSolver: {what} is not ported yet (ROADMAP queue 1, "
@@ -126,7 +136,11 @@ class RollingHorizonSolver:
       problem: fleet template; `usage`/`jobs` (and `upper`) are treated as
         periodic traces that slide with the window (`np.roll` along time).
       stream: revised-forecast source; `stream.horizon` must equal
-        `problem.T` (a sequence of one stream is accepted).
+        `problem.T` (a sequence of one stream is accepted). A multi-region
+        problem takes a sequence of `problem.R` streams (e.g.
+        `ForecastStream.regional`); each tick then installs the stacked
+        (R, T) forecast. The migration post-stage is not applied on a
+        tick: only hour 0 of a plan commits.
       policy: a `DRPolicy` object (`CR1(lam=...)`, `CR2(...)`,
         `CR3(...)`, `B1(...)`, `B3(...)`) or a registry name; unknown
         names raise `ValueError` here.
@@ -159,7 +173,8 @@ class RollingHorizonSolver:
     re-clears from it (clearing only ever lowers rho; carrying a lowered
     price forward would ratchet the fleet onto a depressed price after
     one transient tick). `last_rho` is the latest cleared price
-    (`plan.extras["rho"]`); None for the policies that clear none.
+    (`plan.extras["rho"]`, (R,) over regions); None for the policies that
+    clear none.
     """
 
     def __init__(self, problem: FleetProblem,
@@ -185,15 +200,19 @@ class RollingHorizonSolver:
                 _refuse(what, "item 10: guardrails and observability")
         streams = (tuple(stream) if isinstance(stream, (list, tuple))
                    else (stream,))
-        if len(streams) != 1:
-            _refuse("a stream per region", _ITEM_9B)
-        if np.ndim(problem.mci) == 2 and np.shape(problem.mci)[0] > 1:
-            _refuse("a multi-region problem", _ITEM_9B)
+        # R = 1 canonicalizes up front: the whole streaming path, the
+        # ledger included, is then the single-region one bit for bit.
         problem = single_region_view(problem)
-        if streams[0].horizon != problem.T:
-            raise ValueError(f"stream horizon {streams[0].horizon} != "
-                             f"problem.T {problem.T}")
+        if len(streams) != problem.R:
+            raise ValueError(
+                f"need {problem.R} forecast stream(s) for this problem "
+                f"(R={problem.R}), got {len(streams)}")
+        for st in streams:
+            if st.horizon != problem.T:
+                raise ValueError(f"stream horizon {st.horizon} != "
+                                 f"problem.T {problem.T}")
         self.problem = problem
+        self.streams = streams
         self.stream = streams[0]
         self.policy = configured_policy(policy, lam=lam, cap_frac=cap_frac,
                                         rho=rho, tax_frac=tax_frac,
@@ -220,16 +239,48 @@ class RollingHorizonSolver:
         self._history: list[TickResult] = []
 
     # -- per-tick plumbing --------------------------------------------------
+    @property
+    def _n_ticks(self) -> int:
+        return min(st.n_ticks for st in self.streams)
+
+    def _forecast(self, tick: int) -> np.ndarray:
+        """This tick's revised horizon: (T,), or (R, T) stacked over the
+        per-region streams."""
+        if not self.problem.is_multiregion:
+            return self.stream.forecast(tick)
+        return np.stack([st.forecast(tick) for st in self.streams])
+
+    def _realized(self, tick: int) -> float | np.ndarray:
+        if not self.problem.is_multiregion:
+            return self.stream.realized(tick)
+        return np.array([st.realized(tick) for st in self.streams])
+
+    def _tick_result(self, tick: int, committed: np.ndarray,
+                     mci_hat: np.ndarray, inner_steps: int,
+                     plan: FleetSolveResult | None) -> TickResult:
+        multi = self.problem.is_multiregion
+        return TickResult(
+            tick=tick, committed=committed,
+            forecast_mci=(mci_hat[:, 0].copy() if multi
+                          else float(mci_hat[0])),
+            realized_mci=self._realized(tick), inner_steps=inner_steps,
+            plan=plan, committed_by_region=(
+                region_totals(self.problem.region, committed, self.problem.R)
+                if multi else None))
+
     def _window_problem(self, tick: int, mci: np.ndarray) -> FleetProblem:
         """Slide usage/jobs (and any operational cap) to hours
-        [tick, tick+T) and install `mci`."""
+        [tick, tick+T) and install `mci`. The migration topology is
+        dropped: only hour 0 of each plan commits, so a migration stage
+        on a tick would price hours that never run."""
         p = self.problem
 
         def roll(a):
             return None if a is None else np.roll(a, -tick, axis=1)
 
-        return dataclasses.replace(p, mci=np.asarray(mci), usage=roll(p.usage),
-                                   jobs=roll(p.jobs), upper=roll(p.upper))
+        return dataclasses.replace(p, mci=np.asarray(mci), topology=None,
+                                   usage=roll(p.usage), jobs=roll(p.jobs),
+                                   upper=roll(p.upper))
 
     def _ctx(self, **kw) -> SolveContext:
         return SolveContext(device=self.device, donate=self.donate,
@@ -254,7 +305,7 @@ class RollingHorizonSolver:
     def step(self) -> TickResult:
         """Ingest the next forecast revision, re-solve, commit hour 0."""
         tick = self._tick
-        mci_hat = self.stream.forecast(tick)
+        mci_hat = self._forecast(tick)
         warm = self._state
         rev = _rel_revision(self._prev_forecast, mci_hat)
         # Warm ticks shift the plan one hour and restart the mu schedule
@@ -271,10 +322,8 @@ class RollingHorizonSolver:
         self._state = plan.state
         self._prev_forecast = mci_hat
         self._tick = tick + 1
-        out = TickResult(tick=tick, committed=np.asarray(plan.D[:, 0]),
-                         forecast_mci=float(mci_hat[0]),
-                         realized_mci=self.stream.realized(tick),
-                         inner_steps=plan.iters, plan=plan)
+        out = self._tick_result(tick, np.asarray(plan.D[:, 0]), mci_hat,
+                                plan.iters, plan)
         self._retire_plan()
         self._history.append(out)
         return out
@@ -282,8 +331,8 @@ class RollingHorizonSolver:
     def run(self, n_ticks: int | None = None,
             on_tick: Callable[[TickResult], None] | None = None,
             ) -> StreamingReport:
-        """Run `n_ticks` hours (default: all the stream supports)."""
-        n = self.stream.n_ticks - self._tick if n_ticks is None else n_ticks
+        """Run `n_ticks` hours (default: all the streams support)."""
+        n = self._n_ticks - self._tick if n_ticks is None else n_ticks
         for _ in range(n):
             out = self.step()
             if on_tick is not None:
@@ -295,11 +344,12 @@ class RollingHorizonSolver:
         CUDA-graph replay of the whole day.
 
         Precomputes the (n_ticks, T) forecast-revision stack from the
-        stream. Matches the per-tick `run()` loop to < 0.01 pp realized
-        carbon (CR1/CR2). Warm-continues from and updates the solver
-        state, so `run_scanned(24)` per day and mixed `step()` /
-        `run_scanned()` schedules both work. `adaptive_warm` is refused:
-        a day's budget is part of its static configuration.
+        stream ((n_ticks, R, T) over regions). Matches the per-tick
+        `run()` loop to < 0.01 pp realized carbon (CR1/CR2).
+        Warm-continues from and updates the solver state, so
+        `run_scanned(24)` per day and mixed `step()` / `run_scanned()`
+        schedules both work. `adaptive_warm` is refused: a day's budget
+        is part of its static configuration.
         """
         if self.adaptive_warm:
             raise ValueError(
@@ -308,10 +358,10 @@ class RollingHorizonSolver:
                 "time, which one captured day cannot express; construct "
                 "with adaptive_warm=False or use run()")
         t0 = self._tick
-        n = self.stream.n_ticks - t0 if n_ticks is None else n_ticks
+        n = self._n_ticks - t0 if n_ticks is None else n_ticks
         if n <= 0:
             raise ValueError(f"n_ticks must be >= 1, got {n}")
-        mci_stack = np.stack([self.stream.forecast(t0 + i) for i in range(n)])
+        mci_stack = np.stack([self._forecast(t0 + i) for i in range(n)])
         day = solve_day(self._window_problem(t0, mci_stack[0]), self.policy,
                         mci_stack,
                         ctx=self._ctx(warm=self._state, shift=1,
@@ -322,22 +372,26 @@ class RollingHorizonSolver:
         self._prev_forecast = mci_stack[-1]
         self._tick = t0 + n
         self._retire_plan()
-        self._history.extend(TickResult(
-            tick=t0 + i, committed=day.committed[i],
-            forecast_mci=float(mci_stack[i][0]),
-            realized_mci=self.stream.realized(t0 + i),
-            inner_steps=day.inner_steps[i],
-            plan=day.last if i == n - 1 else None) for i in range(n))
+        self._history.extend(self._tick_result(
+            t0 + i, day.committed[i], mci_stack[i], day.inner_steps[i],
+            day.last if i == n - 1 else None) for i in range(n))
         return self.report()
 
     def report(self) -> StreamingReport:
         ticks = tuple(self._history)
         if not ticks:
             raise RuntimeError("no ticks committed yet: call step()/run()")
-        base_usage = np.asarray(self.problem.usage)
+        p = self.problem
+        base_usage = np.asarray(p.usage)
         Tn = base_usage.shape[1]
-        baseline = sum(t.realized_mci * float(base_usage[:, t.tick % Tn].sum())
-                       for t in ticks)
+        if p.is_multiregion:
+            baseline = sum(float((np.asarray(t.realized_mci) * region_totals(
+                p.region, base_usage[:, t.tick % Tn], p.R)).sum())
+                for t in ticks)
+        else:
+            baseline = sum(t.realized_mci
+                           * float(base_usage[:, t.tick % Tn].sum())
+                           for t in ticks)
         return StreamingReport(
             ticks=ticks, committed=np.stack([t.committed for t in ticks],
                                             axis=1),

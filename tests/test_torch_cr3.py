@@ -376,24 +376,30 @@ def test_configured_policy_takes_cr3_knobs():
 
 
 def test_multiregion_cr3_still_refused(fleet16):
-    """Multi-region CR3 solves now, through `solve` and `CR3.solve`
+    """Multi-region CR3 solves through `solve` and `CR3.solve`
     (`tests/test_torch_multiregion_cr3.py` holds it against the JAX
-    package); what stays refused around it is the rolling-horizon
-    controller over regions (ROADMAP queue 1, item 9b) and the mesh (item
-    11)."""
+    package) and through the rolling-horizon controller with a stream per
+    region, whose `last_rho` is then (R,)
+    (`tests/test_torch_multiregion_streaming.py`); what stays refused is
+    the mesh (ROADMAP queue 1, item 11)."""
     from repro_torch.core.carbon import ForecastStream
     from repro_torch.core.streaming import RollingHorizonSolver
     _, tp = fleet16
     two = dataclasses.replace(tp, mci=np.stack([tp.mci, tp.mci]),
                               region=np.arange(tp.W) % 2)
+    stream = ForecastStream.caiso(n_ticks=2)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         for res in (tapi.solve(two, tapi.CR3(), ctx=_ctx(steps=2)),
                     tapi.CR3().solve(two, _ctx(steps=2))):
             assert np.shape(res.extras["rho"]) == (2,)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        RollingHorizonSolver(two, ForecastStream.caiso(n_ticks=2),
-                             policy="cr3", device="cpu")
+        rhs = RollingHorizonSolver(two, [stream, stream], policy="cr3",
+                                   cold_steps=2, warm_steps=2, device="cpu")
+        rep = rhs.run(2)
+    assert np.shape(rhs.last_rho) == (2,)
+    assert rep.ticks[-1].committed_by_region.shape == (2,)
+    with pytest.raises(ValueError, match="need 2 forecast stream"):
+        RollingHorizonSolver(two, stream, policy="cr3", device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tapi.solve(tp, tapi.CR3(), ctx=_ctx(mesh=object()))
 

@@ -949,7 +949,8 @@ def test_region_sums_repeat_bitwise_on_the_card(dev, fleets):
                                  templates=fleets["templates"])
     view = device_view(p, dev)
     x = view.usage.sum(1)
-    for fn in (lambda: regional.region_sum(x, view.region, 3),
+    for fn in (lambda: regional.region_sum(x, view.region,
+                                           view.region_index),
                lambda: regional.segment_sum(view.usage, view.region, 3),
                lambda: regional.cr1_norms(view),
                lambda: regional.cr2_norms(view, x)):
@@ -982,3 +983,64 @@ def test_multiregion_fused_matches_generic_on_the_card(dev, fleets, policy):
     assert abs(got.carbon_reduction_pct - want.carbon_reduction_pct) < 0.05
     assert abs(got.total_penalty_pct - want.total_penalty_pct) < 0.05
     assert got.preservation_violation < 1e-3
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_region_sum_index_is_the_mask_sum_on_the_card(dev, order):
+    """The index-select per-region sum equals the mask form
+    (`x[mask].sum()`, which reads a count on the host) bit for bit on
+    the card, at the main path's width."""
+    from repro_torch.core import regional
+    from repro_torch.core.fleet_solver import region_index
+    rng = np.random.default_rng(11)
+    region = np.sort(rng.integers(0, 3, 10_000))
+    if order == "unsorted":
+        region = rng.permutation(region)
+    x = _f32(rng.normal(0.0, 3.0, 10_000) * 10.0 ** rng.integers(
+        -3, 4, 10_000), dev)
+    reg = torch.as_tensor(region, device=dev)
+    got = regional.region_sum(x, reg, region_index(region, 3, dev))
+    want = torch.zeros_like(x)
+    for r in range(3):
+        mask = reg == r
+        want = torch.where(mask, x[mask].sum(), want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_multiregion_day_graph_replay_matches_eager_day(dev, fleets, policy):
+    """A multi-region day (W = 130, R = 3, an (n_ticks, R, T) stack) is one
+    captured graph whose replay equals the same day run eagerly through
+    the same kernels, bitwise, with the single-region day's launches at
+    the same budgets."""
+    from repro_torch.core import api
+    from repro_torch.core.api import SolveContext, solve_day
+    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    from repro_torch.core.fleet_solver import synthetic_regional_fleet
+    p = synthetic_regional_fleet(130, ["CA", "TX", "NY"], hours=T, seed=0,
+                                 utc_offsets="auto",
+                                 templates=fleets["templates"])
+    streams = ForecastStream.regional(np.tile(np.asarray(p.mci), (1, 2)),
+                                      horizon=T, seed=7)
+    stack = np.stack([np.stack([s.forecast(t) for s in streams])
+                      for t in range(3)])
+    pol, ctx = _day_policy(policy), SolveContext()
+    key = api._day_setup(p, pol, stack, ctx, DAY_STEPS["cold_steps"],
+                         DAY_STEPS["warm_steps"])[2]
+    assert key.R == 3 and sum(key.region_counts) == 130
+    DAY_GRAPHS._graphs.pop(key, None)
+    n0 = DAY_GRAPHS.captures
+    solve_day(p, pol, stack, ctx=ctx, **DAY_STEPS)
+    before = (al_step_cuda.launches, dr_features_cuda.launches)
+    res = solve_day(p, pol, stack, ctx=ctx, **DAY_STEPS)
+    assert DAY_GRAPHS.captures == n0 + 1
+    want = _expected_day_launches(policy, 3)
+    assert (al_step_cuda.launches - before[0],
+            dr_features_cuda.launches - before[1]) == \
+        (want["al_step"], want["dr_features"])
+    _, eager = _eager_day(p, pol, stack, ctx)
+    assert _max_diff(_day_out(res), eager) == 0.0
+    assert res.committed.shape == (3, 130)
+    assert np.isfinite(res.committed).all()
+    assert res.last.preservation_violation < 1e-3

@@ -22,6 +22,7 @@ import repro.core.penalty as jpen
 from repro.core import api as japi
 from repro.core import ensemble as jens
 from repro.core import scenario as jscen
+from repro.core.carbon import ForecastStream as JStream
 from repro.core.fleet_solver import synthetic_fleet
 from repro_torch import convert
 from repro_torch.core import api as tapi
@@ -314,18 +315,36 @@ REFUSALS = {
     "mesh": ("item 11", lambda tp: tens.evaluate_ensemble(
         tp, "cr1", "duck_perturb", ctx=tapi.SolveContext(
             device="cpu", mesh=object()))),
-    "regions": ("item 9", lambda tp: tens.evaluate_ensemble(
-        dataclasses.replace(tp, mci=np.stack([tp.mci, tp.mci]),
-                            region=np.arange(tp.W) % 2), "cr1",
-        tscen.ScenarioStack(labels=("a",)),
-        ctx=tapi.SolveContext(device="cpu"))),
-    "stream_groups": ("item 9", lambda tp: tens.run_streaming_ensemble(
-        tp, "cr1", [(ForecastStream.caiso(n_ticks=2),) * 2],
-        device="cpu")),
-    "regional_divergence": ("item 9", lambda tp: tens.evaluate_ensemble(
-        tp, "cr1", tscen.RegionalDivergence(2),
-        ctx=tapi.SolveContext(device="cpu"))),
 }
+
+
+def _stream_groups(mod, prob, **kw):
+    """Groups of two streams for a single-region fleet."""
+    stream = (JStream if mod is jens else ForecastStream).caiso(n_ticks=2)
+    return mod.run_streaming_ensemble(prob, "cr1", [(stream,) * 2], **kw)
+
+
+def _divergence(mod, prob, ctx):
+    scen = jscen if mod is jens else tscen
+    return mod.evaluate_ensemble(prob, "cr1", scen.RegionalDivergence(2),
+                                 ctx=ctx)
+
+
+# Inputs both packages refuse with the same exception: a group of streams
+# that is not one per region, and regional divergence over one region.
+RAISES = {
+    "stream_groups": (ValueError, "per region", lambda tp, p: (
+        lambda: _stream_groups(tens, tp, device="cpu"),
+        lambda: _stream_groups(jens, p))),
+    "regional_divergence": (ValueError, "multi-region base", lambda tp, p: (
+        lambda: _divergence(tens, tp, tapi.SolveContext(device="cpu")),
+        lambda: _divergence(jens, p, None))),
+}
+
+
+def _two_regions(q):
+    return dataclasses.replace(q, mci=np.stack([q.mci, 0.7 * q.mci]),
+                               region=np.arange(q.W) % 2)
 
 
 def _cr3_ensemble(mod, prob, ctx):
@@ -345,10 +364,19 @@ def _b3_compare(mod, prob, ctx):
     return run(prob, ["cr1", "b3"], scen, ctx=ctx)
 
 
-# Policies the port refused by name until CR3 and the baselines were
-# ported: each now takes the JAX package's sequential fallback (a
-# `solve()` loop, or S solo controllers) and is held against it.
+# What the port refused by name until it was ported: CR3 and the
+# baselines take the JAX package's sequential fallback (a `solve()` loop,
+# or S solo controllers); a multi-region fleet the batched lane. Each is
+# held against the JAX package's.
 PORTED = {
+    "regions": lambda tp, p: (
+        tens.evaluate_ensemble(_two_regions(tp), "cr1",
+                               tscen.ScenarioStack(labels=("a",)),
+                               ctx=tapi.SolveContext(device="cpu", steps=40)),
+        jens.evaluate_ensemble(_two_regions(p), "cr1",
+                               jscen.ScenarioStack(labels=("a",)),
+                               ctx=japi.SolveContext(use_kernel=False,
+                                                     steps=40))),
     "cr3": lambda tp, p: (
         _cr3_ensemble(tapi, tp, tapi.SolveContext(device="cpu", steps=20)),
         _cr3_ensemble(japi, p, japi.SolveContext(use_kernel=False,
@@ -362,7 +390,8 @@ PORTED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(PORTED))
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(RAISES)
+                         + sorted(PORTED))
 def test_unported_refused_by_name(fleet16, case):
     p, tp = fleet16
     if case in REFUSALS:
@@ -370,8 +399,17 @@ def test_unported_refused_by_name(fleet16, case):
         with pytest.raises(NotImplementedError, match=item):
             call(tp)
         return
+    if case in RAISES:
+        exc, match, calls = RAISES[case]
+        for call in calls(tp, p):
+            with pytest.raises(exc, match=match):
+                call()
+        return
     got, want = PORTED[case](tp, p)
-    if case == "cr3":
+    if case == "regions":
+        assert got.batched and want.batched and got.D.shape == (1, 16, 48)
+        _close(got, want, PP)
+    elif case == "cr3":
         assert not got.batched and got.labels == want.labels
         _close(got, want, PP)
         assert [e["balanced"] for e in got.extras] \

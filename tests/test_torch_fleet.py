@@ -64,6 +64,9 @@ def problems():
 def test_convert_carries_every_field(problems):
     p, tp = problems
     for f in dataclasses.fields(tp):
+        if f.name == "region_index":   # the port's device views only
+            assert tp.region_index is None
+            continue
         a, b = getattr(tp, f.name), getattr(p, f.name)
         if isinstance(b, np.ndarray):
             np.testing.assert_array_equal(a, b)

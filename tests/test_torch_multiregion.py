@@ -182,7 +182,8 @@ def test_region_sums_repeat_and_match_standalone_sums(fleets):
     _, tp = fleets[3]
     view = tfs.device_view(tp, torch.device("cpu"))
     x = view.usage.sum(1)
-    a, b = (treg.region_sum(x, view.region, 3) for _ in range(2))
+    a, b = (treg.region_sum(x, view.region, view.region_index)
+            for _ in range(2))
     assert torch.equal(a, b)
     for r in range(3):
         rows = view.region == r
@@ -319,32 +320,50 @@ def test_baselines_price_each_row_on_its_region(fleets):
 
 
 # ---------------------------------------------------------------------------
-# What stays refused (ROADMAP queue 1, item 9b)
+# What stays refused around the streaming and batched lanes
 # ---------------------------------------------------------------------------
 def test_multiregion_streaming_and_lanes_refused_by_name(fleets):
+    """The streaming and batched lanes take a multi-region fleet (held
+    against the JAX package in `tests/test_torch_multiregion_streaming.py`
+    and `tests/test_torch_multiregion_lanes.py`); what stays refused
+    around them is refused by name: the mesh (ROADMAP queue 1, item 11)
+    and the tick ledger, telemetry and recompile guard (item 10)."""
     from repro_torch.core import ensemble as tens
     from repro_torch.core import scenario as tscen
+    from repro_torch.core import streaming as tstream
     from repro_torch.core.carbon import ForecastStream
-    from repro_torch.core.streaming import RollingHorizonSolver
     _, tp = fleets[2]
-    stream = ForecastStream.caiso(n_ticks=2)
-    calls = [
-        lambda: tapi.solve_day(tp, "cr1", np.stack([tp.mci] * 2),
-                               ctx=_ctx()),
-        lambda: RollingHorizonSolver(tp, stream, device="cpu"),
-        lambda: RollingHorizonSolver(tp, [stream, stream], device="cpu"),
-        lambda: tens.evaluate_ensemble(tp, "cr1", tscen.DuckPerturb(2),
-                                       ctx=_ctx()),
-        lambda: tens.run_streaming_ensemble(tp, "cr1", [stream],
-                                            device="cpu"),
-        lambda: tscen.RegionalDivergence(2).generate(tp),
-        lambda: tscen.ForecastRegime(2).streams(tp),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            call()
+    streams = ForecastStream.regional(np.tile(np.asarray(tp.mci), (1, 2)),
+                                      horizon=tp.T)
+    stack = np.stack([np.asarray(tp.mci)] * 2)
+    kw = dict(cold_steps=4, warm_steps=2, device="cpu")
+    runs = [
+        tapi.solve_day(tp, "cr1", stack, ctx=_ctx(), cold_steps=4).committed,
+        tstream.RollingHorizonSolver(tp, streams, **kw).run(2).committed,
+        tstream.RollingHorizonSolver(tp, streams, **kw).run_scanned(
+            2).committed,
+        tens.evaluate_ensemble(tp, "cr1", tscen.RegionalDivergence(2),
+                               ctx=_ctx(steps=4)).D,
+        tens.run_streaming_ensemble(tp, "cr1", tscen.ForecastRegime(2),
+                                    n_ticks=2, **kw).committed]
+    for out in runs:
+        assert np.isfinite(out).all()
     cold = tapi.sweep(tp, [tapi.CR1(), tapi.CR1(lam=1.0)],
                       ctx=_ctx(steps=4))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tapi.sweep(tp, [tapi.CR1(), tapi.CR1(lam=1.0)], ctx=_ctx(
-            steps=4, warm=tapi.stack_states([r.state for r in cold])))
+    warm = tapi.sweep(tp, [tapi.CR1(), tapi.CR1(lam=1.0)], ctx=_ctx(
+        steps=4, warm=tapi.stack_states([r.state for r in cold])))
+    assert len(warm) == 2 and not hasattr(tstream, "_ITEM_9B")
+    mesh = _ctx(mesh=object())
+    for call in (
+            lambda: tapi.solve_day(tp, "cr1", stack, ctx=mesh),
+            lambda: tens.evaluate_ensemble(tp, "cr1",
+                                           tscen.RegionalDivergence(2),
+                                           ctx=mesh),
+            lambda: tstream.RollingHorizonSolver(tp, streams, mesh=object(),
+                                                 device="cpu")):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            call()
+    for flag in ("events", "telemetry", "guard_recompiles"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tstream.RollingHorizonSolver(tp, streams, device="cpu",
+                                         **{flag: True})

@@ -126,10 +126,22 @@ def test_bad_specs_raise_like_reference(fleet8):
 
 
 def test_regional_divergence_refused_by_name(fleet8):
-    _, tp = fleet8
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tscen.RegionalDivergence(2).generate(tp)
-    two = dataclasses.replace(tp, mci=np.stack([tp.mci, tp.mci]),
-                              region=np.arange(tp.W) % 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tscen.ForecastRegime(2).streams(two)
+    """`RegionalDivergence` refuses a single-region base by name, as the
+    JAX package's does; over a multi-region base it and the per-region
+    streams of `ForecastRegime` are the JAX package's arrays
+    (`tests/test_torch_multiregion_lanes.py` holds them on the R = 3
+    draw)."""
+    p, tp = fleet8
+    for mod, base in ((jscen, p), (tscen, tp)):
+        with pytest.raises(ValueError, match="multi-region base"):
+            mod.RegionalDivergence(2).generate(base)
+    two = [dataclasses.replace(q, mci=np.stack([q.mci, 0.5 * q.mci]),
+                               region=np.arange(q.W) % 2) for q in (p, tp)]
+    want = jscen.RegionalDivergence(2).generate(two[0])
+    got = tscen.RegionalDivergence(2).generate(two[1])
+    np.testing.assert_array_equal(got.mci, want.mci)
+    for gg, wg in zip(tscen.ForecastRegime(2).streams(two[1], n_ticks=2),
+                      jscen.ForecastRegime(2).streams(two[0], n_ticks=2)):
+        assert len(gg) == len(wg) == 2
+        for g, w in zip(gg, wg):
+            np.testing.assert_array_equal(g.forecast(1), w.forecast(1))

@@ -377,14 +377,23 @@ def test_unported_options_refuse_by_name(fleet16, case):
 
 
 def test_multi_region_refused(fleet16):
+    """The controller takes one stream per region, as the JAX package's:
+    another count raises `ValueError` naming it (multi-region runs are
+    held against the JAX package in
+    `tests/test_torch_multiregion_streaming.py`); CR3's day stays refused
+    by name in both packages."""
     p, tp = fleet16
-    ts = _streams(n=2)[1]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tstream.RollingHorizonSolver(tp, [ts, ts])
-    two = dataclasses.replace(tp, mci=np.stack([tp.mci, tp.mci]),
-                              region=np.arange(tp.W) % 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tstream.RollingHorizonSolver(two, ts)
+    js, ts = _streams(n=2)
+    two = [dataclasses.replace(q, mci=np.stack([q.mci, q.mci]),
+                               region=np.arange(q.W) % 2) for q in (p, tp)]
+    for mod, prob, pair, stream in ((jstream, p, two[0], js),
+                                    (tstream, tp, two[1], ts)):
+        with pytest.raises(ValueError, match="need 1 forecast stream"):
+            mod.RollingHorizonSolver(prob, [stream, stream])
+        with pytest.raises(ValueError, match="need 2 forecast stream"):
+            mod.RollingHorizonSolver(pair, stream)
+    assert tstream.RollingHorizonSolver(two[1], [ts, ts],
+                                        device="cpu").streams == (ts, ts)
     for mod, prob, ctx in ((japi, p, None),
                            (tapi, tp, tapi.SolveContext(device="cpu"))):
         with pytest.raises(NotImplementedError,

@@ -59,6 +59,12 @@ one Eq.-6 market per region. A topology adds the migration post-stage
 joint (curtailment, flow) refinement. R = 1 is canonicalized to the
 single-region path, bit for bit.
 
+Debug and observability lanes (`SolveContext.sanitize`, `.telemetry`):
+CR1/CR2 solves and days record non-finite checks on a device flag read
+once at the call boundary (`repro_torch.analysis.sanitize`), and the
+generic engine samples a convergence trace into device buffers
+(`repro_torch.obs.telemetry`); both leave the plan bitwise as it is.
+
 Not ported: meshes (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
@@ -71,6 +77,7 @@ from typing import Any, ClassVar, Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import Sanitizer, checked, throw_code
 from repro_torch.core.daygraph import DAY_GRAPHS
 from repro_torch.core.engine import EngineConfig, EngineState, al_minimize
 from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, CR3_MU0,
@@ -86,6 +93,7 @@ from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, CR3_MU0,
 from repro_torch.core.regional import (cr1_norms, cr2_norms, cr3_reg_scale,
                                        region_totals, segment_sum)
 from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
+from repro_torch.obs.telemetry import ConvergenceTrace, TelemetryConfig
 
 Tensor = torch.Tensor
 f32 = torch.float32
@@ -134,6 +142,26 @@ class SolveContext:
         the post-stage on fleet-wide carbon, so it never loses carbon.
         CR1/CR2 on multi-region fleets; everything else takes the
         post-stage.
+      sanitize: run the solve with non-finite checks on the gradient,
+        iterate and multipliers (`repro_torch.analysis.sanitize`), so a
+        NaN or inf raises `SanitizeError` naming the first failing check
+        instead of returning a NaN plan (and poisoning every warm
+        re-solve chained after it). The checks are device reductions
+        into one flag, read once after the solve (after the replay for a
+        day). Debug lane: CR1/CR2 `solve` and `solve_day`; other
+        policies, `sweep`, `ensemble`, `donate`, `coupled_migration`
+        and `mesh` raise `NotImplementedError`. The plan is bitwise the
+        unsanitized one.
+      telemetry: in-solve convergence telemetry
+        (`repro_torch.obs.TelemetryConfig`). CR1/CR2 on the generic
+        engine sample (objective, grad norm, max violation, |Δx|, mu)
+        every `telemetry.every` inner steps into device buffers; the
+        trace lands in `result.extras["telemetry"]` as a
+        `ConvergenceTrace` (`solve_day`: one per tick). Refused with
+        `use_kernel` (the fused kernel's inner loop is opaque), which
+        is on by default on the card: pass `use_kernel=False` there.
+        Under a sweep or ensemble it forces the loop lane. The plan is
+        bitwise the plan without it.
     """
     device: str | torch.device | None = None
     shift: int = 0
@@ -145,6 +173,8 @@ class SolveContext:
     donate: bool = False
     mesh: Any = None
     coupled_migration: bool = False
+    sanitize: bool = False
+    telemetry: TelemetryConfig | None = None
 
     def resolved_steps(self, policy: "DRPolicy") -> int:
         return self.steps if self.steps is not None else policy.default_steps
@@ -211,6 +241,59 @@ def configured_policy(policy, *, lam: float = 1.45, cap_frac: float = 0.78,
     return by_name.get(policy, POLICY_REGISTRY[policy])()
 
 
+def _require_sanitizable(policy, ctx: SolveContext) -> None:
+    """`sanitize=True` covers the CR1/CR2 solo engine lanes; everything
+    else fails loudly here rather than silently skipping the checks the
+    caller asked for."""
+    name = getattr(policy, "name", type(policy).__name__)
+    if name not in ("cr1", "cr2"):
+        raise NotImplementedError(
+            f"SolveContext(sanitize=True) supports CR1/CR2 (the checked "
+            f"engine lanes); policy {name!r} has no sanitized lane")
+    for field, flag in (("mesh", ctx.mesh is not None),
+                        ("donate", ctx.donate),
+                        ("coupled_migration", ctx.coupled_migration)):
+        if flag:
+            raise NotImplementedError(
+                f"SolveContext(sanitize=True) is a solo debug lane; "
+                f"combining it with {field} is not supported — drop "
+                f"{field} while sanitizing")
+
+
+def _tel_every(ctx: SolveContext) -> int:
+    """`EngineConfig.telemetry_every` for this context (0 = off)."""
+    return 0 if ctx.telemetry is None else int(ctx.telemetry.every)
+
+
+def _require_telemetry_ok(ctx: SolveContext, use_kernel: bool) -> None:
+    """Telemetry needs the generic inner loop: the fused al_step kernel
+    runs k steps per opaque call, so per-step samples cannot be taken.
+    Fail loudly instead of silently dropping the trace."""
+    if ctx.telemetry is not None and use_kernel:
+        raise NotImplementedError(
+            "SolveContext(telemetry=...) is incompatible with the fused "
+            "al_step kernel (use_kernel=True): the kernel's inner loop "
+            "is opaque to per-step telemetry — drop use_kernel (or the "
+            "telemetry) for this solve")
+
+
+def _solve_sanitized(impl, *args, sanitize: bool, **kwargs):
+    """`impl(*args, **kwargs)`; with `sanitize`, its checked twin, whose
+    flag is read (raising `SanitizeError`) before the outputs return."""
+    if not sanitize:
+        return impl(*args, **kwargs)
+    san, out = checked(impl)(*args, **kwargs)
+    san.throw()
+    return out
+
+
+def _trace_extras(out, telemetry_every: int) -> dict | None:
+    """`{"telemetry": ConvergenceTrace}` from an impl's 4th output."""
+    if not telemetry_every:
+        return None
+    return {"telemetry": ConvergenceTrace.from_aux(out[3])}
+
+
 def refuse_mesh(ctx: SolveContext | None) -> None:
     if ctx is not None and ctx.mesh is not None:
         raise NotImplementedError(
@@ -224,10 +307,12 @@ def solve(problem: FleetProblem, policy, *,
     if not isinstance(problem, FleetProblem):
         raise TypeError(f"solve() takes a FleetProblem; got "
                         f"{type(problem).__name__}")
-    refuse_mesh(ctx)
-    problem = single_region_view(problem)
     ctx = ctx or SolveContext()
     policy = resolve_policy(policy)
+    if ctx.sanitize:
+        _require_sanitizable(policy, ctx)
+    refuse_mesh(ctx)
+    problem = single_region_view(problem)
     return _migrate(problem, policy, policy.solve(problem, ctx), ctx)
 
 
@@ -248,8 +333,15 @@ def sweep(problem: FleetProblem, policies: Sequence, *,
     warm-starts each lane from its own slice: a refinement sweep of a
     Pareto front at a fraction of the cold budget, single- or
     multi-region. A topology's migration stage follows each solve, as in
-    `solve`."""
+    `solve`. `ctx.telemetry` takes the loop lane (each solve carries its
+    own trace); `ctx.sanitize` raises (sanitize solves one at a time)."""
     ctx = ctx or SolveContext()
+    if ctx.sanitize:
+        raise NotImplementedError(
+            "SolveContext(sanitize=True) is a solo-solve debug lane — the "
+            "batched sweep lanes have no checked twins (and a silent "
+            "fallback would skip the guards you asked for); sanitize "
+            "policies one at a time through solve()")
     refuse_mesh(ctx)
     problem = single_region_view(problem)
     pols = [resolve_policy(pl) for pl in policies]
@@ -268,7 +360,8 @@ def _sweep(problem: FleetProblem, pols: list,
     batched = (all(type(pl) is fam for pl in pols)
                and fam in (CR1, CR2, CR3) and fam._sweep_uniform(pols)
                and warm_ok and not ctx.donate
-               and not ctx.shift and not ctx.reset_mu)
+               and not ctx.shift and not ctx.reset_mu
+               and ctx.telemetry is None)
     if batched:
         return fam._sweep_family(problem, pols, ctx)
     if ctx.donate and len(pols) > 1:
@@ -314,7 +407,8 @@ def ensemble(problem: FleetProblem, policy, scenarios, *,
     """Evaluate `policy` across S scenarios of `problem`
     (`core.ensemble.evaluate_ensemble`): CR1/CR2 solve all S as one
     batched lane, other policies and contexts loop over `solve()`.
-    Returns an `EnsembleResult`; `.report()` is its risk summary."""
+    Returns an `EnsembleResult`; `.report()` is its risk summary.
+    `ctx.sanitize` raises, as in `evaluate_ensemble`."""
     from repro_torch.core.ensemble import evaluate_ensemble
     return evaluate_ensemble(problem, policy, scenarios, ctx=ctx,
                              batched=batched)
@@ -509,28 +603,34 @@ def _cr1_pieces(p: FleetProblem, use_kernel: bool, norms):
     return objective, _projection(p, lo, hi), step_scale
 
 
-def _cr1_cfg(steps: int, moment_dtype: str = "float32") -> EngineConfig:
+def _cr1_cfg(steps: int, moment_dtype: str = "float32",
+             telemetry_every: int = 0) -> EngineConfig:
     return EngineConfig(inner_steps=steps, outer_steps=1,
-                        moment_dtype=moment_dtype)
+                        moment_dtype=moment_dtype,
+                        telemetry_every=telemetry_every)
 
 
 def _cr1_impl(p: FleetProblem, lam, state0: EngineState, steps: int,
               use_kernel: bool, shift: int, reset_mu: bool,
-              moment_dtype: str):
-    """One CR1 solve on the device view `p` -> (D, penalties, state).
-    `lam` is a float or a 0-d float32 tensor (a day's static buffer)."""
+              moment_dtype: str, sanitizer: Sanitizer | None = None,
+              telemetry_every: int = 0):
+    """One CR1 solve on the device view `p` -> (D, penalties, state), and
+    the engine's telemetry dict 4th with `telemetry_every`. `lam` is a
+    float or a 0-d float32 tensor (a day's static buffer); `sanitizer`
+    records the engine's checks."""
     state0 = _enter_tick(state0, shift, reset_mu, CR1_MU0)
     norms = cr1_norms(p)
     objective, project, step_scale = _cr1_pieces(p, use_kernel, norms)
-    cfg = _cr1_cfg(steps, moment_dtype)
+    cfg = _cr1_cfg(steps, moment_dtype, telemetry_every)
     fused = _al_fused_inner(p, "cr1", cfg, car_norm=norms[1],
                             step_scale=step_scale,
                             coef0=lam * norms[0]) if use_kernel else None
     D, aux = al_minimize(objective, project, state0.x, hyper=lam,
                          step_scale=step_scale, init=state0, cfg=cfg,
-                         fused_inner=fused)
+                         fused_inner=fused, sanitizer=sanitizer)
     with torch.no_grad():
-        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+        out = (D, fleet_penalties(p, D, use_kernel), aux["state"])
+    return out + (aux["telemetry"],) if telemetry_every else out
 
 
 @_register
@@ -550,13 +650,17 @@ class CR1:
               ctx: SolveContext = SolveContext()) -> FleetSolveResult:
         device = resolve_device(ctx.device)
         use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+        _require_telemetry_ok(ctx, use_kernel)
         steps = ctx.resolved_steps(self)
+        tel = _tel_every(ctx)
         warm = ctx.warm or EngineState.cold(_cold_x(p, device))
-        D, pens, state = _cr1_impl(device_view(p, device), self.lam, warm,
-                                   steps, use_kernel, ctx.shift,
-                                   ctx.reset_mu, ctx.moment_dtype)
+        out = _solve_sanitized(
+            _cr1_impl, device_view(p, device), self.lam, warm, steps,
+            use_kernel, ctx.shift, ctx.reset_mu, ctx.moment_dtype,
+            sanitize=ctx.sanitize, telemetry_every=tel)
+        D, pens, state = out[:3]
         return _report(p, D.cpu().numpy(), pens.cpu().numpy(), iters=steps,
-                       state=state)
+                       state=state, extras=_trace_extras(out, tel))
 
     # -- the batched sweep lane ---------------------------------------------
     @classmethod
@@ -600,29 +704,33 @@ def _cr2_pieces(p: FleetProblem, refs: Tensor, use_kernel: bool, norms):
     return objective, eq, _projection(p, lo, hi), step_scale
 
 
-def _cr2_cfg(steps: int, outer: int,
-             moment_dtype: str = "float32") -> EngineConfig:
+def _cr2_cfg(steps: int, outer: int, moment_dtype: str = "float32",
+             telemetry_every: int = 0) -> EngineConfig:
     return EngineConfig(inner_steps=steps, outer_steps=outer, mu0=CR2_MU0,
-                        mu_growth=2.0, moment_dtype=moment_dtype)
+                        mu_growth=2.0, moment_dtype=moment_dtype,
+                        telemetry_every=telemetry_every)
 
 
 def _cr2_impl(p: FleetProblem, refs: Tensor, state0: EngineState,
               steps: int, outer: int, use_kernel: bool, shift: int,
-              reset_mu: bool, moment_dtype: str):
-    """One CR2 solve on the device view `p` -> (D, penalties, state)."""
+              reset_mu: bool, moment_dtype: str,
+              sanitizer: Sanitizer | None = None, telemetry_every: int = 0):
+    """One CR2 solve on the device view `p` -> (D, penalties, state), and
+    the telemetry dict 4th with `telemetry_every` (as `_cr1_impl`)."""
     state0 = _enter_tick(state0, shift, reset_mu, CR2_MU0)
     norms = cr2_norms(p, refs)
     objective, eq, project, step_scale = _cr2_pieces(p, refs, use_kernel,
                                                      norms)
-    cfg = _cr2_cfg(steps, outer, moment_dtype)
+    cfg = _cr2_cfg(steps, outer, moment_dtype, telemetry_every)
     fused = _al_fused_inner(p, "cr2", cfg, car_norm=norms[0],
                             step_scale=step_scale, scale=norms[1],
                             refs=refs) if use_kernel else None
     D, aux = al_minimize(objective, project, state0.x, eq_residual=eq,
                          step_scale=step_scale, init=state0, cfg=cfg,
-                         fused_inner=fused)
+                         fused_inner=fused, sanitizer=sanitizer)
     with torch.no_grad():
-        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+        out = (D, fleet_penalties(p, D, use_kernel), aux["state"])
+    return out + (aux["telemetry"],) if telemetry_every else out
 
 
 @_register
@@ -643,18 +751,23 @@ class CR2:
               ctx: SolveContext = SolveContext()) -> FleetSolveResult:
         device = resolve_device(ctx.device)
         use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+        _require_telemetry_ok(ctx, use_kernel)
         steps = ctx.resolved_steps(self)
+        tel = _tel_every(ctx)
         # The fairness targets use the kernel wherever the device has it,
         # whatever `use_kernel` says, as the JAX package's auto dispatch.
         refs = torch.as_tensor(cr2_reference_fleet(p, self.cap_frac, device),
                                device=device)
         warm = ctx.warm or EngineState.cold(_cold_x(p, device), n_eq=p.W,
                                             mu0=CR2_MU0)
-        D, pens, state = _cr2_impl(device_view(p, device), refs, warm,
-                                   steps, self.outer, use_kernel, ctx.shift,
-                                   ctx.reset_mu, ctx.moment_dtype)
+        out = _solve_sanitized(
+            _cr2_impl, device_view(p, device), refs, warm, steps, self.outer,
+            use_kernel, ctx.shift, ctx.reset_mu, ctx.moment_dtype,
+            sanitize=ctx.sanitize, telemetry_every=tel)
+        D, pens, state = out[:3]
         return _report(p, D.cpu().numpy(), pens.cpu().numpy(),
-                       iters=steps * self.outer, state=state)
+                       iters=steps * self.outer, state=state,
+                       extras=_trace_extras(out, tel))
 
     # -- the batched sweep lane ---------------------------------------------
     @classmethod
@@ -1300,6 +1413,10 @@ class _Day:
     has_upper: bool
     use_kernel: bool
     device: str
+    # A sanitized day has its own graph: its function also returns the
+    # sanitizer's flag. Telemetry days run eagerly (no kernels).
+    sanitize: bool = False
+    telemetry_every: int = 0
 
 
 _FLEET_BUFFERS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
@@ -1315,6 +1432,8 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
     day's tensors on its device (the fleet's fields with a multi-region
     fleet's region ids and region-sorted rows, the stack, CR1's lam or
     CR2's float64 cap plan in float32, and a warm state, cloned)."""
+    if ctx.sanitize:
+        _require_sanitizable(policy, ctx)
     if not isinstance(problem, FleetProblem):
         raise TypeError(f"solve_day() takes a FleetProblem; got "
                         f"{type(problem).__name__}")
@@ -1337,6 +1456,7 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
             f"use the per-tick solve()/step() loop")
     device = resolve_device(ctx.device)
     use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+    _require_telemetry_ok(ctx, use_kernel)
     if cold_steps is None:
         cold_steps = ctx.resolved_steps(policy)
     if warm_steps is None:
@@ -1356,7 +1476,8 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
                day_hours=problem.day_hours,
                max_curtail_frac=float(problem.max_curtail_frac),
                has_upper=problem.upper is not None, use_kernel=use_kernel,
-               device=str(device))
+               device=str(device), sanitize=ctx.sanitize,
+               telemetry_every=_tel_every(ctx))
     inputs = {n: getattr(view, n) for n in _FLEET_BUFFERS
               if getattr(view, n) is not None}
     if index is not None:
@@ -1390,7 +1511,9 @@ def _day_impl(day: _Day, inputs: dict[str, Tensor]):
     per-row carbon rows and step scales among them, on the device. The
     same on the CPU and on the card, where `solve_day` captures it.
     Returns (committed (n_ticks, W), D, penalties, x, lam_eq, lam_in, mu)
-    of the last tick."""
+    of the last tick; then, for a sanitized day, the sanitizer's flag
+    (zeroed here, so every replay starts clean), and with telemetry the
+    list of each tick's telemetry dict."""
     index = (RegionIndex(inputs["region_order"], day.region_counts)
              if day.region_counts else None)
     p = FleetProblem(**{n: inputs.get(n) for n in _FLEET_BUFFERS},
@@ -1404,14 +1527,20 @@ def _day_impl(day: _Day, inputs: dict[str, Tensor]):
         x0 = torch.zeros((day.W, day.T), dtype=f32, device=p.usage.device)
         state = (EngineState.cold(x0) if day.policy == "cr1" else
                  EngineState.cold(x0, n_eq=day.W, mu0=CR2_MU0))
+    san = Sanitizer(p.usage.device) if day.sanitize else None
+    tels = []
 
     def tick_solve(p_t, cap, st, steps, shift, reset_mu):
         if day.policy == "cr1":
-            return _cr1_impl(p_t, inputs["lam"], st, steps, day.use_kernel,
-                             shift, reset_mu, day.moment_dtype)
-        return _cr2_impl(p_t, cr2_reference_tensor(p_t, cap), st, steps,
-                         day.outer, day.use_kernel, shift, reset_mu,
-                         day.moment_dtype)
+            out = _cr1_impl(p_t, inputs["lam"], st, steps, day.use_kernel,
+                            shift, reset_mu, day.moment_dtype, san,
+                            day.telemetry_every)
+        else:
+            out = _cr2_impl(p_t, cr2_reference_tensor(p_t, cap), st, steps,
+                            day.outer, day.use_kernel, shift, reset_mu,
+                            day.moment_dtype, san, day.telemetry_every)
+        tels.extend(out[3:])
+        return out[:3]
 
     def roll(a):
         return None if a is None else torch.roll(a, -1, dims=1)
@@ -1426,8 +1555,11 @@ def _day_impl(day: _Day, inputs: dict[str, Tensor]):
         cap = roll(cap)
         D, pens, state = tick_solve(p, cap, state, day.warm_steps, 1, True)
         committed.append(D[:, 0])
-    return (torch.stack(committed), D, pens, state.x, state.lam_eq,
-            state.lam_in, state.mu)
+    out = (torch.stack(committed), D, pens, state.x, state.lam_eq,
+           state.lam_in, state.mu)
+    if san is not None:
+        out += (san.code,)
+    return out + (tels,) if day.telemetry_every else out
 
 
 def solve_day(problem: FleetProblem, policy, mci_stack, *,
@@ -1446,6 +1578,13 @@ def solve_day(problem: FleetProblem, policy, mci_stack, *,
     (default `cold_steps // 4`). A warm-started day runs every tick at
     `warm_steps`, its first shifted `ctx.shift or 1` hours.
 
+    `ctx.sanitize` runs every tick with the engine's non-finite checks
+    and reads their flag once after the day (after the replay on the
+    card: a sanitized day is a graph of its own, and its flag restarts
+    at 0 on every replay), raising `SanitizeError` for a NaN in any
+    tick. `ctx.telemetry` (generic engine only) puts one
+    `ConvergenceTrace` per tick in `result.last.extras["telemetry"]`.
+
     On CUDA with the kernels (`use_kernel`, on by default there) the day
     is one CUDA-graph replay (`core/daygraph.py`): captured on the first
     day of each static configuration (policy and `outer`, W, T, R and
@@ -1462,15 +1601,18 @@ def solve_day(problem: FleetProblem, policy, mci_stack, *,
     policy = resolve_policy(policy)
     problem, stack, day, inputs = _day_setup(problem, policy, mci_stack, ctx,
                                              cold_steps, warm_steps)
-    if day.device.startswith("cuda") and day.use_kernel:
+    graph = day.device.startswith("cuda") and day.use_kernel
+    if graph:
         out = DAY_GRAPHS.run(day, functools.partial(_day_impl, day), inputs)
-        if not ctx.donate:
-            out = out[:3] + tuple(t.clone() for t in out[3:])
     else:
         with torch.no_grad():
             out = _day_impl(day, inputs)
+    if day.sanitize:
+        throw_code(out[7])
+    if graph and not ctx.donate:
+        out = out[:3] + tuple(t.clone() for t in out[3:7]) + out[7:]
     committed, D, pens = (t.cpu().numpy() for t in out[:3])
-    state = EngineState(*out[3:])
+    state = EngineState(*out[3:7])
     mult = day.outer if isinstance(policy, CR2) else 1
     n = day.n_ticks
     iters = (day.first_steps * mult,) + (day.warm_steps * mult,) * (n - 1)
@@ -1482,5 +1624,9 @@ def solve_day(problem: FleetProblem, policy, mci_stack, *,
                                  usage=rolled(problem.usage),
                                  jobs=rolled(problem.jobs),
                                  upper=rolled(problem.upper))
-    last = _report(p_last, D, pens, iters=iters[-1], state=state)
+    extras = ({"telemetry": tuple(ConvergenceTrace.from_aux(t)
+                                  for t in out[-1])}
+              if day.telemetry_every else None)
+    last = _report(p_last, D, pens, iters=iters[-1], state=state,
+                   extras=extras)
     return DayResult(committed=committed, last=last, inner_steps=iters)

@@ -18,6 +18,15 @@ capture they run but launch nothing on the card. So the counts a capture
 adds are taken back and kept with the graph, and every replay adds them
 (`DayGraph.launches`).
 
+Captures are counted in the module-level `CAPTURES` (every capture,
+whatever cache made it), which `analysis.recompile_guard` reads: a day
+of a configuration already seen must capture nothing.
+
+A sanitized day (`SolveContext(sanitize=True)`) is a configuration of
+its own: its function zeroes the sanitizer's flag at its start and
+returns it as one more output, so every replay starts clean and
+`solve_day` reads the flag once after the replay.
+
 Memory. Each graph keeps a private memory pool that holds the day's
 intermediates, so the cache keeps at most `MAX_GRAPHS` graphs and drops
 the least recently replayed one. The replay's outputs are the graph's
@@ -40,6 +49,8 @@ Tensor = torch.Tensor
 COUNTED = {"al_step": al_step_cuda, "dr_features": dr_features_cuda}
 #: Graphs kept at once: a policy's cold and warm day, for CR1 and CR2.
 MAX_GRAPHS = 4
+#: CUDA-graph captures made in this process (`analysis.recompile_guard`).
+CAPTURES = 0
 
 
 def _counts() -> dict[str, int]:
@@ -56,6 +67,7 @@ class DayGraph:
 
     def __init__(self, fn: Callable[[dict[str, Tensor]], tuple],
                  inputs: dict[str, Tensor]):
+        global CAPTURES
         self.inputs = inputs
         device = next(iter(inputs.values())).device
         stream = torch.cuda.current_stream(device)
@@ -68,6 +80,7 @@ class DayGraph:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph), torch.no_grad():
             self.outputs = fn(inputs)
+        CAPTURES += 1
         after = _counts()
         self.launches = {k: after[k] - before[k] for k in COUNTED}
         for name, fn_ in COUNTED.items():     # a capture launches nothing

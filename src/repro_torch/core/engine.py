@@ -19,13 +19,26 @@ independent solves at once, a sweep's policies or an ensemble's
 scenarios: x (N, W, T), multipliers (N, n), residuals (N, n), mu and
 its clamp per lane, and `step_scale` broadcastable to x ((N, 1, 1)).
 The objective returns the lanes' sum, whose gradient is each lane's.
+
+Guards (`repro_torch.analysis.sanitize`): with a `sanitizer`, the loop
+records non-finite checks on the initial carry, on every generic step's
+gradient and iterate, on the iterate after each `fused_inner` call and
+on the multipliers after each round, on the sanitizer's device flag
+(the JAX package's checkify sites and order). Telemetry
+(`cfg.telemetry_every = k`): every k-th inner step of the generic loop
+writes its scalars into preallocated device buffers (`aux["telemetry"]`).
+Neither reads a device value on the host, and neither changes the
+iterates: with both on, the solve is bitwise the solve with both off.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
+
+from repro_torch.analysis.sanitize import Sanitizer, check_all_finite
 
 Tensor = torch.Tensor
 # objective(x, hyper) -> scalar; residual(x, hyper) -> (n,) vector.
@@ -48,8 +61,11 @@ class EngineConfig:
     # Storage dtype of the Adam moments: "float32" or "bfloat16". x stays
     # a float32 master copy and all arithmetic runs in float32.
     moment_dtype: str = "float32"
-    # Not ported yet: non-finite guards and in-solve telemetry.
-    sanitize: bool = False
+    # Convergence telemetry: sample (AL objective, squared gradient norm,
+    # max constraint violation, mean |Δx|, mu) every `telemetry_every`
+    # inner steps into device buffers, returned as `aux["telemetry"]`.
+    # 0 (default) records nothing. Generic inner loop only: the fused
+    # kernel's k-step calls are opaque.
     telemetry_every: int = 0
 
 
@@ -103,6 +119,7 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
                 init: EngineState | None = None,
                 fused_inner: Callable[[Tensor, Tensor, Tensor, Tensor],
                                       Tensor] | None = None,
+                sanitizer: Sanitizer | None = None,
                 ) -> tuple[Tensor, dict[str, Any]]:
     """Minimize objective(x, hyper) s.t. eq(x)=0, ineq(x)>=0, x = project(x).
 
@@ -114,12 +131,35 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
     `fused_inner(x, lam_eq, lam_in, mu) -> x` replaces the generic inner
     Adam loop; it must run exactly `cfg.inner_steps` projected-Adam steps
     from zero moments. The multiplier updates between rounds stay here.
-    """
-    if cfg.sanitize or cfg.telemetry_every:
-        raise NotImplementedError(
-            "EngineConfig.sanitize and telemetry_every are not ported yet")
 
+    `sanitizer` records the checks `al-init` (x0, lam_eq, lam_in, mu),
+    `al-inner` (grad, x), `al-fused-inner` (x) and `al-multipliers`
+    (lam_eq, lam_in) on its flag; the caller reads it
+    (`Sanitizer.throw`).
+
+    Telemetry (`cfg.telemetry_every = k > 0`) samples global inner steps
+    k, 2k, ... (counted over all rounds from 1): the Lagrangian at the
+    pre-step iterate (the forward pass autograd already runs), the sum
+    of g² after `grad_transform`, max(|h|, relu(−g)) at the post-step
+    iterate, the mean |Δx| and mu. `aux["telemetry"]` holds them as
+    (n_samples,) device tensors beside the host `step` array and the
+    mean `step_scale`. Refused with `fused_inner` and with a
+    lane-stacked `init` (the JAX package takes telemetry to its loop
+    lane).
+    """
     lanes = init is not None and init.lanes is not None
+    tel_every = cfg.telemetry_every
+    if tel_every and fused_inner is not None:
+        raise ValueError(
+            "EngineConfig.telemetry_every is incompatible with "
+            "fused_inner: the fused al_step kernel runs all inner steps "
+            "in opaque calls, so per-step telemetry cannot be captured — "
+            "drop the kernel or the telemetry for this solve")
+    if tel_every and lanes:
+        raise ValueError(
+            "EngineConfig.telemetry_every needs a one-solve init: a "
+            "lane-stacked state has no per-solve trace (sweeps and "
+            "ensembles take telemetry to their loop lane)")
 
     def flat(r: Tensor) -> Tensor:
         return r.reshape(r.shape[0], -1) if lanes \
@@ -172,19 +212,38 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
     # capture the loop (`core/daygraph.py`).
     b1 = torch.full((), cfg.beta1, dtype=dt, device=x.device)
     b2 = torch.full((), cfg.beta2, dtype=dt, device=x.device)
+    if sanitizer is not None:
+        check_all_finite(sanitizer, "al-init", x0=x, lam_eq=lam_eq,
+                         lam_in=lam_in, mu=mu)
 
-    for _ in range(cfg.outer_steps):
+    def max_violation(x: Tensor) -> Tensor:
+        """Worst constraint residual: max(|h|, relu(−g)); 0 when none."""
+        v = torch.zeros((), dtype=dt, device=x.device)
+        if n_eq:
+            v = torch.maximum(v, eq_vec(x).abs().max())
+        if n_in:
+            v = torch.maximum(v, torch.clamp(-ineq_vec(x), min=0.0).max())
+        return v
+
+    total = cfg.outer_steps * cfg.inner_steps
+    if tel_every:
+        # Rows: objective, grad_sq, violation, dx, mu; one per sample.
+        tel = torch.zeros((5, total // tel_every), dtype=dt, device=x.device)
+
+    for r in range(cfg.outer_steps):
         if fused_inner is not None:
             with torch.no_grad():
                 x = fused_inner(x, lam_eq, lam_in, mu)
+                if sanitizer is not None:
+                    check_all_finite(sanitizer, "al-fused-inner", x=x)
         else:
             m = torch.zeros(x.shape, dtype=mdt, device=x.device)
             v = torch.zeros(x.shape, dtype=mdt, device=x.device)
             for t in range(1, cfg.inner_steps + 1):
                 xg = x.detach().requires_grad_(True)
                 with torch.enable_grad():
-                    (g,) = torch.autograd.grad(
-                        lagrangian(xg, lam_eq, lam_in, mu), xg)
+                    L = lagrangian(xg, lam_eq, lam_in, mu)
+                    (g,) = torch.autograd.grad(L, xg)
                 with torch.no_grad():
                     if grad_transform is not None:
                         g = grad_transform(g)
@@ -192,15 +251,39 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
                     v = cfg.beta2 * v.to(dt) + (1.0 - cfg.beta2) * g * g
                     mhat = m / (1.0 - b1 ** t)
                     vhat = v / (1.0 - b2 ** t)
+                    x_prev = x
                     x = project(x - cfg.lr * step_scale * mhat
                                 / (torch.sqrt(vhat) + cfg.eps))
                     m, v = m.to(mdt), v.to(mdt)
+                    if sanitizer is not None:
+                        check_all_finite(sanitizer, "al-inner", grad=g, x=x)
+                    s = r * cfg.inner_steps + t
+                    if tel_every and s % tel_every == 0:
+                        i = s // tel_every - 1
+                        tel[0, i] = L.detach()
+                        tel[1, i] = (g * g).sum()
+                        tel[2, i] = max_violation(x)
+                        tel[3, i] = (x - x_prev).abs().mean()
+                        tel[4, i] = mu
         with torch.no_grad():
             if n_eq:
                 lam_eq = lam_eq + per_lane(mu) * eq_vec(x)
             if n_in:
                 lam_in = torch.clamp(lam_in - per_lane(mu) * ineq_vec(x),
                                      min=0.0)
+            if sanitizer is not None and (n_eq or n_in):
+                check_all_finite(sanitizer, "al-multipliers",
+                                 lam_eq=lam_eq, lam_in=lam_in)
             mu = torch.clamp(mu * cfg.mu_growth, max=cfg.mu_max)
     state = EngineState(x=x, lam_eq=lam_eq, lam_in=lam_in, mu=mu)
-    return x, {"lam_eq": lam_eq, "lam_in": lam_in, "mu": mu, "state": state}
+    aux = {"lam_eq": lam_eq, "lam_in": lam_in, "mu": mu, "state": state}
+    if tel_every:
+        ss = (step_scale.to(dt).mean() if isinstance(step_scale, Tensor)
+              else torch.full((), step_scale, dtype=dt, device=x.device))
+        aux["telemetry"] = {
+            # drlint: disable=host-copy-in-capture -- static host steps
+            "step": np.arange(tel_every, total + 1, tel_every,
+                              dtype=np.int32),
+            "objective": tel[0], "grad_sq": tel[1], "violation": tel[2],
+            "dx": tel[3], "mu": tel[4], "step_scale": ss}
+    return x, aux

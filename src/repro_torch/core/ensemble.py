@@ -321,22 +321,31 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
     migration post-stage after it; other policies (CR3, B1, B3, as in
     the JAX package) and warm, donated, shifted, mu-reset or coupled-
     migration contexts fall back to a loop of `api.solve` with the same
-    semantics. `batched` forces the lane (True raises if there is no
-    batched lane for the policy and context; False forces the loop, the
-    parity hook)."""
+    semantics. `ctx.telemetry` also takes the loop, so each scenario's
+    `ConvergenceTrace` rides its own entry of `result.extras`; the
+    batched lane has no telemetry plumbing. `ctx.sanitize` raises
+    (sanitize single scenarios through `api.solve`). `batched` forces
+    the lane (True raises if there is no batched lane for the policy and
+    context; False forces the loop, the parity hook)."""
     ctx = ctx or SolveContext()
+    if ctx.sanitize:
+        raise NotImplementedError(
+            "SolveContext(sanitize=True) is a solo-solve debug lane — the "
+            "batched ensemble lanes have no checked twins; sanitize "
+            "single scenarios through solve()")
     refuse_mesh(ctx)
     problem = single_region_view(problem)
     policy = resolve_policy(policy)
     stack = resolve_scenarios(scenarios, problem)
     can_batch = (_batched_capable(policy) and ctx.warm is None
                  and not ctx.donate and not ctx.shift and not ctx.reset_mu
-                 and not ctx.coupled_migration)
+                 and not ctx.coupled_migration and ctx.telemetry is None)
     if batched is True and not can_batch:
         raise ValueError(
             f"no batched ensemble lane for policy "
             f"{getattr(policy, 'name', policy)!r} under this context "
-            "(CR1/CR2, no warm/donate/shift/reset_mu/coupled_migration)")
+            "(CR1/CR2, no warm/donate/shift/reset_mu/coupled_migration/"
+            "telemetry)")
     device = resolve_device(ctx.device)
     use_kernel = resolve_use_kernel(ctx.use_kernel, device)
     if batched is False or not can_batch:

@@ -35,20 +35,30 @@ the stacked (R, T) forecast, and the ledger prices each region's
 committed total on its own forecast and realized trace. Only hour 0 of
 each plan commits, so no migration stage runs on a tick.
 
-A port of the JAX package's `repro.core.streaming` on one device: meshes,
-the tick ledger, in-solve telemetry and the recompile guard raise
-`NotImplementedError`, each naming the ROADMAP item that ports it. CR3,
-B1 and B3 run tick by tick (`step`/`run`); `run_scanned` takes CR1/CR2
-only, as `api.solve_day`.
+Observability, as in the JAX package: `events` writes a JSONL tick
+ledger (`repro_torch.obs`, one `TickEvent` a tick and the solve's
+`TelemetryEvent`s, all written on the host after the solve or the
+replay), `telemetry` samples each solve's convergence, and
+`guard_recompiles` runs every re-solve or day of a configuration already
+seen under `analysis.recompile_guard(0)`: no graph capture, no kernel
+build.
+
+A port of the JAX package's `repro.core.streaming` on one device; a mesh
+raises `NotImplementedError` (ROADMAP queue 1, item 11). CR3, B1 and B3
+run tick by tick (`step`/`run`); `run_scanned` takes CR1/CR2 only, as
+`api.solve_day`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.recompile import recompile_guard
 from repro_torch.core.api import (DRPolicy, SolveContext, configured_policy,
                                   solve, solve_day)
 from repro_torch.core.carbon import ForecastStream
@@ -56,6 +66,8 @@ from repro_torch.core.engine import EngineState
 from repro_torch.core.fleet_solver import (FleetProblem, FleetSolveResult,
                                            single_region_view)
 from repro_torch.core.regional import region_totals
+from repro_torch.obs.events import EventWriter, TelemetryEvent, TickEvent
+from repro_torch.obs.telemetry import TelemetryConfig
 
 
 def _rel_revision(prev: np.ndarray | None, cur: np.ndarray) -> float:
@@ -123,12 +135,6 @@ class StreamingReport:
             / max(abs(self.realized_carbon), 1e-12)
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"RollingHorizonSolver: {what} is not ported yet (ROADMAP queue 1, "
-        f"{item})")
-
-
 class RollingHorizonSolver:
     """Online DR controller: warm-started re-solves over a sliding window.
 
@@ -165,9 +171,28 @@ class RollingHorizonSolver:
         `warm_steps // 4`).
       revision_ref: relative revision magnitude that earns the full
         `warm_steps` (default 0.05).
-      mesh, events, telemetry, guard_recompiles: the JAX package's device
-        mesh, tick ledger, in-solve telemetry and recompile guard; not
-        ported yet, they raise `NotImplementedError` when set.
+      mesh: the JAX package's device mesh; not ported yet (ROADMAP
+        queue 1, item 11), it raises `NotImplementedError`.
+      guard_recompiles: enforce the warm-path claim at runtime. The
+        first solve of each static configuration (a (steps, warm) tick,
+        or a day of n ticks, cold or warm) may capture a graph or build
+        a kernel; every later one runs inside
+        `analysis.recompile_guard(0)` and raises `RecompileError` if it
+        captures or builds (a drifted configuration turning one replay a
+        day into a capture a day).
+      events: JSONL tick ledger, a path or an open `obs.EventWriter`.
+        Every `step()` / `run_scanned()` tick appends a `TickEvent`
+        (forecast revision, steps spent, solve latency, per-region
+        committed and realized carbon, migration credit, captures and
+        builds, dispatches) and its convergence samples as
+        `TelemetryEvent`s, written on the host after the solve or the
+        replay, so a day stays one replay. Render it with
+        `python -m repro_torch.obs.report <path>`.
+      telemetry: `obs.TelemetryConfig`: each tick's solve records its
+        convergence trace (CR1/CR2 on the generic engine, so
+        `use_kernel=False` on the card; see `SolveContext.telemetry`).
+        With `events` the samples land in the ledger; without, the trace
+        is on `tick.plan.extras["telemetry"]`.
 
     CR3: the policy's `rho` is the configured price, so every window
     re-clears from it (clearing only ever lowers rho; carrying a lowered
@@ -190,14 +215,12 @@ class RollingHorizonSolver:
                  warm_steps_min: int | None = None,
                  revision_ref: float = 0.05,
                  guard_recompiles: bool = False,
-                 events=None, telemetry=None):
+                 events: EventWriter | str | None = None,
+                 telemetry: TelemetryConfig | None = None):
         if mesh is not None:
-            _refuse("a device mesh", "item 11: multi-GPU row sharding")
-        for what, flag in (("the JSONL tick ledger (events)", events),
-                           ("in-solve telemetry", telemetry),
-                           ("guard_recompiles", guard_recompiles)):
-            if flag:
-                _refuse(what, "item 10: guardrails and observability")
+            raise NotImplementedError(
+                "RollingHorizonSolver: a device mesh is not ported yet "
+                "(ROADMAP queue 1, item 11: multi-GPU row sharding)")
         streams = (tuple(stream) if isinstance(stream, (list, tuple))
                    else (stream,))
         # R = 1 canonicalizes up front: the whole streaming path, the
@@ -233,6 +256,16 @@ class RollingHorizonSolver:
         self.use_kernel = use_kernel
         self.device = device
         self.donate = donate
+        self.guard_recompiles = guard_recompiles
+        if events is None or isinstance(events, EventWriter):
+            self.events = events
+        else:
+            self.events = EventWriter(
+                events, tags={"policy": self.policy.name,
+                              "cold_steps": cold_steps,
+                              "warm_steps": warm_steps})
+        self.telemetry = telemetry
+        self._seen: set[tuple] = set()
         self._state: EngineState | None = None
         self._prev_forecast: np.ndarray | None = None
         self._tick = 0
@@ -284,7 +317,57 @@ class RollingHorizonSolver:
 
     def _ctx(self, **kw) -> SolveContext:
         return SolveContext(device=self.device, donate=self.donate,
-                            use_kernel=self.use_kernel, **kw)
+                            use_kernel=self.use_kernel,
+                            telemetry=self.telemetry, **kw)
+
+    # -- guard and tick ledger ------------------------------------------------
+    def _guard(self, key: tuple):
+        """`recompile_guard(0)` around a re-solve or day of a static
+        configuration already seen (`guard_recompiles=True`); the first
+        of each `key`, and everything when the knob is off, runs
+        unguarded."""
+        if not self.guard_recompiles or key not in self._seen:
+            self._seen.add(key)
+            return contextlib.nullcontext()
+        return recompile_guard(0, label=f"tick {self._tick} {key[0]}")
+
+    def _measure(self):
+        """Capture and build counters (measurement only) while the ledger
+        is on: attributes compiles to ticks; nests inside `_guard`."""
+        if self.events is None:
+            return contextlib.nullcontext(None)
+        return recompile_guard(None, label="tick ledger")
+
+    def _emit_tick(self, out: TickResult, *, revision: float,
+                   latency_s: float, recompiles: int, dispatches: int,
+                   cold: bool, objective_proxy: float | None,
+                   trace=None) -> None:
+        """Append one `TickEvent` and the tick's `TelemetryEvent`s, on the
+        host after the solve returned."""
+        if self.events is None:
+            return
+        if out.committed_by_region is not None:
+            per = np.asarray(out.committed_by_region, float)
+            committed = (per * np.asarray(out.forecast_mci, float)).tolist()
+            realized = (per * np.asarray(out.realized_mci, float)).tolist()
+        else:
+            tot = float(out.committed.sum())
+            committed = [tot * float(out.forecast_mci)]
+            realized = [tot * float(out.realized_mci)]
+        plan = out.plan
+        credit = 0.0
+        if plan is not None and "migration" in plan.extras:
+            credit = float(plan.extras["migration"].net_saved)
+        self.events.write(TickEvent(
+            tick=out.tick, revision=float(revision),
+            warm_steps=int(out.inner_steps), cold=bool(cold),
+            objective_proxy=objective_proxy, latency_s=float(latency_s),
+            committed_carbon=committed, realized_carbon=realized,
+            migration_credit=credit, recompiles=int(recompiles),
+            dispatches=int(dispatches)))
+        if trace is not None:
+            for sample in trace.samples():
+                self.events.write(TelemetryEvent(tick=out.tick, **sample))
 
     def _warm_budget(self, rel: float) -> int:
         """Inner steps for this warm tick: `warm_steps` flat, or scaled by
@@ -313,10 +396,15 @@ class RollingHorizonSolver:
         # mu_growth^outer per tick and CR2's walls turn stiff within a
         # handful of ticks (multipliers still carry the constraint prices).
         steps = self.cold_steps if warm is None else self._warm_budget(rev)
-        plan = solve(self._window_problem(tick, mci_hat), self.policy,
-                     ctx=self._ctx(shift=0 if warm is None else 1,
-                                   reset_mu=warm is not None, warm=warm,
-                                   steps=steps))
+        p_t = self._window_problem(tick, mci_hat)
+        t0 = time.perf_counter()
+        with self._guard(("tick", steps, warm is not None)), \
+                self._measure() as stats:
+            plan = solve(p_t, self.policy,
+                         ctx=self._ctx(shift=0 if warm is None else 1,
+                                       reset_mu=warm is not None, warm=warm,
+                                       steps=steps))
+        latency = time.perf_counter() - t0
         if "rho" in plan.extras:
             self.last_rho = plan.extras["rho"]
         self._state = plan.state
@@ -324,6 +412,12 @@ class RollingHorizonSolver:
         self._tick = tick + 1
         out = self._tick_result(tick, np.asarray(plan.D[:, 0]), mci_hat,
                                 plan.iters, plan)
+        self._emit_tick(out, revision=rev, latency_s=latency,
+                        recompiles=(stats.captures + stats.builds
+                                    if stats else 0),
+                        dispatches=1, cold=warm is None,
+                        objective_proxy=float(plan.carbon_reduction_pct),
+                        trace=plan.extras.get("telemetry"))
         self._retire_plan()
         self._history.append(out)
         return out
@@ -362,19 +456,44 @@ class RollingHorizonSolver:
         if n <= 0:
             raise ValueError(f"n_ticks must be >= 1, got {n}")
         mci_stack = np.stack([self._forecast(t0 + i) for i in range(n)])
-        day = solve_day(self._window_problem(t0, mci_stack[0]), self.policy,
-                        mci_stack,
-                        ctx=self._ctx(warm=self._state, shift=1,
-                                      reset_mu=self._state is not None),
-                        cold_steps=self.cold_steps,
-                        warm_steps=self.warm_steps)
+        was_cold = self._state is None
+        # Each tick's revision, walked over the stack before
+        # _prev_forecast moves to the day's last horizon.
+        prev, revs = self._prev_forecast, []
+        for f in mci_stack:
+            revs.append(_rel_revision(prev, f))
+            prev = f
+        t_start = time.perf_counter()
+        with self._guard(("day", n, not was_cold)), \
+                self._measure() as stats:
+            day = solve_day(self._window_problem(t0, mci_stack[0]),
+                            self.policy, mci_stack,
+                            ctx=self._ctx(warm=self._state, shift=1,
+                                          reset_mu=not was_cold),
+                            cold_steps=self.cold_steps,
+                            warm_steps=self.warm_steps)
+        latency = time.perf_counter() - t_start
         self._state = day.last.state
         self._prev_forecast = mci_stack[-1]
         self._tick = t0 + n
         self._retire_plan()
-        self._history.extend(self._tick_result(
+        outs = [self._tick_result(
             t0 + i, day.committed[i], mci_stack[i], day.inner_steps[i],
-            day.last if i == n - 1 else None) for i in range(n))
+            day.last if i == n - 1 else None) for i in range(n)]
+        # One replay (or eager day) ran the whole day: its latency,
+        # compiles and dispatch land on the day's first tick, the
+        # objective proxy on its last (the only plan the day keeps).
+        traces = day.last.extras.get("telemetry", ())
+        for i, out in enumerate(outs):
+            self._emit_tick(
+                out, revision=revs[i], latency_s=latency if i == 0 else 0.0,
+                recompiles=(stats.captures + stats.builds
+                            if stats and i == 0 else 0),
+                dispatches=1 if i == 0 else 0, cold=i == 0 and was_cold,
+                objective_proxy=(float(day.last.carbon_reduction_pct)
+                                 if i == n - 1 else None),
+                trace=traces[i] if i < len(traces) else None)
+        self._history.extend(outs)
         return self.report()
 
     def report(self) -> StreamingReport:

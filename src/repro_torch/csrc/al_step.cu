@@ -135,8 +135,17 @@ __device__ __forceinline__ void store_run(float* p, int n, bool pairs,
   rowscan::store_run<H>(p, n, pairs, r);
 }
 
+// NaN stays NaN, as in the plain version's torch.clamp: fmaxf/fminf
+// return the other operand for a NaN, a bound, which would hide a
+// non-finite step from the sanitizer's check on x (and from the caller).
+// max.NaN / min.NaN (sm_80+) differ from max / min only there, and cost
+// the same (a select on v != v added ~1 us a call on an H100 at W =
+// 10,000).
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(lo));
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(r), "f"(hi));
+  return r;
 }
 
 // y -> x in place. Every hour is clipped to its box; the hours of batch

@@ -98,8 +98,8 @@ def make_fused_inner(usage, jobs, lo, hi, row_base, cvec, *, mode: str,
     row_base = row_base.expand(lead + (W, 10))
     f32 = torch.float32
     mdt = getattr(torch, cfg.moment_dtype)
-    steps = int(cfg.inner_steps)
-    k_steps = max(1, min(int(k_steps), steps))
+    steps = cfg.inner_steps
+    k_steps = max(1, min(k_steps, steps))
     n_full, rem = divmod(steps, k_steps)
     n_calls = n_full + (1 if rem else 0)
     if isinstance(step_scale, torch.Tensor) and step_scale.dim() >= 2:

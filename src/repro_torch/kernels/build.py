@@ -9,6 +9,10 @@ seconds. `build_all` starts one `nvcc` per source, all at once.
 
 A failed build raises with the compiler's output; nothing falls back to a
 plain version.
+
+`BUILDS` counts the libraries this process compiled and the libraries it
+loaded; `analysis.recompile_guard` reads it (a warm path builds and loads
+nothing).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("dr_features", "al_step", "rmsnorm", "flash_attention",
            "ssd_scan")
 MAX_HOURS = 64  # a row on 8 lanes, at most 8 hours a lane (row_scan.cuh)
+#: Kernel libraries compiled or loaded in this process.
+BUILDS = 0
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +59,7 @@ def build_all(names=KERNELS) -> dict[str, str]:
     """Compile every library that is missing, one `nvcc` per source, all
     started together. Returns each kernel's `ptxas` report (registers,
     spills) for the libraries built by this call."""
+    global BUILDS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
@@ -73,6 +80,7 @@ def build_all(names=KERNELS) -> dict[str, str]:
         reports[name] = log
         if proc.returncode == 0:
             os.replace(tmp, out)
+            BUILDS += 1
         else:
             os.unlink(tmp)
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
@@ -84,10 +92,13 @@ def build_all(names=KERNELS) -> dict[str, str]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if missing."""
+    global BUILDS
     path = library_path(name)
     if not path.exists():
         build_all((name,))
-    return ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(path))
+    BUILDS += 1
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

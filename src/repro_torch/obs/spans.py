@@ -1,0 +1,132 @@
+"""Span timing and profiler hooks: measure compute, not launch.
+
+CUDA launches are asynchronous: `fn(x)` returns once its kernels are
+queued, so a `perf_counter` pair around it times the Python side, not
+the device. `span` synchronizes first: bind the outputs the span covers
+and it synchronizes the CUDA device of every tensor among them before
+it reads the clock on exit::
+
+    with obs.span("cr1-solve", writer=w) as sp:
+        sp.bind(solve(problem, CR1(lam=1.45)))
+    print(sp.elapsed_s)
+
+These are host-side tools. Never call `span` (or anything else that
+waits for the device) in code a CUDA-graph capture runs: drlint's
+`host-sync-in-capture` rule fires on exactly that; in-solve telemetry
+writes device buffers instead (`repro_torch.obs.telemetry`).
+
+`profile(dir)` wraps `torch.profiler.profile` (CPU and, where there is
+one, CUDA activity) and writes a Chrome trace into `dir`;
+`compile_count()` is `analysis.recompile_guard(None)`, the graph-capture
+and kernel-build counters in measurement mode.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+from typing import Any, Optional
+
+from repro_torch.obs.events import EventWriter, SpanEvent
+
+__all__ = ["span", "SpanScope", "profile", "compile_count"]
+
+
+@dataclasses.dataclass
+class SpanScope:
+    """Live handle yielded by `span`; read `elapsed_s` after the block."""
+    name: str
+    elapsed_s: float = 0.0
+    _bound: tuple = ()
+
+    def bind(self, *values: Any) -> Any:
+        """Attach outputs to synchronize on at span exit.
+
+        Returns the single value (or the tuple) unchanged, so a call site
+        can wrap an expression in line::
+
+            result = sp.bind(solve(...))
+        """
+        self._bound = self._bound + values
+        return values[0] if len(values) == 1 else values
+
+
+def _cuda_devices(value: Any, out: set) -> set:
+    """The CUDA devices of the tensors in `value`: tensors, nested
+    tuples, lists and dicts, and dataclasses such as `FleetSolveResult`
+    or `EngineState`."""
+    if hasattr(value, "is_cuda") and hasattr(value, "device"):
+        if value.is_cuda:
+            out.add(value.device)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            _cuda_devices(v, out)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _cuda_devices(v, out)
+    elif dataclasses.is_dataclass(value) and not isinstance(value, type):
+        for f in dataclasses.fields(value):
+            _cuda_devices(getattr(value, f.name), out)
+    return out
+
+
+@contextlib.contextmanager
+def span(name: str, *, writer: Optional[EventWriter] = None,
+         meta: dict | None = None):
+    """Time a block on a monotonic clock, device-synchronized on exit.
+
+    Every CUDA device that holds a tensor passed to the scope's
+    `.bind(...)` is synchronized before the closing timestamp, so the
+    span covers the device work those values depend on. With nothing
+    bound on the card the span is a plain wall-clock timer.
+
+    With `writer`, a `SpanEvent` is appended on exit, also when the
+    body raises (the partial timing is still real).
+    """
+    scope = SpanScope(name=name)
+    t0 = time.perf_counter()
+    try:
+        yield scope
+    finally:
+        devices = _cuda_devices(scope._bound, set())
+        if devices:
+            import torch
+            for dev in devices:
+                torch.cuda.synchronize(dev)
+        scope.elapsed_s = time.perf_counter() - t0
+        if writer is not None:
+            writer.write(SpanEvent(name=name, elapsed_s=scope.elapsed_s,
+                                   meta=meta))
+
+
+@contextlib.contextmanager
+def profile(logdir, *, name: str = "trace.json"):
+    """`torch.profiler.profile` around any lane, CPU and CUDA activity
+    (CUDA where the host has a device), written as a Chrome trace to
+    `logdir/name` on exit. Yields the profiler, whose `key_averages()`
+    and `events()` stay readable after the block::
+
+        with obs.profile("var/profile"):
+            solve_day(problem, CR1(lam=1.45), mci_stack)
+    """
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(os.fspath(logdir), exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(os.fspath(logdir), name))
+
+
+def compile_count(label: str = ""):
+    """Count graph captures and kernel builds in a region without a
+    budget: `analysis.recompile.recompile_guard(None)`. Yields a live
+    `RecompileStats`; read `.captures` / `.builds` after the block.
+    Nests inside (or around) a failing-mode guard."""
+    from repro_torch.analysis.recompile import recompile_guard
+
+    return recompile_guard(None, label=label)

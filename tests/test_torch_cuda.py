@@ -157,6 +157,29 @@ def test_al_step_kernel_matches_plain_mixed(dev, fleets, mode, cold):
 
 
 @pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_kernel_keeps_nan_as_its_plain_version(dev, fleets, mode):
+    """A NaN in the carbon term reaches x where the plain version
+    (torch.clamp, the day projection) puts it: hour 7 of RTS rows, the
+    first day of batch rows; the sanitizer's check on x must see what the
+    kernel computed. On the next step both keep a NaN on every row (the
+    kernel's penalty hinges read a NaN feature as 0 where the plain
+    version keeps NaN, so they differ in how far it spreads)."""
+    args = _al_inputs(fleets, 130, mode, seed=5, dev=dev, rts_only=False,
+                      stable=True)
+    args[8] = args[8].clone()
+    args[8][..., 7] = float("nan")
+    isb = args[7][:, 8] > 0.5
+    got, want = (f(*args, mode=mode, k_steps=1)[0]
+                 for f in (al_step_cuda, al_step_ref))
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert nan[~isb, 7].all() and nan[isb, :24].all()
+    _close(torch.where(nan, 0.0, got), torch.where(nan, 0.0, want), 1e-5)
+    for f in (al_step_cuda, al_step_ref):
+        assert torch.isnan(f(*args, mode=mode, k_steps=2)[0]).any(1).all()
+
+
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
 def test_al_step_kernel_ill_conditioned_tiny_v(dev, fleets, mode):
     """v drawn below m², as the JAX package's kernel tests draw it: m/√v
     magnifies ulp-level gradient differences, so 1e-4 (one element of
@@ -613,13 +636,19 @@ def test_day_graph_captures_once_and_counts_each_replay(dev, fleets,
     assert DAY_GRAPHS.captures == n0 + 1
     want = _expected_day_launches(policy, 3)
     assert DAY_GRAPHS.get(key).launches == want
+
+    def replay():
+        return solve_day(p, pol, stack, ctx=ctx, **DAY_STEPS)
+
     before = (al_step_cuda.launches, dr_features_cuda.launches)
-    on_device = _load_chip_smoke().device_launches(
-        torch, lambda: solve_day(p, pol, stack, ctx=ctx, **DAY_STEPS))
+    replay()
     assert DAY_GRAPHS.captures == n0 + 1
     assert (al_step_cuda.launches - before[0],
             dr_features_cuda.launches - before[1]) == \
         (want["al_step"], want["dr_features"])
+    on_device = _load_chip_smoke().device_launches(
+        torch, f"{policy} day", replay, want)
+    assert DAY_GRAPHS.captures == n0 + 1
     assert on_device == want
 
 
@@ -1044,3 +1073,99 @@ def test_multiregion_day_graph_replay_matches_eager_day(dev, fleets, policy):
     assert res.committed.shape == (3, 130)
     assert np.isfinite(res.committed).all()
     assert res.last.preservation_violation < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Guardrails and observability
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_sanitized_day_graph(dev, fleets, policy):
+    """A sanitized day is a graph of its own: its replay is bitwise the
+    unsanitized replay at the same launches, a NaN in one tick raises after
+    the replay, and a clean day replayed on the same graph then passes
+    (the flag restarts at 0 on every replay)."""
+    from repro_torch.analysis import SanitizeError
+    from repro_torch.core.api import SolveContext, solve_day
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    p, pol, stack = fleets[130], _day_policy(policy), _day_stack(4)
+
+    def day(s, sanitize):
+        return solve_day(p, pol, s, ctx=SolveContext(sanitize=sanitize),
+                         **DAY_STEPS)
+
+    plain = day(stack, False)
+    n0 = DAY_GRAPHS.captures
+    day(stack, True)
+    assert DAY_GRAPHS.captures == n0 + 1
+    before = (al_step_cuda.launches, dr_features_cuda.launches)
+    san = day(stack, True)
+    want = _expected_day_launches(policy, 4)
+    assert (al_step_cuda.launches - before[0],
+            dr_features_cuda.launches - before[1]) == \
+        (want["al_step"], want["dr_features"])
+    np.testing.assert_array_equal(san.committed, plain.committed)
+    assert torch.equal(san.last.state.x, plain.last.state.x)
+    bad = stack.copy()
+    bad[2, 11] = np.nan
+    with pytest.raises(SanitizeError, match="al-fused-inner: non-finite "
+                                            "values in x"):
+        day(bad, True)
+    again = day(stack, True)
+    assert DAY_GRAPHS.captures == n0 + 1
+    np.testing.assert_array_equal(again.committed, plain.committed)
+
+
+def test_ledger_day_under_recompile_guard(dev, fleets, tmp_path):
+    """A ledger day of a configuration already captured compiles nothing,
+    launches what a day without the ledger launches, and commits the same
+    plan."""
+    from repro_torch.analysis import recompile_guard
+    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.streaming import RollingHorizonSolver
+    from repro_torch.obs import read_events
+    p = fleets[130]
+    stream = ForecastStream.caiso(n_ticks=9, horizon=T, seed=7)
+    kw = dict(policy=_day_policy("cr1"), **DAY_STEPS)
+    path = tmp_path / "day.jsonl"
+    led = RollingHorizonSolver(p, stream, events=str(path),
+                               guard_recompiles=True, **kw)
+    bare = RollingHorizonSolver(p, stream, **kw)
+    for s in (led, bare):
+        s.run_scanned(3)
+        s.run_scanned(3)
+    n0 = al_step_cuda.launches
+    with recompile_guard(0) as stats:
+        got = led.run_scanned(3)
+    n1 = al_step_cuda.launches
+    want = bare.run_scanned(3)
+    n2 = al_step_cuda.launches
+    assert (stats.captures, stats.builds) == (0, 0)
+    assert n1 - n0 == n2 - n1 == 3 * -(-DAY_STEPS["warm_steps"] // 8)
+    np.testing.assert_array_equal(got.committed, want.committed)
+    ticks = [r for r in read_events(path) if r["kind"] == "tick"]
+    assert [t["dispatches"] for t in ticks] == [1, 0, 0] * 3
+    assert read_events(path)[0]["host"]["platform"] == "cuda"
+
+
+def test_span_synchronizes_a_cuda_tensor(dev):
+    from repro_torch.obs import span
+    x = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with span("matmul") as sp:
+        start.record()
+        y = sp.bind(x @ x @ x)
+        end.record()
+    assert end.query()                  # the span waited for the device
+    assert sp.elapsed_s * 1e3 >= start.elapsed_time(end)
+    assert torch.isfinite(y).all()
+
+
+def test_profile_writes_its_file(dev, tmp_path):
+    from repro_torch.obs import profile
+    with profile(tmp_path) as prof:
+        (torch.ones(1 << 20, device=dev) * 2).sum()
+        torch.cuda.synchronize()
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert any(e.device_type.name == "CUDA" for e in prof.events())

@@ -39,7 +39,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "core.daygraph", "core.scenario", "core.ensemble",
               "core.policies", "core.baselines", "core.solver",
               "core.fleet", "power.model", "core.regional",
-              "core.migration"):
+              "core.migration", "obs", "obs.events", "obs.telemetry",
+              "obs.spans", "obs.report", "analysis", "analysis.sanitize",
+              "analysis.recompile", "analysis.rules", "analysis.lint"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -175,3 +177,35 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
     for r in runs:
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+WANT = {"al_step": 2094, "dr_features": 192}
+SHORT = {"al_step": 2094, "dr_features": 191}
+
+
+@pytest.mark.parametrize("traces,ok", [
+    ([(WANT, 12443)], True),
+    ([(SHORT, 12442), (WANT, 12443)], True),        # a lost record
+    ([(SHORT, 12442), (SHORT, 12441), (WANT, 12443)], True),
+    ([(SHORT, 12443), (WANT, 12443)], False),       # nothing lost
+    ([(SHORT, 12442)] * 3, False),                  # never complete
+    ([({"al_step": 2094, "dr_features": 193}, 12444)], False),
+])
+def test_chip_smoke_device_launches_tells_lost_records_from_launches(
+        monkeypatch, traces, ok):
+    """chip_smoke's trace count of a replay's launches takes a short
+    trace again, and lets it go only when it holds fewer device records
+    than the trace that reads the expected launches."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    it = iter(traces)
+    monkeypatch.setattr(cs, "_traced_launches",
+                        lambda torch, fn, names: next(it))
+    if ok:
+        assert cs.device_launches(torch, "day", lambda: None, WANT) == WANT
+    else:
+        with pytest.raises(AssertionError, match="day: the device ran"):
+            cs.device_launches(torch, "day", lambda: None, WANT)

@@ -322,12 +322,14 @@ def test_baselines_price_each_row_on_its_region(fleets):
 # ---------------------------------------------------------------------------
 # What stays refused around the streaming and batched lanes
 # ---------------------------------------------------------------------------
-def test_multiregion_streaming_and_lanes_refused_by_name(fleets):
+def test_multiregion_streaming_and_lanes_refused_by_name(fleets, tmp_path):
     """The streaming and batched lanes take a multi-region fleet (held
     against the JAX package in `tests/test_torch_multiregion_streaming.py`
     and `tests/test_torch_multiregion_lanes.py`); what stays refused
-    around them is refused by name: the mesh (ROADMAP queue 1, item 11)
-    and the tick ledger, telemetry and recompile guard (item 10)."""
+    around them is refused by name: the mesh (ROADMAP queue 1, item 11).
+    The tick ledger, telemetry and recompile guard run on it: per-region
+    committed and realized carbon on every tick, with the migration
+    credit."""
     from repro_torch.core import ensemble as tens
     from repro_torch.core import scenario as tscen
     from repro_torch.core import streaming as tstream
@@ -363,7 +365,19 @@ def test_multiregion_streaming_and_lanes_refused_by_name(fleets):
                                                  device="cpu")):
         with pytest.raises(NotImplementedError, match="item 11"):
             call()
-    for flag in ("events", "telemetry", "guard_recompiles"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tstream.RollingHorizonSolver(tp, streams, device="cpu",
-                                         **{flag: True})
+    from repro_torch.obs import TelemetryConfig, read_events
+    path = tmp_path / "regions.jsonl"
+    ledger = tstream.RollingHorizonSolver(
+        tp, streams, events=str(path), guard_recompiles=True,
+        telemetry=TelemetryConfig(every=2), **kw)
+    ledger.run(2)
+    ledger.run_scanned(2)
+    recs = read_events(path)
+    ticks = [r for r in recs if r["kind"] == "tick"]
+    assert [t["tick"] for t in ticks] == [0, 1, 2, 3]
+    for t in ticks:
+        assert len(t["committed_carbon"]) == len(t["realized_carbon"]) == 2
+        assert t["migration_credit"] == 0.0   # hour 0 commits, no stage
+        assert np.isfinite(t["committed_carbon"]).all()
+    assert {r["tick"] for r in recs if r["kind"] == "telemetry"} == \
+        {0, 1, 2, 3}

@@ -30,6 +30,7 @@ from repro_torch.core import api as tapi
 from repro_torch.core import penalty as tpen
 from repro_torch.core import streaming as tstream
 from repro_torch.core.carbon import ForecastStream as TStream
+from repro_torch.obs import TelemetryConfig, read_events
 
 PP = 0.05
 TICKS = 4
@@ -331,9 +332,14 @@ def test_policy_knobs_and_defaults(fleet16):
 
 REFUSALS = {
     "mesh": (dict(mesh=object()), "item 11"),
-    "events": (dict(events="ticks.jsonl"), "item 10"),
-    "telemetry": (dict(telemetry=object()), "item 10"),
-    "guard_recompiles": (dict(guard_recompiles=True), "item 10"),
+}
+# Options the port refused by name until the tick ledger, in-solve
+# telemetry and the recompile guard were ported: each now runs 2 ticks
+# and a 2-tick day (cold 16 / warm 8 steps) and writes a ledger.
+LEDGER = {
+    "events": dict(),
+    "telemetry": dict(telemetry=TelemetryConfig(every=4)),
+    "guard_recompiles": dict(guard_recompiles=True),
 }
 # Options the port refused by name until CR3 and the baselines were
 # ported: each now runs, and is held against the JAX package's controller
@@ -347,13 +353,32 @@ PORTED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(PORTED))
-def test_unported_options_refuse_by_name(fleet16, case):
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(LEDGER)
+                         + sorted(PORTED))
+def test_unported_options_refuse_by_name(fleet16, case, tmp_path):
     p, tp = fleet16
     if case in REFUSALS:
         kw, item = REFUSALS[case]
         with pytest.raises(NotImplementedError, match=item):
             tstream.RollingHorizonSolver(tp, _streams(n=2)[1], **kw)
+        return
+    if case in LEDGER:
+        path = tmp_path / "ticks.jsonl"
+        trhs = tstream.RollingHorizonSolver(
+            tp, _streams(n=4)[1], device="cpu", cold_steps=16, warm_steps=8,
+            events=str(path), **LEDGER[case])
+        trhs.run(2)
+        trhs.run_scanned(2)
+        recs = read_events(path)
+        assert recs[0]["host"]["platform"] == "cpu"
+        ticks = [r for r in recs if r["kind"] == "tick"]
+        assert [t["tick"] for t in ticks] == [0, 1, 2, 3]
+        assert [t["cold"] for t in ticks] == [True, False, False, False]
+        assert [t["warm_steps"] for t in ticks] == [16, 8, 8, 8]
+        assert [t["dispatches"] for t in ticks] == [1, 1, 1, 0]
+        assert all(t["recompiles"] == 0 for t in ticks)   # eager CPU
+        tel = {r["tick"] for r in recs if r["kind"] == "telemetry"}
+        assert tel == ({0, 1, 2, 3} if case == "telemetry" else set())
         return
     kw = dict(PORTED[case], cold_steps=16, warm_steps=8)
     js, ts = _streams(n=2)

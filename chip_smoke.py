@@ -125,7 +125,29 @@ Phases, each of which raises on failure (the script then exits nonzero):
    `recompile_guard(0)` with no capture and no build and bitwise a
    solver's without the ledger, the report CLI exiting 0; `span` around
    a solve no shorter than CUDA events inside it; `profile`'s trace;
-8. print the kernels' JSON line and, last, the device line.
+8. training stablelm-3b (batch 2 x 4096, the JAX package's train_4k
+   sequence; bf16 compute, f32 masters, remat): 8a, the rmsnorm and
+   flash-attention autograd Functions at the step's shapes, forwards
+   bitwise the buffer-free kernel calls, backwards against autograd
+   through the plain versions (1e-5 f32, 2e-2 bf16, relative L2), timed
+   forward plus backward beside the plain versions, `F.rms_norm` and
+   SDPA; `loss_fn` and its gradient at full width and 2 layers through
+   the kernels against the plain versions (loss 1e-3 relative, each leaf
+   0.05 relative L2); 8b, the coordinator's paper fleet calibrated
+   (after every timed phase before it) and the CR1(1.45) throttle of
+   `FleetCoordinator.plan`, then `train()` at full width and depth for 6
+   steps (launches 129 / 64 a step, a failure at step 3 before any
+   checkpoint retried in place, the final 33.5 GB checkpoint's snapshot
+   and write timed, then restored bitwise beside the live state and
+   deleted), the 32-layer step through `make_train_step` from that state
+   (ms a step, tokens/s, peak memory, launches by counter and by
+   `torch.profiler`, the idle share of a profiled step), and `train()`
+   under the plan's throttle over 96 steps of the integration tests'
+   config (the budgets `hour_budgets` gives, summing to the steps, some
+   cut below the base budget); 8c, the runner on that config (40 steps
+   with the loss falling, a failure at step 13 restored onto the card);
+   every count reset just before and read just after each run;
+9. print the kernels' JSON line and, last, the device line.
 
 Imports nothing of the JAX package.
 """
@@ -134,6 +156,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -230,6 +253,22 @@ CR3_REGION_STEPS = 150
 # (S = 16 without a topology; S = 4 with it, each post-stage ~2 s).
 REGION_STREAM_SIGMA, REGION_STREAM_SEED = 0.03, 7
 REGION_ENSEMBLE_S, REGION_CREDIT_S = 16, 4
+# Training (phase 8): stablelm-3b at full width, batch 2 x 4096 (the JAX
+# package's train_4k sequence), 6 steps under CR1(1.45)'s throttle. 8a
+# holds loss_fn and its gradient through the kernels against the plain
+# versions at 2 layers (bf16 bounds, as serving's logits), and the two
+# autograd Functions' backwards against autograd through the plain
+# versions. train() runs all 32 layers for 6 steps with one final 33.5
+# GB checkpoint, so that the whole run writes ~31 GiB to disk (its budget
+# is 45 GiB): under the throttle each of the 6 one-step hours (6 steps
+# over 48 hours make every budget 1) would end with a checkpoint, 201 GB.
+# train() runs under the plan's throttle on the integration tests'
+# config, at THROTTLE_STEPS = 2 x 48, where the budgets vary.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LAMBDA = 4096, 2, 6, 1.45
+TRAIN_FAIL_STEP, THROTTLE_STEPS = 3, 96
+GRAD_LAYERS = 2
+LOSS_RTOL, GRAD_REL_L2 = 1e-3, 0.05
+BWD_F32, BWD_BF16 = 1e-5, 2e-2
 
 
 def log(*a):
@@ -2426,6 +2465,411 @@ def phase_observability(np, torch, p):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training
+# ---------------------------------------------------------------------------
+def _rel_l2(torch, got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def _fwd_bwd_ms(torch, fwd, inputs, dout, reps=5):
+    """Median time of forward plus backward from an idle stream to its
+    end, from CUDA events."""
+    def run():
+        out = fwd(*inputs)
+        torch.autograd.grad(out, inputs, dout)
+    return plain_ms(torch, run, reps=reps)
+
+
+def _device_breakdown(torch, fn, top=10):
+    """(wall s, device-busy s, [(kernel name, device ms, launches)] of
+    the `top` kernels by device time) of `fn()` under `torch.profiler`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(bool(events), "the profiler traced no device event")
+    by_name = {}
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (b - a) * 1e-3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return wall, busy * 1e-6, [(k, ms, n) for k, (ms, n) in ranked]
+
+
+def phase_train_grads(np, torch):
+    """8a: the two autograd Functions at the model's shapes, then loss_fn
+    and its gradient at full width and 2 layers, kernels against plain."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+    from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                         attention_ref)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ops import RMSNormFn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.launch.steps import make_loss_fn, value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import tree_items
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    full = get_config("stablelm-3b")
+    B, S, H, Dh, d = (TRAIN_BATCH, TRAIN_SEQ, full.num_heads, full.dh,
+                      full.d_model)
+    rec = {}
+    for dt, tol in ((torch.float32, BWD_F32), (torch.bfloat16, BWD_BF16)):
+        name = str(dt).removeprefix("torch.")
+        # RMSNorm over the step's (B·S, d) rows.
+        x = (1.5 * torch.randn((B * S, d), generator=gen, device=dev)).to(dt)
+        s = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        dy = torch.randn((B * S, d), generator=gen, device=dev).to(dt)
+        x.requires_grad_(True)
+        s.requires_grad_(True)
+        y = RMSNormFn.apply(x, s, 1e-6)
+        require(torch.equal(y, rmsnorm_cuda(x.detach(), s.detach())),
+                f"rmsnorm {name}: the autograd forward is not the kernel's")
+        got = torch.autograd.grad(y, (x, s), dy)
+        want = torch.autograd.grad(rmsnorm_ref(x, s), (x, s), dy)
+        errs = [_rel_l2(torch, g, w) for g, w in zip(got, want)]
+        log(f"[train 8a] rmsnorm {name} ({B * S}, {d}): forward bitwise the "
+            f"kernel's; backward vs autograd through the plain version: "
+            f"relative L2 dx {errs[0]:.3e}, dscale {errs[1]:.3e} (bound "
+            f"{tol:g})")
+        require(max(errs) < tol, f"rmsnorm {name} backward: {errs} >= {tol}")
+        if dt == torch.bfloat16:
+            w = s.detach().bfloat16().requires_grad_(True)
+            rec["rmsnorm"] = {
+                "ms": _fwd_bwd_ms(torch, lambda a, b: RMSNormFn.apply(
+                    a, b, 1e-6), (x, s), dy),
+                "plain_ms": _fwd_bwd_ms(torch, rmsnorm_ref, (x, s), dy),
+                "library_ms": _fwd_bwd_ms(torch, lambda a, b: F.rms_norm(
+                    a, (d,), b, 1e-6), (x, w), dy)}
+        del x, s, dy, y, got, want
+
+        # Flash attention at the step's (B, S, H, Dh), causal.
+        q, k, v = (torch.randn((B, S, H, Dh), generator=gen,
+                               device=dev).to(dt).requires_grad_(True)
+                   for _ in range(3))
+        do = torch.randn((B, S, H, Dh), generator=gen, device=dev).to(dt)
+        out = FlashAttentionFn.apply(q, k, v, True, 0)
+        require(torch.equal(out, flash_attention_cuda(
+            q.detach(), k.detach(), v.detach())),
+                f"flash_attention {name}: the forward with its log-sum-exp "
+                f"buffer is not the buffer-free call's")
+        _, lse = flash_attention_cuda(q.detach(), k.detach(), v.detach(),
+                                      with_lse=True)
+        lse_err = float((lse - attention_lse_ref(q.detach(), k.detach()))
+                        .abs().max())
+        got = torch.autograd.grad(out, (q, k, v), do)
+        want = torch.autograd.grad(attention_ref(q, k, v), (q, k, v), do)
+        errs = [_rel_l2(torch, g, w) for g, w in zip(got, want)]
+        log(f"[train 8a] flash_attention {name} {(B, S, H, Dh)} causal: "
+            f"forward bitwise with and without the log-sum-exp buffer, "
+            f"log-sum-exp max abs err {lse_err:.3e} against the plain one; "
+            f"backward vs autograd through the plain version: relative L2 "
+            f"dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (bound "
+            f"{tol:g})")
+        require(lse_err < 1e-3, f"flash_attention {name}: log-sum-exp off "
+                f"by {lse_err:.3e}")
+        require(max(errs) < tol,
+                f"flash_attention {name} backward: {errs} >= {tol}")
+        if dt == torch.bfloat16:
+            qd, kd, vd = (t.detach() for t in (q, k, v))
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v))
+            rec["flash_attention"] = {
+                "ms": _fwd_bwd_ms(torch, lambda a, b, c: FlashAttentionFn
+                                  .apply(a, b, c, True, 0), (q, k, v), do),
+                "plain_ms": _fwd_bwd_ms(torch, attention_ref, (q, k, v), do),
+                "library_ms": _fwd_bwd_ms(
+                    torch, lambda a, b, c: F.scaled_dot_product_attention(
+                        a, b, c, is_causal=True), (qt, kt, vt),
+                    do.transpose(1, 2)),
+                "fwd_ms": kernel_ms(torch, lambda: flash_attention_cuda(
+                    qd, kd, vd), reps=20),
+                "fwd_lse_ms": kernel_ms(torch, lambda: flash_attention_cuda(
+                    qd, kd, vd, with_lse=True), reps=20)}
+        del q, k, v, do, out, got, want
+        torch.cuda.empty_cache()
+    fa = rec["flash_attention"]
+    log(f"[train 8a] forward + backward at the step's shapes, bf16: rmsnorm "
+        f"autograd Function {rec['rmsnorm']['ms']:.3f} ms, plain "
+        f"{rec['rmsnorm']['plain_ms']:.3f} ms, F.rms_norm "
+        f"{rec['rmsnorm']['library_ms']:.3f} ms; flash attention autograd "
+        f"Function {fa['ms']:.3f} ms, plain {fa['plain_ms']:.3f} ms, SDPA "
+        f"{fa['library_ms']:.3f} ms (CUDA events, median of 5); the forward "
+        f"kernel alone {fa['fwd_ms'] * 1e3:.2f} us, with its log-sum-exp "
+        f"{fa['fwd_lse_ms'] * 1e3:.2f} us")
+
+    # loss_fn and its gradient, full width, 2 layers, kernels vs plain.
+    cfg = dataclasses.replace(full, num_layers=GRAD_LAYERS)
+    masters = tf.init_params(cfg, seed=0, device=dev)
+    batch = synthetic_batch(cfg, ShapeCell("train_4k", S, B, "train"), 0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    out = {}
+    for kern in (True, False):
+        loss, grads = value_and_grad(make_loss_fn(cfg, use_kernel=kern),
+                                     masters, batch)
+        out[kern] = (float(loss), dict(tree_items(grads)))
+        del grads
+        torch.cuda.empty_cache()
+    lk, gk = out[True]
+    lp, gp = out[False]
+    rel = abs(lk - lp) / abs(lp)
+    errs = {key: _rel_l2(torch, gk[key], gp[key]) for key in gp}
+    worst = max(errs, key=errs.get)
+    log(f"[train 8a] stablelm-3b at full width, {GRAD_LAYERS} layers, "
+        f"batch {B} x {S}: loss through the kernels {lk:.6f}, plain "
+        f"{lp:.6f}, relative {rel:.3e} (bound {LOSS_RTOL:g}); {len(errs)} "
+        f"gradient leaves, relative L2 worst {errs[worst]:.3e} at {worst} "
+        f"(bound {GRAD_REL_L2:g}), median "
+        f"{statistics.median(errs.values()):.3e}")
+    require(np.isfinite(lk) and rel < LOSS_RTOL,
+            f"loss through the kernels {lk} vs plain {lp}")
+    require(errs[worst] < GRAD_REL_L2,
+            f"gradient {worst}: relative L2 {errs[worst]:.3e}")
+    del out, gk, gp, masters
+    torch.cuda.empty_cache()
+    log(f"[train 8a] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return rec
+
+
+def phase_train(np, torch):
+    """8b and 8c: the coordinator's plan, `train()` at full width and depth
+    with a failure retried in place, its final checkpoint restored
+    bitwise, the 32-layer step timed and profiled, `train()` under the
+    plan's throttle where its budgets vary, and the runner on the
+    integration tests' config. Returns the kernels' launches on these
+    paths."""
+    import tempfile
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.fleetcache import cached_paper_fleet
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import dr_throttle, hour_budgets, train
+    from repro_torch.optim.adamw import AdamWConfig, tree_items
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.ft import FailurePlan
+
+    t_phase = time.perf_counter()
+    kernels = {"rmsnorm": rmsnorm_cuda,
+               "flash_attention": flash_attention_cuda}
+    totals = dict.fromkeys(kernels, 0)
+    full = get_config("stablelm-3b")
+    L = full.num_layers
+    shape = ShapeCell("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+
+    def per_step(layers):
+        return {"rmsnorm": 4 * layers + 1, "flash_attention": 2 * layers}
+
+    def counted(fn):
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        got = {n: f.launches for n, f in kernels.items()}
+        for n in totals:
+            totals[n] += got[n]
+        return out, got
+
+    def plain_events(report):
+        return [(e["step"], e["event"]) for e in report["events"]
+                if not e["event"].startswith("straggler")]
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        # 8b: the plan, as main() builds it. Its paper fleet (160 / 10,000)
+        # is calibrated here, after every timed phase before it.
+        t0 = time.perf_counter()
+        cached_paper_fleet(hours=48, device="cuda")
+        log(f"[train 8b] the coordinator's paper fleet (160 / 10,000) "
+            f"calibrated in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        throttle = dr_throttle(full.name, TRAIN_LAMBDA, device="cuda")
+        log(f"[train 8b] FleetCoordinator([stablelm-3b], caiso_2021(48), "
+            f"lam={TRAIN_LAMBDA}).plan() in {time.perf_counter() - t0:.2f} s;"
+            f" throttle {np.round(throttle, 3).tolist()}")
+
+        # 8b: train() at full width and depth: one run of 6 steps with
+        # one (final) 33.5 GB checkpoint, within the run's 45 GiB of disk
+        # writes, and not the throttle's 6 one-step hours, which would
+        # write 6 (every budget is 1 at 6 steps over 48 hours). A failure
+        # at step TRAIN_FAIL_STEP, before any checkpoint, is retried in
+        # place.
+        report, got = counted(lambda: train(
+            full, shape, TRAIN_STEPS, str(tmp / "train"),
+            failure_plan=FailurePlan(fail_steps=(TRAIN_FAIL_STEP,))))
+        losses = report["losses"]
+        want = {n: c * TRAIN_STEPS for n, c in per_step(L).items()}
+        events = plain_events(report)
+        on_card = all(t.is_cuda for _, t in tree_items(
+            {"p": report["params"], "o": report["opt_state"]}))
+        log(f"[train 8b] train() stablelm-3b full width and depth ({L} "
+            f"layers), batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat, "
+            f"{TRAIN_STEPS} steps, a failure at step {TRAIN_FAIL_STEP}: "
+            f"losses {[round(x, 4) for x in losses]}, events {events}, state "
+            f"on the card {on_card}, launches {got} (expected {want}), wall "
+            f"{report['wall_s']:.2f} s")
+        for c in report["checkpoints"]:
+            log(f"[train 8b] checkpoint at step {c['step']}: "
+                f"{c['bytes'] / 1e9:.2f} GB, host snapshot "
+                f"{c['snapshot_s']:.2f} s, write {c['write_s']:.2f} s, "
+                f"{c['bytes'] / 1e9 / (c['snapshot_s'] + c['write_s']):.2f} "
+                f"GB/s in all")
+        require(len(losses) == TRAIN_STEPS
+                and all(np.isfinite(x) for x in losses), "train() losses")
+        require(events == [(TRAIN_FAIL_STEP, "failure"),
+                           (TRAIN_FAIL_STEP, "retry")] and on_card,
+                f"train() did not retry on the card: {events}")
+        require(got == want, f"train() launches {got} != {want}")
+        require([c["step"] for c in report["checkpoints"]] == [TRAIN_STEPS],
+                "one checkpoint, the final one")
+
+        # The final checkpoint (params, m, v, step) restored bitwise.
+        state = {"params": report["params"], "opt": report["opt_state"]}
+        mgr = CheckpointManager(tmp / "train")
+        require(mgr.all_steps() == [TRAIN_STEPS],
+                f"checkpoints on disk {mgr.all_steps()}")
+        t0 = time.perf_counter()
+        restored, at = mgr.restore(state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(tree_items(state), tree_items(restored)))
+        log(f"[train 8b] final checkpoint (step {at}, "
+            f"{report['checkpoints'][-1]['bytes'] / 1e9:.2f} GB) restored "
+            f"onto the card beside the live state, as the runner restores, "
+            f"in {t_restore:.2f} s, bitwise {same}; free "
+            f"space under {tmp.parent}: "
+            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+        require(same and at == TRAIN_STEPS, "checkpoint restore not bitwise")
+        del restored, state, mgr
+        shutil.rmtree(tmp / "train")
+        masters, opt = report["params"], report["opt_state"]
+        del report
+        torch.cuda.empty_cache()
+
+        # 8b: the 32-layer step timed and profiled, from train()'s state.
+        step = make_train_step(full,
+                               AdamWConfig(total_steps=2 * TRAIN_STEPS))
+        batches = [synthetic_batch(full, shape, i)
+                   for i in range(TRAIN_STEPS, 2 * TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            (masters, opt, loss), got = counted(
+                lambda: step(masters, opt, batch))
+            torch.cuda.synchronize()
+            losses.append(loss)
+            walls.append(time.perf_counter() - t0)
+            require(got == per_step(L),
+                    f"step {i}: launches {got} != {per_step(L)}")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(walls[-4:]) * 1e3
+        log(f"[train 8b] stablelm-3b {L} layers, make_train_step (in "
+            f"place): losses {[round(x, 4) for x in losses]}, {ms:.1f} ms a "
+            f"step (median of the last 4, host clock, one loss read a "
+            f"step, to the end of its update), {tokens / ms * 1e3:.0f} tokens/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, launches a step {got} by counter; "
+            f"step walls {[round(w, 3) for w in walls]} s")
+        require(all(np.isfinite(x) for x in losses), f"{L}-layer losses")
+        prof_batch = batches[0]
+
+        def one_step():
+            nonlocal masters, opt
+            masters, opt, _ = step(masters, opt, prof_batch)
+            torch.cuda.synchronize()
+
+        dl = device_launches(torch, f"{L}-layer train step", one_step,
+                             {"rmsnorm": 129, "fa_bf16": 64},
+                             names=("rmsnorm", "fa_bf16"))
+        wall, busy, top = _device_breakdown(torch, one_step)
+        log(f"[train 8b] profiled {L}-layer step: device launches {dl}, "
+            f"wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, idle "
+            f"share {1 - busy / wall:.4f}; device time by kernel, top "
+            f"{len(top)}: " + "; ".join(f"{n[:60]} {ms:.1f} ms x {c}"
+                                        for n, ms, c in top))
+        del masters, opt, step
+        torch.cuda.empty_cache()
+        t_8c = time.perf_counter()
+
+        # 8b: train() under the plan's throttle, on the integration tests'
+        # config: at 2 steps an hour a throttle below 0.75 cuts an hour to
+        # one step.
+        small = reduced(full, layers=2, d_model=64)
+        sshape = ShapeCell("t", 64, 4, "train")
+        base = max(1, THROTTLE_STEPS // len(throttle))
+        want_budgets = hour_budgets(THROTTLE_STEPS, throttle)
+        rep, got = counted(lambda: train(small, sshape, THROTTLE_STEPS,
+                                         str(tmp / "throttle"),
+                                         throttle=throttle))
+        log(f"[train 8b] reduced stablelm-3b, {THROTTLE_STEPS} steps under "
+            f"the same throttle: base budget {base}, budgets "
+            f"{rep['budgets']} ({len(rep['budgets'])} hours, "
+            f"{sum(b < base for b in rep['budgets'])} cut), "
+            f"{rep['steps']} steps; launches {got}")
+        require(rep["budgets"] == want_budgets
+                and sum(rep["budgets"]) == THROTTLE_STEPS
+                and rep["steps"] == THROTTLE_STEPS
+                and any(b < base for b in rep["budgets"][:-1]),
+                "the throttle changed no budget")
+        require(len(rep["checkpoints"]) >= len(rep["budgets"]),
+                "a blocking checkpoint at the end of every hour")
+        require(all(np.isfinite(x) for x in rep["losses"]),
+                "throttled losses")
+
+        # 8c: the runner on the integration tests' config.
+        rep, got = counted(lambda: train(small, sshape, 40,
+                                         str(tmp / "loss")))
+        first, last = np.mean(rep["losses"][:5]), np.mean(rep["losses"][-5:])
+        log(f"[train 8c] reduced stablelm-3b (2 layers, d 64), 40 steps: "
+            f"loss {first:.4f} over the first 5, {last:.4f} over the last 5; "
+            f"launches {got}")
+        require(len(rep["losses"]) == 40 and last < first,
+                "the reduced model's loss did not decrease")
+        rep, got = counted(lambda: train(
+            small, sshape, 30, str(tmp / "fail"),
+            failure_plan=FailurePlan(fail_steps=(13,))))
+        events = plain_events(rep)
+        on_card = all(t.is_cuda for _, t in tree_items(rep["params"]))
+        log(f"[train 8c] with a failure at step 13: {rep['steps']} steps, "
+            f"events {events}, parameters on the card {on_card}; launches "
+            f"{got}")
+        require(rep["steps"] >= 30 and (10, "restored") in events
+                and on_card, "the runner did not restore onto the card")
+        log(f"[train 8c] with 8b's budgets: {time.perf_counter() - t_8c:.2f} "
+            f"s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return totals
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2448,6 +2892,10 @@ def main() -> int:
     wall0 = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
+    return _run_phases(np, torch, smi, wall0)
+
+
+def _run_phases(np, torch, smi, wall0):
     fleets = phase_fleet()
     recs = {"dr_features": phase_dr_features(np, torch),
             "al_step": phase_al_step(np, torch, fleets),
@@ -2473,6 +2921,9 @@ def main() -> int:
         for name, n in phase_serve(np, torch, *path).items():
             launches[name] = launches.get(name, 0) + n
     for name, n in phase_observability(np, torch, fleets[0]).items():
+        launches[name] += n
+    phase_train_grads(np, torch)
+    for name, n in phase_train(np, torch).items():
         launches[name] += n
     kernels = []
     for name, line in (("dr_features", 26), ("al_step", 41), ("rmsnorm", 20),

@@ -101,14 +101,14 @@ def checked(fn, name):
 def fa_caller(torch, lib, q, k, v, causal):
     fn = lib.flash_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 4 + [i] * 10 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 4 + [i] * 10 + [ctypes.c_float, i, p, p]
     B, Sq, H, Dh = q.shape
     Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream().cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Skv, H, KV, Dh, Dv, 0, int(causal), 1, 1.0 / math.sqrt(Dh), 1,
-            stream)
+            stream, None)   # no log-sum-exp buffer: the serving call
     return checked(lambda: fn(*args), "flash_attention"), out
 
 

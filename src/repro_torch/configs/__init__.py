@@ -9,7 +9,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ArchConfig, SSMConfig  # noqa: F401
+from repro_torch.configs.base import (ArchConfig, ShapeCell,  # noqa: F401
+                                      SSMConfig)
 
 _MODULES = {"stablelm-3b": "stablelm_3b", "mamba2-780m": "mamba2_780m"}
 
@@ -29,14 +30,15 @@ def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
     """Same-family tiny config, with the JAX package's reduction rules:
     2-4 heads, 1-2 kv heads (0 for SSM), d_ff = 2·d_model (0 where the
     model has no FFN), SSM d_state 16, head_dim 16 and chunk 8, float32
-    throughout."""
+    throughout, no remat."""
     heads = max(2, min(4, cfg.num_heads))
     updates = dict(
         num_layers=layers, d_model=d_model, num_heads=heads,
         num_kv_heads=0 if cfg.family == "ssm"
         else max(1, min(2, cfg.num_kv_heads)),
         head_dim=d_model // heads, d_ff=0 if cfg.d_ff == 0 else d_model * 2,
-        vocab_size=vocab, dtype="float32", param_dtype="float32")
+        vocab_size=vocab, dtype="float32", param_dtype="float32",
+        remat=False)
     if cfg.ssm is not None:
         updates["ssm"] = dataclasses.replace(cfg.ssm, d_state=16,
                                              head_dim=16, chunk=8)

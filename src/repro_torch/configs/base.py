@@ -6,7 +6,9 @@ and numerics only. Two families are ported: `dense` (GQA attention and a
 SwiGLU FFN in every layer) and `ssm` (a Mamba-2 SSD mixer and no FFN in
 every layer). The other families, and the dense options that no ported
 model uses yet (qk-norm, qkv bias, MLA, MoE, M-RoPE, int8 KV cache), wait
-for the slices that port them.
+for the slices that port them. `mtp_depth` is kept so that `loss_fn` can
+refuse the MTP loss by name. `ShapeCell` is the reference's (seq_len,
+global_batch, kind) cell, which the data pipeline and `train()` read.
 """
 from __future__ import annotations
 
@@ -42,6 +44,8 @@ class ArchConfig:
     dtype: str = "bfloat16"              # activation/compute dtype
     param_dtype: str = "float32"
     tie_embeddings: bool = False
+    mtp_depth: int = 0                   # DeepSeek MTP (not ported)
+    remat: bool = True                   # recompute each layer in backward
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -79,3 +83,11 @@ class ArchConfig:
             layer = attn + 3 * d * self.d_ff + 2 * d
         tables = 1 if self.tie_embeddings else 2
         return tables * self.vocab_size * d + self.num_layers * layer + d
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"

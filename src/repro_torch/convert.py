@@ -111,3 +111,18 @@ def transformer_params_from_arrays(tree: dict, device=None) -> dict:
                 for k, v in node.items()}
 
     return walk(tree, "")
+
+
+def adamw_state_from_arrays(state: dict, device=None) -> dict:
+    """The port's AdamW state ({m, v, step}: moment trees in their dtypes,
+    step an int32 scalar, on `device`, the card by default) from the
+    reference's `adamw_init`/`adamw_update` state."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else _to_tensor(v, dev)
+                for k, v in node.items()}
+
+    return {"m": walk(state["m"]), "v": walk(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}

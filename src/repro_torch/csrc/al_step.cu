@@ -191,8 +191,8 @@ __device__ __forceinline__ void project_days(const rowscan::Segments& days,
       }
       z[h] = y[h] - tau[h];
       const bool act = (open >> h & 1u) && !(fixed >> h & 1u);
-      d[0][h] = act ? fmaxf(lo[h] - z[h], 0.f) : 0.f;
-      d[1][h] = act ? fmaxf(z[h] - hi[h], 0.f) : 0.f;
+      d[0][h] = act ? rowscan::pos(lo[h] - z[h]) : 0.f;
+      d[1][h] = act ? rowscan::pos(z[h] - hi[h]) : 0.f;
       over |= d[0][h] > 0.f || d[1][h] > 0.f;
     }
     // A day none of whose free hours leaves its box after the shift has
@@ -282,8 +282,8 @@ __device__ __forceinline__ void project_days_aligned(int day_lanes,
       for (int h = 0; h < H; ++h) {
         if (fixed >> h & 1u) continue;
         const float z = y[h] - tau;
-        d[0] += fmaxf(lo[h] - z, 0.f);
-        d[1] += fmaxf(z - hi[h], 0.f);
+        d[0] += rowscan::pos(lo[h] - z);
+        d[1] += rowscan::pos(z - hi[h]);
       }
     }
     rowscan::day_lanes_sum<2>(d, day_lanes);
@@ -386,8 +386,9 @@ __device__ __forceinline__ void step_rows(const Operands<M>& o,
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         if (on(h)) {
-          sums[0] += fmaxf(rev[0][h], 0.f);
-          sums[1] += wait_sq ? fmaxf(rev[1][h], 0.f) : a[h] * fmaxf(x[h], 0.f);
+          sums[0] += rowscan::pos(rev[0][h]);
+          sums[1] += wait_sq ? rowscan::pos(rev[1][h])
+                             : a[h] * rowscan::pos(x[h]);
         }
         rev[0][h] = on(h) ? rowscan::hinge(rev[0][h]) : 0.f;
         rev[1][h] = on(h) ? rowscan::hinge(rev[1][h]) : 0.f;
@@ -395,7 +396,7 @@ __device__ __forceinline__ void step_rows(const Operands<M>& o,
       rowscan::row_revcumsum<2, H>(rev);
       rowscan::group_sum<2>(sums);
       const float zz = k0 + k1 * sums[0] + k2 * sums[1];
-      pen = kk * fmaxf(zz, 0.f);
+      pen = kk * rowscan::pos(zz);
       kz = kk * rowscan::hinge(zz);
     } else {
       // pen = k*sum(a3*delta^3 + a2*delta^2 + a1*delta), delta = x/usage;

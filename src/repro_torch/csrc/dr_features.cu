@@ -4,6 +4,8 @@
 // (src/repro/kernels/dr_features/kernel.py:26). (W, T) -> (W, 4):
 //   [sum max(cumsum(j*d/u), 0), sum max(cumsum(d), 0),
 //    sum max(cumsum(j*d*|d|/u), 0), sum j*max(d, 0)/u]
+// with a max that keeps NaN, as the plain version's torch.maximum
+// (rowscan::pos).
 //
 // Bound: bytes. Each row reads 3*T floats and writes 4, with about 20
 // operations per hour, far below the card's ~20 flop/byte balance point.
@@ -52,10 +54,10 @@ dr_features_kernel(const float* __restrict__ d, const float* __restrict__ u,
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     if (h < nv) {
-      f[0] += fmaxf(cs[0][h], 0.f);
-      f[1] += fmaxf(cs[1][h], 0.f);
-      f[2] += fmaxf(cs[2][h], 0.f);
-      f[3] += jj[h] * fmaxf(dd[h], 0.f);
+      f[0] += rowscan::pos(cs[0][h]);
+      f[1] += rowscan::pos(cs[1][h]);
+      f[2] += rowscan::pos(cs[2][h]);
+      f[3] += jj[h] * rowscan::pos(dd[h]);
     }
   }
   rowscan::group_sum<4>(f);

@@ -10,6 +10,12 @@
 // left unwritten, so there is no padding copy; blocks wholly above the
 // causal diagonal are never loaded. One launch per call.
 //
+// Training passes a (B, H, Sq) f32 buffer that takes each query row's
+// log-sum-exp of its scaled scores, scale * max + log(sum), written once
+// from the registers that already hold both; the backward
+// (kernels/flash_attention/grad.py) recomputes P from it. Serving passes
+// none, and the output is the same bits either way.
+//
 // Bound: at stablelm-3b's prefill (q/k/v (8, 120, 32, 80) bf16, causal) the
 // products are ~1 GFLOP, ~1 us at the bf16 tensor-core peak, and the bytes
 // (q, k, v and o once each, 9.8 MB) bound the call at 5.87 us.
@@ -84,6 +90,7 @@ struct Args {
   void* o;
   int B, Sq, Skv, H, KV, Dh, Dv, q_offset, causal, vec;
   float scale;
+  float* lse;  // (B, H, Sq) f32 log-sum-exp of the scaled scores, or null
 };
 
 // ---------------------------------------------------------------------------
@@ -394,6 +401,10 @@ fa_bf16_kernel(Args a) {
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= a.Sq) continue;
+    // m is the raw score max: the row's sum was of exp(scale * (s - m)).
+    if (a.lse != nullptr && t == 0)
+      a.lse[(size_t(b) * a.H + h) * a.Sq + row] =
+          fmaf(m[r], a.scale, logf(fmaxf(lt, 1e-30f)));
     bf16* orow = og + ((size_t(b) * a.Sq + row) * a.H + h) * a.Dv;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -638,6 +649,8 @@ __global__ void __launch_bounds__(kThreads) fa_f32_kernel(Args a) {
     const int s = q0 + ty + 8 * r;
     if (s >= a.Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(size_t(b) * a.H + h) * a.Sq + s] = m[r] + logf(den);
     float* orow = o + ((size_t(b) * a.Sq + s) * a.H + h) * a.Dv;
 #pragma unroll
     for (int j = 0; j < NCV; ++j) {
@@ -681,14 +694,19 @@ int bf16_launch_width(const Args& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). Dh, Dv <= 128;
 // the wrapper checks shapes, types and contiguity. vec: Dh and Dv are
-// whole 16-byte vectors and q, k, v are 16-byte aligned.
+// whole 16-byte vectors and q, k, v are 16-byte aligned. lse: null, or a
+// (B, H, Sq) f32 buffer that takes each query row's log-sum-exp of its
+// scaled scores (the backward's softmax statistic); the output is the same
+// either way. It comes last, so that one call serves libraries built with
+// and without it (scripts/port_kernel_bench.py passes null to both).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KV, int Dh, int Dv,
                                       int q_offset, int causal, int vec,
-                                      float scale, int dtype, void* stream) {
+                                      float scale, int dtype, void* stream,
+                                      float* lse) {
   const Args a{q, k, v, o, B, Sq, Skv, H, KV, Dh, Dv, q_offset, causal, vec,
-               scale};
+               scale, lse};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return f32_launch_width(a, s);
   if (dtype == 1) return bf16_launch_width(a, s);

@@ -28,7 +28,7 @@ def _launch_fn():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 4 + [i] * 10 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 4 + [i] * 10 + [ctypes.c_float, i, p, p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -47,11 +47,14 @@ def bf16_blocks_per_sm(Dh: int, Dv: int) -> int:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         q_offset: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, q_offset: int = 0,
+                         with_lse: bool = False):
     """q (B, Sq, H, Dh), k (B, Skv, KV, Dh), v (B, Skv, KV, Dv): contiguous
     CUDA tensors of one dtype (float32 or bfloat16), H % KV == 0 and
-    Dh, Dv <= 128 -> (B, Sq, H, Dv), on the current stream."""
+    Dh, Dv <= 128 -> (B, Sq, H, Dv), on the current stream. `with_lse`
+    also returns each query row's f32 log-sum-exp of its scaled scores,
+    (B, H, Sq), which the backward reads; the output is the same bits
+    with or without it."""
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention_cuda needs CUDA tensors; got {q.device}")
@@ -70,8 +73,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check_operand("k", k, q.dtype, (B, Skv, KV, Dh), q.device)
     build.check_operand("v", v, q.dtype, (B, Skv, KV, Dv), q.device)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     per_vec = 16 // q.element_size()        # 16-byte loads of whole rows
     vec = int(Dh % per_vec == 0 and Dv % per_vec == 0
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
@@ -80,10 +85,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Skv, H, KV, Dh, Dv, int(q_offset), int(bool(causal)),
                  vec, 1.0 / math.sqrt(Dh), DTYPES.index(q.dtype),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 torch.cuda.current_stream(q.device).cuda_stream,
+                 None if lse is None else lse.data_ptr())
     build.check(lib, err, "flash_attention")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_cuda.launches = 0

@@ -106,3 +106,15 @@ def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def lm_head(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Logits in f32 for a stable softmax."""
     return (x @ p["table"].to(x.dtype).T).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy; f32 logits (B, S, V), labels (B, S); the
+    log-sum-exp in f32, positions labelled `ignore_id` left out."""
+    mask = (labels != ignore_id).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)

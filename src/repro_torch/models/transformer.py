@@ -6,12 +6,18 @@ a leading layer axis under `blocks["l0"]` (the reference scans over it;
 the port loops over layers in Python and takes views). The decode cache
 is stacked the same way: k/v for attention layers, the SSM state and
 conv tail for Mamba-2 layers. A model with tied embeddings has no
-`unembed` leaf and reads the logits off the input table. Public entry
-points:
+`unembed` leaf and reads the logits off the input table. The forward
+takes each stacked leaf apart with one `unbind`, whose backward is one
+`stack` (indexing layer by layer would scatter every layer's gradient
+into a zeroed copy of the whole stack). With `cfg.remat`, under autograd,
+each layer runs inside `torch.utils.checkpoint` and is recomputed in the
+backward, as the reference's `jax.checkpoint` (`transformer.py:159`).
+Public entry points:
 
   init_params(cfg, seed, device)                  -> param tree
   compute_params(params, cfg)                     -> matrices in cfg.dtype
   forward(params, cfg, batch)                     -> f32 logits
+  loss_fn(params, cfg, batch)                     -> scalar loss
   init_cache(cfg, batch, max_len, device)         -> decode cache tree
   decode_step(params, cfg, cache, token, length)  -> (logits, cache)
   prefill(params, cfg, tokens)                    -> f32 logits
@@ -22,6 +28,7 @@ another device; the others run where their inputs lie.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dispatch import resolve_device
@@ -48,6 +55,18 @@ def _layer(tree: dict, i: int) -> dict:
     """Layer i's views of a stacked tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The n layers' views of a stacked tree, one `unbind` per leaf."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _requires_grad(tree: dict) -> bool:
+    return any(_requires_grad(v) if isinstance(v, dict) else v.requires_grad
+               for v in tree.values())
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +144,34 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
     x = common.embed(params["embed"], batch["tokens"], adtype)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    for i in range(cfg.num_layers):
-        x = _apply_layer(_layer(params["blocks"]["l0"], i), x, cfg, i,
-                         positions, use_kernel)
+    blocks = params["blocks"]["l0"]
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and (x.requires_grad or _requires_grad(blocks)))
+    for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
+        if remat:
+            x = checkpoint(_apply_layer, p, x, cfg, i, positions,
+                           use_kernel, use_reentrant=False)
+        else:
+            x = _apply_layer(p, x, cfg, i, positions, use_kernel)
     x = common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
     return common.lm_head(params.get("unembed", params["embed"]), x)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
+            use_kernel: bool | None = None) -> torch.Tensor:
+    """Next-token cross-entropy of the dense family, from the f32 masters:
+    they reach the products through `compute_params`' cast, and the
+    gradients flow back through it. batch: {tokens, labels} (B, S)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported (ROADMAP "
+            "item 12g: mamba2 needs a gradient through ssd_scan)")
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            "the MTP auxiliary loss is not ported (ROADMAP item 12g)")
+    logits = forward(compute_params(params, cfg), cfg, batch,
+                     use_kernel=use_kernel)
+    return common.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 # ---------------------------------------------------------------------------

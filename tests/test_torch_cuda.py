@@ -16,7 +16,13 @@ versions; the rolling-horizon day as a CUDA-graph replay
 same kernels (bitwise in practice), with its launches per replay counted
 on the device by `torch.profiler`; multi-region solves through the
 kernels within 0.05 pp of the generic engine, and the SLSQP reference
-and the per-region sums repeat bit for bit.
+and the per-region sums repeat bit for bit; a NaN in usage or jobs at
+the same positions through al_step and dr_features as through their
+plain versions; training: the rmsnorm and flash-attention autograd
+Functions' backwards within 1e-5 (f32) and 2e-2 (bf16, relative L2) of
+autograd through the plain versions, their forwards bitwise the
+buffer-free kernel calls, and one train step's loss of stablelm-3b at
+full width (2 layers) through the kernels within 1e-3 of the plain path.
 """
 import importlib.util
 import pathlib
@@ -161,9 +167,7 @@ def test_al_step_kernel_keeps_nan_as_its_plain_version(dev, fleets, mode):
     """A NaN in the carbon term reaches x where the plain version
     (torch.clamp, the day projection) puts it: hour 7 of RTS rows, the
     first day of batch rows; the sanitizer's check on x must see what the
-    kernel computed. On the next step both keep a NaN on every row (the
-    kernel's penalty hinges read a NaN feature as 0 where the plain
-    version keeps NaN, so they differ in how far it spreads)."""
+    kernel computed. On the next step both keep a NaN on every row."""
     args = _al_inputs(fleets, 130, mode, seed=5, dev=dev, rts_only=False,
                       stable=True)
     args[8] = args[8].clone()
@@ -1169,3 +1173,140 @@ def test_profile_writes_its_file(dev, tmp_path):
         torch.cuda.synchronize()
     assert (tmp_path / "trace.json").stat().st_size > 0
     assert any(e.device_type.name == "CUDA" for e in prof.events())
+
+
+# ---------------------------------------------------------------------------
+# NaN through the penalty hinges; training
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("k_steps", [1, 4])
+@pytest.mark.parametrize("field", ["usage", "jobs"])
+@pytest.mark.parametrize("mode", ["cr1", "cr2"])
+def test_al_step_keeps_a_nan_in_usage_or_jobs_as_its_plain_version(
+        dev, fleets, mode, field, k_steps):
+    """A NaN in one hour of one RTS row's and one batch row's usage (or
+    jobs) reaches x after k steps at the plain version's positions: the
+    penalty hinges keep it (max.NaN), as torch.maximum does."""
+    args = _al_inputs(fleets, 130, mode, seed=6, dev=dev, rts_only=False,
+                      stable=True)
+    isb = args[7][:, 8] > 0.5
+    rows = [int(torch.nonzero(~isb)[0]), int(torch.nonzero(isb)[0])]
+    at = 3 if field == "usage" else 4
+    args[at] = args[at].clone()
+    args[at][rows, 7] = float("nan")
+    got, want = (f(*args, mode=mode, k_steps=k_steps)[0]
+                 for f in (al_step_cuda, al_step_ref))
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert nan[rows[1]].any()
+    if field == "usage":
+        assert nan[rows[0]].any()
+    _close(torch.where(nan, 0.0, got), torch.where(nan, 0.0, want), 1e-5)
+
+
+@pytest.mark.parametrize("field", ["usage", "jobs"])
+def test_dr_features_keeps_a_nan_in_usage_or_jobs_as_its_plain_version(
+        dev, field):
+    d, u, j = _feature_rows(130, 9, dev)
+    t = {"usage": u, "jobs": j}[field].clone()
+    t[[3, 70], [5, 40]] = float("nan")
+    args = (d, t, j) if field == "usage" else (d, u, t)
+    got, want = dr_features_cuda(*args), dr_features_ref(*args)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert nan[3, 0] and nan[70, 0] and nan[3, 3] and not nan[3, 1]
+    _close(torch.where(nan, 0.0, got), torch.where(nan, 0.0, want), 2e-4)
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(6, 40), (2, 300, 2560)])
+def test_rmsnorm_autograd_function_matches_plain_autograd(dev, dtype, tol,
+                                                          shape):
+    from repro_torch.kernels.rmsnorm.ops import RMSNormFn
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = (1.5 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    s = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x.requires_grad_(True)
+    s.requires_grad_(True)
+    y = RMSNormFn.apply(x, s, 1e-6)
+    assert torch.equal(y, rmsnorm_cuda(x.detach().reshape(-1, shape[-1]),
+                                       s.detach()).reshape(shape))
+    got = torch.autograd.grad(y, (x, s), dy)
+    want = torch.autograd.grad(rmsnorm_ref(x, s), (x, s), dy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _rel_l2(a, b) < tol
+
+
+FA_GRAD_CASES = [
+    # (B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset)
+    (2, 1100, 1100, 8, 2, 64, 64, True, 0),
+    (1, 256, 1300, 4, 4, 80, 80, False, 0),
+    (1, 64, 1100, 4, 2, 64, 32, True, 1036),
+    (2, 512, 512, 32, 32, 80, 80, True, 0),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FA_GRAD_CASES, ids=str)
+def test_flash_attention_autograd_function_matches_plain_autograd(
+        dev, dtype, tol, case):
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    B, Sq, Skv, H, KV, Dh, Dv, causal, qo = case
+    g = torch.Generator(device=dev).manual_seed(Sq)
+    q = torch.randn((B, Sq, H, Dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Skv, KV, Dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Skv, KV, Dv), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, Sq, H, Dv), generator=g, device=dev).to(dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=qo,
+                                    with_lse=True)
+    # The log-sum-exp buffer changes no bit of the forward.
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal,
+                                                 q_offset=qo))
+    _close(lse, attention_lse_ref(q, k, causal, qo), 1e-4)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    y = FlashAttentionFn.apply(q, k, v, causal, qo)
+    assert torch.equal(y, out)
+    got = torch.autograd.grad(y, (q, k, v), do)
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=causal,
+                                             q_offset=qo), (q, k, v), do)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _rel_l2(a, b) < tol
+
+
+def test_full_width_train_step_loss_kernels_vs_plain(dev):
+    """One train step of stablelm-3b at full width and 2 layers (batch 1
+    x 512, remat on): the loss through the kernels within 1e-3 of the
+    plain path's, the launches 4L + 1 and 2L, the updated parameters
+    finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
+    cfg = dataclasses.replace(get_config("stablelm-3b"), num_layers=2)
+    masters = tf.init_params(cfg, seed=0, device=dev)
+    batch = synthetic_batch(cfg, ShapeCell("t", 512, 1, "train"), 0)
+    oc = AdamWConfig(total_steps=2)
+    losses = {}
+    for kern in (True, False):
+        rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+        p = tree_map(torch.clone, masters)   # the step updates in place
+        p, _, loss = make_train_step(cfg, oc, use_kernel=kern)(
+            p, adamw_init(p, oc), batch)
+        losses[kern] = float(loss)
+        want = (9, 4) if kern else (0, 0)
+        assert (rmsnorm_cuda.launches, flash_attention_cuda.launches) == want
+        leaves = (p["embed"]["table"], p["blocks"]["l0"]["ffn"]["w_up"]["w"])
+        assert all(torch.isfinite(t).all() for t in leaves)
+    assert abs(losses[True] - losses[False]) < 1e-3 * abs(losses[False])

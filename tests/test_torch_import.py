@@ -41,7 +41,11 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "core.fleet", "power.model", "core.regional",
               "core.migration", "obs", "obs.events", "obs.telemetry",
               "obs.spans", "obs.report", "analysis", "analysis.sanitize",
-              "analysis.recompile", "analysis.rules", "analysis.lint"):
+              "analysis.recompile", "analysis.rules", "analysis.lint",
+              "optim", "optim.adamw", "data.pipeline", "runtime",
+              "runtime.checkpoint", "runtime.ft", "launch.steps",
+              "launch.train", "kernels.rmsnorm.grad",
+              "kernels.flash_attention.grad"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -99,8 +103,9 @@ def test_solve_wants_the_card_by_default():
     "transformer_params_from_arrays", "init_params_ssm", "init_cache_ssm",
     "solve_day", "rolling_horizon_step", "sweep", "ensemble",
     "streaming_ensemble", "cr3", "b1", "b3", "solve_slsqp", "solve_adam",
-    "solve_cr3", "cr2_spec", "coordinator_plan"])
-def test_other_entry_points_want_the_card_by_default(entry):
+    "solve_cr3", "cr2_spec", "coordinator_plan", "train",
+    "adamw_state_from_arrays"])
+def test_other_entry_points_want_the_card_by_default(entry, tmp_path):
     """Entry points below `solve`, and the model's, take the card too when
     no device is named, and raise without one rather than run on the CPU."""
     if torch.cuda.is_available():
@@ -117,6 +122,9 @@ def test_other_entry_points_want_the_card_by_default(entry):
     from repro_torch.core.lasso import fit_lasso_cv
     from repro_torch.core.streaming import RollingHorizonSolver
     from repro_torch.models import transformer as tf
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.convert import adamw_state_from_arrays
+    from repro_torch.launch.train import train
     rng = np.random.default_rng(0)
     cfg = reduced(get_config("stablelm-3b"))
     ssm_cfg = reduced(get_config("mamba2-780m"))
@@ -151,6 +159,10 @@ def test_other_entry_points_want_the_card_by_default(entry):
         "coordinator_plan": lambda: FleetCoordinator(
             [FleetJob("t", "train", JobPowerModel("t", 8, 0.5, 1.0))],
             caiso_2021(48)).plan(),
+        "train": lambda: train(cfg, ShapeCell("t", 8, 2, "train"), 1,
+                               str(tmp_path)),
+        "adamw_state_from_arrays": lambda: adamw_state_from_arrays(
+            {"m": {}, "v": {}, "step": 0}),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -15,9 +15,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
    time both with CUDA events: the fleet kernels at the main path's
    shapes (W = 10,000, T = 48) and at W = 130 (a tail block); rmsnorm at
    stablelm-3b's and mamba2-780m's prefill and decode rows (d 2560; d
-   1536 and the gated norm's 3072); flash attention at its prefill, at a
-   1024-token prefill (16 kv blocks) and at cases for causal/non-causal,
-   GQA, tails, Dv != Dh and q_offset;
+   1536 and the gated norm's 3072), qwen3-32b's qk-norm rows (32,768,
+   128) and whisper's encoder rows (12,000, 1280); flash attention at its
+   prefill, at a 1024-token prefill (16 kv blocks), at whisper's
+   non-causal encoder (8 x 1500, 20 heads of 64, a masked tail of 28
+   keys) and cross-attention (128 queries over 1500 keys), both timed
+   beside SDPA, at whisper's causal decoder, granite-20b's MQA (48:1)
+   and qwen3-32b's GQA (8:1) at Dh 128, and at cases for causal/non-
+   causal, GQA, tails, Dv != Dh and q_offset;
    ssd_scan at mamba2-780m's prefill, a long prefill, the JAX package's
    test dims and two tail cases;
 5. the fleet path: solve CR1(1.45) and CR2(0.78) at their default steps
@@ -105,9 +110,27 @@ Phases, each of which raises on failure (the script then exits nonzero):
    generator on the card), through `serve_requests` at max_batch 8, then
    4 (launch counts reset just before and read just after each path),
    then the prefill logits through the kernels are held against those
-   through the plain versions: stablelm-3b serves 16 requests of
-   120-token prompts, mamba2-780m 8 requests of 384-token prompts, each
-   with 16 new tokens;
+   through the plain versions: stablelm-3b serves 8 requests of
+   120-token prompts, mamba2-780m 8 requests of 384-token prompts,
+   qwen3-32b (qk-norm: 4L + 1 norms a step) and granite-20b (MQA) at
+   full depth in bf16 parameters 8 requests of 64-token prompts, each
+   with 16 new tokens, one model resident at a time;
+6b. whisper-large-v3 at full width and depth (f32 masters and one bf16
+   copy): `encode` of 8 seeded frame sets of 1500, `start_cache`, a
+   4-token prompt and 124 greedy `decode_step`s to max_len 128, each
+   timed, with launches by counter (encode 2L_enc + 1 rmsnorm and L_enc
+   flash attention, a step 3L_dec + 1 and none, the teacher-forced
+   forward 2L_enc + 3L_dec + 2 and L_enc + 2L_dec); the steps' logits
+   against the teacher-forced `forward` over the same tokens, `encode`
+   and `forward` through the kernels against the plain versions; the
+   idle share of one profiled decode step; peak memory;
+6c. the other dense options at full width, 8 layers, bf16 parameters:
+   qwen1.5-110b (8 of 80) with seeded qkv biases, and qwen2-vl-72b (8 of
+   80) on a vlm prefill (a quarter of the positions vision embeddings,
+   M-RoPE positions on a 2-D patch grid then the text), prefill logits
+   through the kernels against the plain versions; granite-20b (8 of
+   52) over 16 decode steps with the int8 KV cache beside the bf16 one
+   (finite logits; their agreement reported);
 7. guardrails and observability, on phase 3's W = 10,000 fleet through
    the kernels unless stated (every count reset just before and read just
    after a counted run): CR1(1.45) at 600 steps and CR2(0.78) at 6 x 400
@@ -131,7 +154,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    bitwise the buffer-free kernel calls, backwards against autograd
    through the plain versions (1e-5 f32, 2e-2 bf16, relative L2), timed
    forward plus backward beside the plain versions, `F.rms_norm` and
-   SDPA; `loss_fn` and its gradient at full width and 2 layers through
+   SDPA, and their bounds; `loss_fn` and its gradient at full width and 2 layers through
    the kernels against the plain versions (loss 1e-3 relative, each leaf
    0.05 relative L2); 8b, the coordinator's paper fleet calibrated
    (after every timed phase before it) and the CR1(1.45) throttle of
@@ -144,9 +167,16 @@ Phases, each of which raises on failure (the script then exits nonzero):
    `torch.profiler`, the idle share of a profiled step), and `train()`
    under the plan's throttle over 96 steps of the integration tests'
    config (the budgets `hour_budgets` gives, summing to the steps, some
-   cut below the base budget); 8c, the runner on that config (40 steps
+   cut below the base budget), and the runner on that config (40 steps
    with the loss falling, a failure at step 13 restored onto the card);
-   every count reset just before and read just after each run;
+   8c, training whisper-large-v3 at full width and depth: three
+   `make_train_step` steps of batch 8 x 448 decoder tokens over 1500
+   frames each (bf16 compute, f32 masters and moments, remat; launches a
+   step 4L_enc + 1 + 6L_dec + 1 rmsnorm and 2L_enc + 4L_dec flash
+   attention), a profiled step's idle share, and loss and gradients at 2
+   + 2 layers through the kernels against the plain versions; no
+   checkpoint; every count reset just before and read just after each
+   run;
 9. print the kernels' JSON line and, last, the device line.
 
 Imports nothing of the JAX package.
@@ -177,20 +207,41 @@ PP_TOL = 0.05                # fused vs generic, percentage points
 PRESERVATION_TOL = 1e-3
 # The serving paths, at the two admission limits of the power knob
 # (examples/serve_rts.py): (arch, requests, prompt tokens, new tokens,
-# max_len). mamba2-780m's prompts of 384 make each prefill's ssd_chunked
-# two chunks of 256 with a padded tail of 128.
-SERVE_PATHS = (("stablelm-3b", 16, 120, 16, 136),
-               ("mamba2-780m", 8, 384, 16, 400))
+# max_len, parameter dtype). stablelm-3b's 8 requests make one batch at
+# max_batch 8 and two at 4, as every path here, which keeps the script
+# inside its time limit. mamba2-780m's prompts of 384 make each prefill's
+# ssd_chunked two chunks of 256 with a padded tail of 128.
+# qwen3-32b (qk-norm, GQA 8:1) and granite-20b (MQA) run at full width and
+# depth with the reference's `param_dtype="bfloat16"`: 61.02 and 52.46 GiB
+# of parameters, where f32 masters would not fit on the card.
+SERVE_PATHS = (("stablelm-3b", 8, 120, 16, 136, "float32"),
+               ("mamba2-780m", 8, 384, 16, 400, "float32"),
+               ("qwen3-32b", 8, 64, 16, 96, "bfloat16"),
+               ("granite-20b", 8, 64, 16, 96, "bfloat16"))
 SERVE_BATCHES = (8, 4)
 # Prefill logits through the kernels vs through the plain versions, in
 # bfloat16 over 32 or 48 layers of random weights: relative L2 error and
 # the share of positions whose top-1 token agrees.
 LOGITS_REL_TOL, TOP1_MIN = 0.05, 0.9
+# Phase 6b: whisper-large-v3 at full width and depth (1,954,032,640
+# parameters: f32 masters and one bf16 copy), 8 seeded frame sets of 1500,
+# a 4-token prompt and greedy decode steps to max_len 128.
+WHISPER_PARAMS = 1_954_032_640
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_LEN = 8, 4, 128
+# Phase 6c: the other dense options at full width and OPTION_LAYERS layers
+# (qwen1.5-110b and qwen2-vl-72b of 80, granite-20b of 52), bf16
+# parameters; prefills of 4 x 64 positions (a quarter of them vision
+# embeddings for the vlm), the qkv biases filled with 0.02·N(0, 1) (the
+# reference initialises them to zeros), and KV_QUANT_STEPS decode steps of
+# the int8 cache beside the bf16 one on the same tokens.
+OPTION_LAYERS, OPTION_BATCH, OPTION_SEQ, KV_QUANT_STEPS = 8, 4, 64, 16
 # stablelm-3b prefill 8 x 120 and decode 8; mamba2-780m prefill 8 x 384
 # at d 1536 (ln1, ln_f) and d_in 3072 (the gated norm), and its decode
-# rows at both widths.
+# rows at both widths; qwen3-32b's qk-norm over rows of Dh 128 (8 x 64
+# tokens x 64 heads) and whisper-large-v3's encoder rows (8 x 1500 at d
+# 1280).
 RMSNORM_ROWS = ((960, 2560), (8, 2560), (3072, 1536), (3072, 3072),
-                (8, 1536), (8, 3072))
+                (8, 1536), (8, 3072), (32_768, 128), (12_000, 1280))
 # ssd_scan cases (B, NC, H, P, N); the first is mamba2-780m's prefill at
 # max_batch 8 (S 384 in chunks of 256), the second a long prefill (1 x
 # 8192), then the JAX package's test dims (tests/test_kernels.py), a
@@ -214,8 +265,14 @@ FA_CASES = (
     (1, 17, 33, 2, 1, 32, 48, True, 16, False),        # float32, Dv > Dh
     (1, 50, 50, 4, 2, 30, 30, True, 0, True),          # Dh = 30: scalar loads
     (1, 1024, 1024, 32, 32, 80, 80, True, 0, True),    # 16 kv blocks
+    (8, 1500, 1500, 20, 20, 64, 64, False, 0, True),   # whisper encoder
+    (8, 128, 1500, 20, 20, 64, 64, False, 0, True),    # whisper cross
+    (8, 128, 128, 20, 20, 64, 64, True, 0, True),      # whisper decoder
+    (8, 64, 64, 48, 1, 128, 128, True, 0, True),       # granite-20b, MQA
+    (8, 64, 64, 64, 8, 128, 128, True, 0, True),       # qwen3-32b, GQA 8:1
 )
-FA_LONG = len(FA_CASES) - 1     # timed beside the serving shape
+FA_LONG = 8                     # timed beside the serving shape
+FA_WHISPER = (9, 10)            # timed: the encoder and cross-attention
 # The streaming day: 24 ticks of a 48-hour horizon, per policy (name,
 # cold steps, warm steps a round, AL rounds): the JAX package's
 # controller defaults for CR1, `solve_day`'s cold // 4 for CR2.
@@ -268,6 +325,9 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LAMBDA = 4096, 2, 6, 1.45
 TRAIN_FAIL_STEP, THROTTLE_STEPS = 3, 96
 GRAD_LAYERS = 2
 LOSS_RTOL, GRAD_REL_L2 = 1e-3, 0.05
+# Training whisper-large-v3 (phase 8c): batch 8 x 448 decoder tokens
+# (Whisper's decoder context) over 1500 frames each, three steps.
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 448, 3
 BWD_F32, BWD_BF16 = 1e-5, 2e-2
 
 
@@ -403,12 +463,15 @@ def fa_live_pairs(Sq, Skv, causal, q_offset):
 # ---------------------------------------------------------------------------
 def _traced_launches(torch, fn, names):
     """(launches of each kernel in `names`, device records) of one run of
-    `fn()` under `torch.profiler`, a CUDA graph's kernels included."""
+    `fn()` under `torch.profiler`, a CUDA graph's kernels included. The
+    trace records the device only: with the CPU's operators recorded too,
+    traces of the 32-layer train step lost ~50 device records, an rmsnorm
+    launch among them, in four of five tries over two runs, while traces
+    of the device alone, taken between them, held every launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -2010,7 +2073,7 @@ def phase_flash_attention(torch):
         bf16_blocks_per_sm, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = torch.device("cuda")
-    errs, rec = [], {}
+    errs, rec, other = [], {}, {}
     for n, case in enumerate(FA_CASES):
         B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset, bf16 = case
         q, k, v = fa_inputs(torch, case, seed=n, dev=dev)
@@ -2023,9 +2086,10 @@ def phase_flash_attention(torch):
             torch, got, attention_ref(q, k, v, causal=causal,
                                       q_offset=q_offset),
             tol, tol, f"flash_attention {case}"))
-        if n in (0, FA_LONG):
+        if n in (0, FA_LONG) + FA_WHISPER:
             timed = {"ms": kernel_ms(torch, lambda: flash_attention_cuda(
                 q, k, v, causal=causal))}
+            # SDPA only where H = KV: the calls below pass no enable_gqa.
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             timed["library_ms"] = kernel_ms(
                 torch, lambda: F.scaled_dot_product_attention(
@@ -2039,7 +2103,8 @@ def phase_flash_attention(torch):
                 rec["plain_ms"] = plain_ms(
                     torch, lambda: attention_ref(q, k, v, causal=causal))
             else:
-                long_ = timed
+                other[n] = timed
+        del q, k, v, got
     rec["max_abs_err"] = max(errs)
     log(f"[check] flash_attention: {len(FA_CASES)} cases, max abs err "
         f"{rec['max_abs_err']:.3e} (rtol = atol = 2e-2 bf16, 1e-4 f32); at "
@@ -2047,10 +2112,13 @@ def phase_flash_attention(torch):
         f"{rec['plain_ms'] * 1e3:.2f} us, SDPA {rec['library_ms'] * 1e3:.2f} "
         f"us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, bf16 "
         f"peak)")
-    log(f"[check] flash_attention at {FA_CASES[FA_LONG]}: kernel "
-        f"{long_['ms'] * 1e3:.2f} us, SDPA {long_['library_ms'] * 1e3:.2f} "
-        f"us, bound {long_['bound_ms'] * 1e3:.2f} us ({long_['bound_by']}); "
-        f"bf16 kernel blocks per SM at Dh 80: {bf16_blocks_per_sm(80, 80)} "
+    for n, t in other.items():
+        log(f"[check] flash_attention at {FA_CASES[n]}: kernel "
+            f"{t['ms'] * 1e3:.2f} us, SDPA {t['library_ms'] * 1e3:.2f} us, "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    log(f"[check] flash_attention: bf16 kernel blocks per SM at Dh 80: "
+        f"{bf16_blocks_per_sm(80, 80)}, at Dh 64: {bf16_blocks_per_sm(64, 64)}"
+        f", at Dh 128: {bf16_blocks_per_sm(128, 128)} "
         f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     return rec
 
@@ -2096,17 +2164,19 @@ def expected_serve_launches(cfg, requests, prompt, new):
     """Launches of each serving kernel at both admission limits: per batch
     one forward and prompt + new - 1 decode steps, each with 2L + 1
     RMSNorms (ln1 and ln2, or ln1 and the SSM's gated norm, per layer,
-    and ln_f); flash attention (dense) or ssd_scan (ssm) once per layer
-    of the forward."""
+    and ln_f), and 2L more with qk-norm (q and k per layer); flash
+    attention (dense) or ssd_scan (ssm) once per layer of the forward."""
     batches = sum(-(-requests // mb) for mb in SERVE_BATCHES)
     L = cfg.num_layers
     per_forward = L * batches
-    return {"rmsnorm": (2 * L + 1) * (1 + prompt + new - 1) * batches,
+    norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+    return {"rmsnorm": norms * (1 + prompt + new - 1) * batches,
             "flash_attention": per_forward if cfg.family == "dense" else 0,
             "ssd_scan": per_forward if cfg.family == "ssm" else 0}
 
 
-def phase_serve(np, torch, arch, requests, prompt, new, max_len):
+def phase_serve(np, torch, arch, requests, prompt, new, max_len,
+                param_dtype):
     """One model at full width through `serve_requests`, the path a user
     calls; the kernels' launch counts are reset just before and read just
     after. Returns the counts."""
@@ -2119,15 +2189,20 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len):
     from repro_torch.models import transformer as tf
 
     wall0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), param_dtype=param_dtype)
     t0 = time.perf_counter()
     masters = tf.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(masters))
+    size = sum(t.numel() * t.element_size() for t in _leaves(masters))
+    copy = ("" if param_dtype == cfg.dtype
+            else f" + one {cfg.dtype} copy per batch")
     log(f"[serve] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d "
-        f"{cfg.d_model}, vocab {cfg.vocab_size}; {n_params} parameters, "
-        f"f32 masters {n_params * 4 / 2**30:.2f} GiB + one {cfg.dtype} copy "
-        f"per batch, drawn in {time.perf_counter() - t0:.2f} s")
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} kv "
+        f"heads of {cfg.dh}, qk-norm {cfg.qk_norm}, vocab "
+        f"{cfg.vocab_size}; {n_params} parameters, {param_dtype} "
+        f"{size / 2**30:.2f} GiB{copy}, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
     require(n_params == cfg.param_count(), "parameter count")
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (requests, prompt),
@@ -2151,9 +2226,10 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len):
     launches = {name: fn.launches for name, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     want = expected_serve_launches(cfg, requests, prompt, new)
+    qk = " + 2L qk-norm" if cfg.qk_norm else ""
     log(f"[serve] {arch}: launches on the serving path: {launches} "
-        f"(expected {want}: rmsnorm (2L+1) x (1 forward + {prompt} replayed "
-        f"+ {new - 1} decode steps), L flash_attention or ssd_scan per "
+        f"(expected {want}: rmsnorm (2L+1{qk}) x (1 forward + {prompt} "
+        f"replayed + {new - 1} decode steps), L flash_attention or ssd_scan per "
         f"prefill, {sum(-(-requests // mb) for mb in SERVE_BATCHES)} "
         f"batches)")
     require(launches == want, f"{arch} serving launches {launches} != {want}")
@@ -2211,6 +2287,276 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len):
         f"cached, {dec:.3f} ms (host clock, median of 5); phase wall "
         f"{time.perf_counter() - wall0:.2f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 6b and 6c: the encoder-decoder and the other dense options
+# ---------------------------------------------------------------------------
+def _agreement(torch, got, want):
+    """(relative L2, share of positions whose top-1 token agrees)."""
+    return (_rel_l2(torch, got, want),
+            float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+
+
+def _counter(torch, totals):
+    """`counted(fn)` -> (fn(), launches of rmsnorm and flash attention in
+    it, host ms to a sync): each count reset just before and read just
+    after, and added to `totals`."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    kernels = {"rmsnorm": rmsnorm_cuda,
+               "flash_attention": flash_attention_cuda}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {n: f.launches for n, f in kernels.items()}
+        for n in got:
+            totals[n] = totals.get(n, 0) + got[n]
+        return out, got, ms
+
+    return counted
+
+
+def phase_whisper(np, torch):
+    """6b: whisper-large-v3 at full width and depth through `encode`,
+    `start_cache` and greedy `decode_step`s, the path of the reference's
+    own decode test; each run's launches reset just before and read just
+    after. The steps' logits against the teacher-forced `forward` over
+    the same tokens, and `encode` and `forward` through the kernels
+    against the plain versions. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+
+    wall0 = time.perf_counter()
+    totals = {}
+    counted = _counter(torch, totals)
+    cfg = get_config("whisper-large-v3")
+    Le, L = cfg.encoder_layers, cfg.num_layers
+    B, P, M = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_LEN
+    dev = torch.device("cuda")
+    masters = encdec.init_params(cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in _leaves(masters))
+    require(n_params == cfg.param_count() == WHISPER_PARAMS,
+            f"whisper parameters {n_params}")
+    params = tf.compute_params(masters, cfg)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    log(f"[whisper 6b] {cfg.name}: {Le} + {L} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.dh}, vocab {cfg.vocab_size}; "
+        f"{n_params} parameters, f32 masters "
+        f"{n_params * 4 / 2**30:.2f} GiB + one {cfg.dtype} copy; frames "
+        f"({B}, {cfg.encoder_seq}, {cfg.d_model}), a {P}-token prompt, "
+        f"max_len {M}")
+    encdec.encode(params, cfg, frames[:1, :64])              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    enc, got, enc_ms = counted(lambda: encdec.encode(params, cfg, frames))
+    want = {"rmsnorm": 2 * Le + 1, "flash_attention": Le}
+    require(got == want, f"encode launches {got} != {want}")
+    cache, got, start_ms = counted(
+        lambda: encdec.start_cache(params, cfg, enc, B, M))
+    require(got == {"rmsnorm": 0, "flash_attention": 0},
+            f"start_cache launches {got}")
+    cross = sum(cache[k].numel() * cache[k].element_size()
+                for k in ("enc_k", "enc_v"))
+
+    def generate():
+        fed, logits = [prompt[:, t] for t in range(P)], []
+        for t in range(M):
+            lg, _ = encdec.decode_step(params, cfg, cache, fed[t][:, None],
+                                       t)
+            logits.append(lg[:, 0])
+            if P <= t + 1 < M:
+                fed.append(lg[:, 0].argmax(-1))
+        return torch.stack(fed, 1), torch.stack(logits, 1)
+
+    (fed, stepped), got, dec_ms = counted(generate)
+    want = {"rmsnorm": (3 * L + 1) * M, "flash_attention": 0}
+    require(got == want, f"decode_step launches {got} != {want} ({M} "
+            f"steps of 3L + 1 norms, decode_attention plain)")
+    require(bool(torch.isfinite(stepped).all()), "decode logits not finite")
+    full, got, fwd_ms = counted(lambda: encdec.forward(
+        params, cfg, {"frames": frames, "tokens": fed}))
+    want = {"rmsnorm": 2 * Le + 1 + 3 * L + 1,
+            "flash_attention": Le + 2 * L}
+    require(got == want, f"forward launches {got} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    rel, top1 = _agreement(torch, stepped, full)
+    log(f"[whisper 6b] encode {enc_ms:.2f} ms ({B} x {cfg.encoder_seq} "
+        f"frames, launches rmsnorm {2 * Le + 1}, flash_attention {Le}); "
+        f"start_cache {start_ms:.2f} ms (cross k/v "
+        f"{cross / 2**30:.2f} GiB); {M} decode steps ({P} prompt, "
+        f"{M - P} greedy) {dec_ms:.1f} ms, {dec_ms / M:.3f} ms a step, "
+        f"{B * M / dec_ms * 1e3:.1f} tokens/s, {3 * L + 1} rmsnorm and no "
+        f"flash_attention a step; teacher-forced forward {fwd_ms:.2f} ms "
+        f"(launches {got}); peak memory {peak / 2**30:.2f} GiB (host "
+        f"clock to a sync)")
+    log(f"[whisper 6b] decode steps vs the teacher-forced forward: "
+        f"relative L2 {rel:.3e} (bound {LOGITS_REL_TOL}), top-1 agreement "
+        f"{top1:.4f} (bound {TOP1_MIN})")
+    require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
+            "whisper decode steps too far from the forward")
+    enc_plain = encdec.encode(params, cfg, frames, use_kernel=False)
+    enc_rel = _rel_l2(torch, enc, enc_plain)
+    del enc_plain
+    plain = encdec.forward(params, cfg, {"frames": frames, "tokens": fed},
+                           use_kernel=False)
+    rel, top1 = _agreement(torch, full, plain)
+    log(f"[whisper 6b] kernels vs plain: encoder output relative L2 "
+        f"{enc_rel:.3e}; forward logits relative L2 {rel:.3e}, top-1 "
+        f"agreement {top1:.4f} (bounds {LOGITS_REL_TOL}, {TOP1_MIN})")
+    require(enc_rel < LOGITS_REL_TOL and rel < LOGITS_REL_TOL
+            and top1 >= TOP1_MIN, "whisper kernel path too far from plain")
+    del plain, full, stepped
+    last = fed[:, -1:]
+    wall, busy, top = _device_breakdown(
+        torch, lambda: encdec.decode_step(params, cfg, cache, last, M - 1))
+    log(f"[whisper 6b] profiled decode step at batch {B}: wall "
+        f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms, idle share "
+        f"{1 - busy / wall:.4f}; top kernels: "
+        + "; ".join(f"{n[:50]} {ms:.3f} ms x {c}" for n, ms, c in top[:5]))
+    log(f"[whisper 6b] phase wall {time.perf_counter() - wall0:.2f} s")
+    return totals
+
+
+def _fill_qkv_biases(torch, params, gen):
+    """0.02·N(0, 1) in every qkv bias, in place: the reference initialises
+    them to zeros, which would leave the bias path unexercised."""
+    attn = params["blocks"]["l0"]["attn"]
+    for w in ("wq", "wk", "wv"):
+        b = attn[w]["b"]
+        b.copy_(0.02 * torch.randn(b.shape, generator=gen, device=b.device))
+
+
+def phase_dense_options(np, torch):
+    """6c: the dense options at full width and OPTION_LAYERS layers, bf16
+    parameters, one model resident at a time: qwen1.5-110b's qkv biases
+    and qwen2-vl-72b's vlm prefill with M-RoPE (prefill logits through the
+    kernels against the plain versions), then granite-20b's int8 KV cache
+    against its bf16 cache over KV_QUANT_STEPS decode steps (reported, not
+    required). Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    wall0 = time.perf_counter()
+    totals = {}
+    counted = _counter(torch, totals)
+    dev = torch.device("cuda")
+    Bo, So, Lo = OPTION_BATCH, OPTION_SEQ, OPTION_LAYERS
+
+    def model(arch, **change):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=Lo,
+                                  param_dtype="bfloat16", **change)
+        params = tf.init_params(cfg, seed=0, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(len(arch))
+        if cfg.qkv_bias:
+            _fill_qkv_biases(torch, params, gen)
+        n = sum(t.numel() for t in _leaves(params))
+        log(f"[options 6c] {arch}: full width (d {cfg.d_model}, {cfg.num_heads}"
+            f" heads over {cfg.num_kv_heads} of {cfg.dh}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}), {Lo} of {full.num_layers} layers, "
+            f"{n} parameters in bf16 ({n * 2 / 2**30:.2f} GiB), qkv biases "
+            f"{'filled' if cfg.qkv_bias else 'none'}")
+        return cfg, params, gen
+
+    def prefill_check(arch, cfg, params, batch, S_total):
+        kern, got, ms = counted(lambda: tf.forward(params, cfg, batch))
+        want = {"rmsnorm": 2 * Lo + 1, "flash_attention": Lo}
+        require(got == want, f"{arch} prefill launches {got} != {want}")
+        require(tuple(kern.shape) == (Bo, S_total, cfg.vocab_size)
+                and bool(torch.isfinite(kern).all()),
+                f"{arch} prefill logits not finite or of the wrong shape")
+        plain = tf.forward(params, cfg, batch, use_kernel=False)
+        rel, top1 = _agreement(torch, kern, plain)
+        log(f"[options 6c] {arch} prefill of {Bo} x {S_total}: {ms:.2f} ms, "
+            f"launches {got}; kernels vs plain: relative L2 {rel:.3e} "
+            f"(bound {LOGITS_REL_TOL}), top-1 agreement {top1:.4f} (bound "
+            f"{TOP1_MIN})")
+        require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
+                f"{arch} prefill logits: kernel path too far from plain")
+        return kern
+
+    # qwen1.5-110b: qkv biases.
+    cfg, params, gen = model("qwen1.5-110b")
+    toks = torch.randint(0, cfg.vocab_size, (Bo, So), generator=gen,
+                         device=dev)
+    prefill_check(cfg.name, cfg, params, {"tokens": toks}, So)
+    del params
+    torch.cuda.empty_cache()
+
+    # qwen2-vl-72b: a quarter of the positions vision embeddings on a 2-D
+    # patch grid (t 0, h the row, w the column), then the text.
+    cfg, params, gen = model("qwen2-vl-72b")
+    sv = int(So * cfg.vision_tokens_frac)
+    grid = int(round(sv ** 0.5))
+    rows = torch.arange(sv, device=dev) // grid
+    cols = torch.arange(sv, device=dev) % grid
+    text = grid + torch.arange(So - sv, device=dev)
+    pos = torch.stack([torch.cat([torch.zeros_like(rows), text]),
+                       torch.cat([rows, text]), torch.cat([cols, text])])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (Bo, So - sv),
+                                     generator=gen, device=dev),
+             "vision_embeds": torch.randn((Bo, sv, cfg.d_model),
+                                          generator=gen, device=dev),
+             "mrope_positions": pos[:, None].expand(3, Bo, So)}
+    kern = prefill_check(cfg.name, cfg, params, batch, So)
+    flat = dict(batch, mrope_positions=torch.arange(
+        So, device=dev).expand(3, Bo, So))
+    moved = _rel_l2(torch, tf.forward(params, cfg, flat), kern)
+    log(f"[options 6c] {cfg.name}: {sv} vision positions on a {grid} x "
+        f"{grid} grid, sections {cfg.mrope_sections}; the logits with one "
+        f"position for t, h and w (RoPE) differ by relative L2 {moved:.3e}")
+    require(moved > 1e-3, "the M-RoPE positions do not reach the logits")
+    del params, kern
+    torch.cuda.empty_cache()
+
+    # granite-20b: the int8 KV cache beside the bf16 one, same tokens.
+    cfg, params, gen = model("granite-20b")
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    T = KV_QUANT_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (Bo, T), generator=gen,
+                         device=dev)
+    out = {}
+    for c in (cfg, qcfg):
+        cache = tf.init_cache(c, Bo, T, device=dev)
+
+        def steps(c=c, cache=cache):
+            return torch.cat([tf.decode_step(params, c, cache,
+                                             toks[:, t:t + 1], t)[0]
+                              for t in range(T)], dim=1)
+
+        out[c.kv_quant], got, ms = counted(steps)
+        want = {"rmsnorm": (2 * Lo + 1) * T, "flash_attention": 0}
+        require(got == want, f"granite decode launches {got} != {want}")
+        out[c.kv_quant, "ms"] = ms
+        if c.kv_quant:
+            require(cache["l0"]["k_q"].dtype == torch.int8
+                    and int(cache["l0"]["k_q"].abs().max()) == 127,
+                    "the int8 cache was not written")
+    require(bool(torch.isfinite(out[True]).all()),
+            "int8-cache logits not finite")
+    rel, top1 = _agreement(torch, out[True], out[False])
+    log(f"[options 6c] granite-20b int8 KV cache, {T} decode steps at batch "
+        f"{Bo}: {out[True, 'ms'] / T:.3f} ms a step against "
+        f"{out[False, 'ms'] / T:.3f} with the bf16 cache; logits finite, "
+        f"relative L2 {rel:.3e} and top-1 agreement {top1:.4f} against the "
+        f"bf16 cache (reported; the CPU tests hold it to the JAX package)")
+    del params
+    log(f"[options 6c] phase wall {time.perf_counter() - wall0:.2f} s")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2608,7 +2954,27 @@ def phase_train_grads(np, torch):
                     qd, kd, vd, with_lse=True), reps=20)}
         del q, k, v, do, out, got, want
         torch.cuda.empty_cache()
+    # Bounds of forward + backward by `bound()`'s rule. Attention (FA2):
+    # the forward reads q, k, v and writes o and the f32 log-sum-exp; the
+    # backward reads q, k, v, o, dO and the log-sum-exp and writes dq, dk,
+    # dv; per live (query, key) pair the forward's QK and PV products
+    # (2·Dh + 2·Dv) and the backward's recomputed QK, dV, dP, dQ and dK
+    # (6·Dh + 4·Dv). RMSNorm: the forward reads x and writes y, the
+    # backward reads x and dy and writes dx (bf16), the scale read twice
+    # and its gradient written once (f32); 4 f32 operations an element
+    # forward, 10 backward.
+    n_qkv = B * S * H * Dh
+    pairs = B * H * fa_live_pairs(S, S, True, 0)
+    rec["flash_attention"]["bound_ms"], rec["flash_attention"]["bound_by"] \
+        = bound(12 * n_qkv * 2 + 2 * B * H * S * 4,
+                pairs * 2 * (4 * Dh + 3 * Dh), H100_BF16_OPS_PER_S)
+    rec["rmsnorm"]["bound_ms"], rec["rmsnorm"]["bound_by"] = bound(
+        5 * B * S * d * 2 + 3 * d * 4, 14 * B * S * d, H100_F32_OPS_PER_S)
     fa = rec["flash_attention"]
+    log(f"[train 8a] bounds of forward + backward at the step's shapes, "
+        f"bf16: rmsnorm ({B * S}, {d}) {rec['rmsnorm']['bound_ms']:.4f} ms "
+        f"({rec['rmsnorm']['bound_by']}); flash attention {(B, S, H, Dh)} "
+        f"causal {fa['bound_ms']:.4f} ms ({fa['bound_by']})")
     log(f"[train 8a] forward + backward at the step's shapes, bf16: rmsnorm "
         f"autograd Function {rec['rmsnorm']['ms']:.3f} ms, plain "
         f"{rec['rmsnorm']['plain_ms']:.3f} ms, F.rms_norm "
@@ -2652,7 +3018,7 @@ def phase_train_grads(np, torch):
 
 
 def phase_train(np, torch):
-    """8b and 8c: the coordinator's plan, `train()` at full width and depth
+    """8b: the coordinator's plan, `train()` at full width and depth
     with a failure retried in place, its final checkpoint restored
     bitwise, the 32-layer step timed and profiled, `train()` under the
     plan's throttle where its budgets vary, and the runner on the
@@ -2816,7 +3182,7 @@ def phase_train(np, torch):
                                         for n, ms, c in top))
         del masters, opt, step
         torch.cuda.empty_cache()
-        t_8c = time.perf_counter()
+        t_runner = time.perf_counter()
 
         # 8b: train() under the plan's throttle, on the integration tests'
         # config: at 2 steps an hour a throttle below 0.75 cuts an hour to
@@ -2843,11 +3209,11 @@ def phase_train(np, torch):
         require(all(np.isfinite(x) for x in rep["losses"]),
                 "throttled losses")
 
-        # 8c: the runner on the integration tests' config.
+        # 8b: the runner on the integration tests' config.
         rep, got = counted(lambda: train(small, sshape, 40,
                                          str(tmp / "loss")))
         first, last = np.mean(rep["losses"][:5]), np.mean(rep["losses"][-5:])
-        log(f"[train 8c] reduced stablelm-3b (2 layers, d 64), 40 steps: "
+        log(f"[train 8b runner] reduced stablelm-3b (2 layers, d 64), 40 steps: "
             f"loss {first:.4f} over the first 5, {last:.4f} over the last 5; "
             f"launches {got}")
         require(len(rep["losses"]) == 40 and last < first,
@@ -2857,16 +3223,123 @@ def phase_train(np, torch):
             failure_plan=FailurePlan(fail_steps=(13,))))
         events = plain_events(rep)
         on_card = all(t.is_cuda for _, t in tree_items(rep["params"]))
-        log(f"[train 8c] with a failure at step 13: {rep['steps']} steps, "
+        log(f"[train 8b runner] with a failure at step 13: {rep['steps']} steps, "
             f"events {events}, parameters on the card {on_card}; launches "
             f"{got}")
         require(rep["steps"] >= 30 and (10, "restored") in events
                 and on_card, "the runner did not restore onto the card")
-        log(f"[train 8c] with 8b's budgets: {time.perf_counter() - t_8c:.2f} "
-            f"s")
+        log(f"[train 8b runner] with the budgets: "
+            f"{time.perf_counter() - t_runner:.2f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[train] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return totals
+
+
+def phase_train_whisper(np, torch):
+    """8c: whisper-large-v3 training at full width and depth, three
+    `make_train_step` steps of batch 8 x 448 decoder tokens (Whisper's
+    decoder context) over 1500 frames each, bf16 compute, f32 masters and
+    moments, remat, launches a step by counter; one more step profiled;
+    then loss and every gradient leaf through the kernels against the
+    plain versions at full width and 2 + 2 layers. Writes no checkpoint.
+    Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.steps import (make_loss_fn, make_train_step,
+                                          value_and_grad)
+    from repro_torch.models import encdec
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_items
+
+    t_phase = time.perf_counter()
+    totals = {}
+    counted = _counter(torch, totals)
+    full = get_config("whisper-large-v3")
+    Le, L = full.encoder_layers, full.num_layers
+    B, S = WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
+    shape = ShapeCell("whisper_train", S, B, "train")
+    dev = torch.device("cuda")
+    masters = encdec.init_params(full, seed=0, device=dev)
+    opt_cfg = AdamWConfig(total_steps=2 * WHISPER_TRAIN_STEPS)
+    opt = adamw_init(masters, opt_cfg)
+    state = sum(t.numel() * t.element_size()
+                for _, t in tree_items({"p": masters, "o": opt}))
+    step = make_train_step(full, opt_cfg)
+    batches = [synthetic_batch(full, shape, i)
+               for i in range(WHISPER_TRAIN_STEPS + 1)]
+    per_step = {"rmsnorm": 4 * Le + 1 + 6 * L + 1,
+                "flash_attention": 2 * Le + 4 * L}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for i, batch in enumerate(batches[:-1]):
+        (masters, opt, loss), got, ms = counted(
+            lambda: step(masters, opt, batch))
+        losses.append(loss)
+        walls.append(ms)
+        require(got == per_step,
+                f"whisper step {i}: launches {got} != {per_step}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(walls[1:])
+    frames, tokens = B * full.encoder_seq, B * S
+    log(f"[train 8c] whisper-large-v3 {Le} + {L} layers, batch {B} x {S} "
+        f"decoder tokens over {full.encoder_seq} frames, bf16 compute, f32 "
+        f"masters and moments ({state / 1e9:.2f} GB of state), remat: "
+        f"losses {[round(x, 4) for x in losses]}, {ms:.1f} ms a step "
+        f"(median of steps 2-{WHISPER_TRAIN_STEPS}, host clock to the loss "
+        f"read and the update), {frames / ms * 1e3:.0f} frames/s and "
+        f"{tokens / ms * 1e3:.0f} decoder tokens/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches a step {got} (expected "
+        f"{per_step}: rmsnorm 4L_enc + 1 + 6L_dec + 1, flash attention "
+        f"2L_enc + 4L_dec); step walls {[round(w, 1) for w in walls]} ms")
+    require(all(np.isfinite(x) for x in losses), "whisper losses")
+    prof_batch = batches[-1]
+
+    def one_step():
+        nonlocal masters, opt
+        masters, opt, _ = step(masters, opt, prof_batch)
+        torch.cuda.synchronize()
+
+    wall, busy, top = _device_breakdown(torch, one_step)
+    log(f"[train 8c] profiled whisper step: wall {wall * 1e3:.1f} ms, device "
+        f"busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.4f}; device "
+        f"time by kernel, top {len(top)}: "
+        + "; ".join(f"{n[:60]} {ms:.1f} ms x {c}" for n, ms, c in top))
+    del masters, opt, step, batches
+    torch.cuda.empty_cache()
+
+    # Loss and gradients at full width and 2 + 2 layers, kernels vs plain.
+    cfg = dataclasses.replace(full, num_layers=GRAD_LAYERS,
+                              encoder_layers=GRAD_LAYERS)
+    masters = encdec.init_params(cfg, seed=0, device=dev)
+    batch = synthetic_batch(cfg, shape, 0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    out = {}
+    for kern in (True, False):
+        loss, grads = value_and_grad(make_loss_fn(cfg, use_kernel=kern),
+                                     masters, batch)
+        out[kern] = (float(loss), dict(tree_items(grads)))
+        del grads
+        torch.cuda.empty_cache()
+    lk, gk = out[True]
+    lp, gp = out[False]
+    rel = abs(lk - lp) / abs(lp)
+    errs = {key: _rel_l2(torch, gk[key], gp[key]) for key in gp}
+    worst = max(errs, key=errs.get)
+    log(f"[train 8c] whisper at full width, {GRAD_LAYERS} + {GRAD_LAYERS} "
+        f"layers, batch {B} x {S}: loss through the kernels {lk:.6f}, plain "
+        f"{lp:.6f}, relative {rel:.3e} (bound {LOSS_RTOL:g}); {len(errs)} "
+        f"gradient leaves, relative L2 worst {errs[worst]:.3e} at {worst} "
+        f"(bound {GRAD_REL_L2:g}), median "
+        f"{statistics.median(errs.values()):.3e}")
+    require(np.isfinite(lk) and rel < LOSS_RTOL,
+            f"whisper loss through the kernels {lk} vs plain {lp}")
+    require(errs[worst] < GRAD_REL_L2,
+            f"whisper gradient {worst}: relative L2 {errs[worst]:.3e}")
+    del out, gk, gp, masters
+    torch.cuda.empty_cache()
+    log(f"[train 8c] phase wall {time.perf_counter() - t_phase:.2f} s")
     return totals
 
 
@@ -2920,10 +3393,17 @@ def _run_phases(np, torch, smi, wall0):
     for path in SERVE_PATHS:
         for name, n in phase_serve(np, torch, *path).items():
             launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()        # one model resident at a time
+    for phase in (phase_whisper, phase_dense_options):
+        for name, n in phase(np, torch).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
     for name, n in phase_observability(np, torch, fleets[0]).items():
         launches[name] += n
     phase_train_grads(np, torch)
     for name, n in phase_train(np, torch).items():
+        launches[name] += n
+    for name, n in phase_train_whisper(np, torch).items():
         launches[name] += n
     kernels = []
     for name, line in (("dr_features", 26), ("al_step", 41), ("rmsnorm", 20),

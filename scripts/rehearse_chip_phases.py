@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Rehearse chip_smoke's model phases on the CPU at reduced sizes.
+
+    PYTHONPATH=src python3 scripts/rehearse_chip_phases.py [serve] [whisper]
+        [options] [train]
+
+Runs `phase_serve` for qwen3-32b and granite-20b (phase 6's new paths),
+`phase_whisper` (6b), `phase_dense_options` (6c) and
+`phase_train_whisper` (8c) of `chip_smoke.py` with every model reduced
+(2 layers, d_model 128, vocab 512, bf16 activations, remat on), on the
+CPU: the script's "cuda" device reads "cpu", the kernels' plain versions
+run and each call a kernel would have made is counted as its launch, and
+the card's memory and sync calls do nothing. It checks the phases' control
+flow, shapes and launch counts; no number it prints is a device metric.
+With no argument it runs all four.
+"""
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+import sys
+import types
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import repro_torch.configs as configs  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.models import encdec, transformer  # noqa: E402
+
+
+def load_smoke():
+    src = (ROOT / "chip_smoke.py").read_text().replace('"cuda"', '"cpu"')
+    mod = types.ModuleType("chip_smoke_cpu")
+    mod.__file__ = str(ROOT / "chip_smoke.py")
+    exec(compile(src, "chip_smoke_cpu", "exec"), mod.__dict__)
+    mod._device_breakdown = lambda torch, fn: (fn(), (1.0, 0.5, [
+        ("(not measured on the CPU)", 0.0, 0)]))[1]
+    return mod
+
+
+def counted_plain(fn, counter):
+    def call(*a, use_kernel=None, **k):
+        if use_kernel is None:
+            counter.launches += 1
+        return fn(*a, use_kernel=False, **k)
+    return call
+
+
+def main(which) -> int:
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, name, lambda *a: None)
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    rms_ops.rmsnorm = counted_plain(rms_ops.rmsnorm, rms_kernel.rmsnorm_cuda)
+    fa_ops.flash_attention = counted_plain(fa_ops.flash_attention,
+                                           fa_kernel.flash_attention_cuda)
+    cpu = lambda d=None: torch.device("cpu" if d is None else d)  # noqa
+    transformer.resolve_device = encdec.resolve_device = cpu
+    full = configs.get_config
+
+    def small(arch):
+        cfg = configs.reduced(full(arch), layers=2, d_model=128, vocab=512)
+        return dataclasses.replace(cfg, dtype="bfloat16", remat=True)
+
+    configs.get_config = small
+    cs = load_smoke()
+    cs.WHISPER_PARAMS = small("whisper-large-v3").param_count()
+    cs.WHISPER_TRAIN_SEQ = 24
+    which = which or ["serve", "whisper", "options", "train"]
+    if "serve" in which:
+        for path in cs.SERVE_PATHS[2:]:
+            print(cs.phase_serve(np, torch, *path))
+    if "whisper" in which:
+        print(cs.phase_whisper(np, torch))
+    if "options" in which:
+        print(cs.phase_dense_options(np, torch))
+    if "train" in which:
+        print(cs.phase_train_whisper(np, torch))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

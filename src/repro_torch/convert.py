@@ -7,8 +7,8 @@ Typical use, with `p` a reference `FleetProblem`:
     fields = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
     problem = fleet_problem_from_arrays(**fields)
 
-and, with `tree` the reference's `transformer.init_params` output mapped
-through `np.asarray`:
+and, with `tree` the reference's `transformer.init_params` or
+`encdec.init_params` output mapped through `np.asarray`:
 
     params = transformer_params_from_arrays(tree, device="cpu")
 """
@@ -68,22 +68,36 @@ def engine_state_from_arrays(x, lam_eq, lam_in, mu,
     return EngineState(x=t(x), lam_eq=t(lam_eq), lam_in=t(lam_in), mu=t(mu))
 
 
-# The decoder's parameter tree (`repro.models.transformer`) on the ported
-# paths, dense and SSM: the keys each level may hold (`unembed` only where
-# the embeddings are untied). Anything else (biases, qk-norm, MoE, MLA,
-# MTP) belongs to a path the port does not have yet.
+# The parameter trees of the ported models, decoder-only
+# (`repro.models.transformer`: dense, vlm and SSM) and encoder-decoder
+# (`repro.models.encdec`): the keys each level may hold (`unembed` only
+# where the embeddings are untied, `b` where the model has qkv biases,
+# `q_norm` / `k_norm` with qk-norm).
 _PARAM_KEYS = {
-    "": {"embed", "blocks", "ln_f", "unembed"},
-    "embed": {"table"}, "unembed": {"table"}, "ln_f": {"scale"},
-    "blocks": {"l0"}, "l0": {"ln1", "attn", "ln2", "ffn", "ssm"},
-    "ln1": {"scale"}, "ln2": {"scale"},
-    "attn": {"wq", "wk", "wv", "wo"},
-    "wq": {"w"}, "wk": {"w"}, "wv": {"w"}, "wo": {"w"},
+    "": {"embed", "blocks", "ln_f", "unembed",
+         "enc_blocks", "enc_ln", "dec_blocks", "dec_ln"},
+    "embed": {"table"}, "unembed": {"table"}, "blocks": {"l0"},
+    "l0": {"ln1", "attn", "ln2", "ffn", "ssm"},
+    "enc_blocks": {"ln1", "attn", "ln2", "ffn"},
+    "dec_blocks": {"ln1", "attn", "lnx", "xattn", "ln2", "ffn"},
+    "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm"},
+    "xattn": {"wq", "wk", "wv", "wo"},
+    "wq": {"w", "b"}, "wk": {"w", "b"}, "wv": {"w", "b"}, "wo": {"w"},
     "ffn": {"w_gate", "w_up", "w_down"},
     "w_gate": {"w"}, "w_up": {"w"}, "w_down": {"w"},
     "ssm": {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
             "out_proj"},
-    "in_proj": {"w"}, "out_proj": {"w"}, "norm": {"scale"},
+    "in_proj": {"w"}, "out_proj": {"w"},
+    **{norm: {"scale"} for norm in ("ln_f", "ln1", "ln2", "lnx", "enc_ln",
+                                    "dec_ln", "norm", "q_norm", "k_norm")},
+}
+# Leaves of the reference's paths that the port does not have yet, and the
+# ROADMAP item that ports each.
+_UNPORTED_KEYS = {
+    **dict.fromkeys(("moe", "router"), "item 12d (MoE)"),
+    **dict.fromkeys(("wdq", "wuq", "wdkv", "wkr", "wuk", "wuv", "kv_norm"),
+                    "item 12d (MLA)"),
+    "mtp": "item 12g (MTP)",
 }
 
 
@@ -97,12 +111,19 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def transformer_params_from_arrays(tree: dict, device=None) -> dict:
     """The port's parameters (same tree, same dtypes, on `device`, the
-    card by default) from the reference's dense or SSM `init_params`
-    tree."""
+    card by default) from the reference's `init_params` tree of either
+    model module: `transformer` (dense, vlm, SSM) or `encdec`."""
     dev = resolve_device(device)
 
     def walk(node, name):
         extra = set(node) - _PARAM_KEYS.get(name, set())
+        unported = sorted(k for k in extra if k in _UNPORTED_KEYS)
+        if unported:
+            items = sorted({_UNPORTED_KEYS[k] for k in unported})
+            raise NotImplementedError(
+                f"parameters {unported} under {name or 'the root'!r} belong "
+                f"to a model path the port does not have yet (ROADMAP "
+                f"{', '.join(items)})")
         if extra:
             raise NotImplementedError(
                 f"parameters {sorted(extra)} under {name or 'the root'!r} "

@@ -34,13 +34,30 @@ class DataConfig:
 def synthetic_batch(cfg: ArchConfig, shape: ShapeCell, step: int,
                     dc: DataConfig = DataConfig()) -> dict[str, np.ndarray]:
     """One host-shard of a global batch: int32 tokens and labels (b, S),
-    Zipf-distributed over the vocabulary."""
+    Zipf-distributed over the vocabulary; for the encdec family f32
+    frames (b, encoder_seq, d); for the vlm family the text tail (b, S -
+    Sv) of tokens and labels, f32 vision embeddings (b, Sv, d) and int32
+    M-RoPE positions (3, b, S) that give t, h and w each token's index.
+    The draws are the reference's, in its order."""
     assert shape.global_batch % dc.host_count == 0
     b = shape.global_batch // dc.host_count
     rng = np.random.default_rng((dc.seed, step, dc.host_index))
-    toks = rng.zipf(1.3, size=(b, shape.seq_len)).astype(np.int64)
+    S = shape.seq_len
+    toks = rng.zipf(1.3, size=(b, S)).astype(np.int64)
     toks = np.clip(toks, 0, cfg.vocab_size - 1).astype(np.int32)
-    return {"tokens": toks, "labels": toks.copy()}
+    batch = {"tokens": toks, "labels": toks.copy()}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        sv = int(S * cfg.vision_tokens_frac)
+        batch["tokens"] = batch["tokens"][:, :S - sv]
+        batch["labels"] = batch["labels"][:, :S - sv]
+        batch["vision_embeds"] = rng.standard_normal(
+            (b, sv, cfg.d_model)).astype(np.float32)
+        batch["mrope_positions"] = np.broadcast_to(
+            np.arange(S, dtype=np.int32), (3, b, S)).copy()
+    return batch
 
 
 class PrefetchingLoader:

@@ -19,16 +19,14 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import (AdamWConfig, adamw_step_, tree_items,
                                      tree_map)
 
 
 def model_module(cfg: ArchConfig):
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family is not ported (ROADMAP item 12c)")
-    return tf
+    return encdec if cfg.family == "encdec" else tf
 
 
 def make_loss_fn(cfg: ArchConfig, use_kernel: bool | None = None,
@@ -104,6 +102,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
+    """(params, batch) -> f32 logits: the encoder-decoder's `forward`
+    over {frames, tokens}, the decoder's over {tokens[, vision_embeds,
+    mrope_positions]}."""
     mod = model_module(cfg)
 
     def prefill_step(params, batch):

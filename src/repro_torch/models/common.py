@@ -1,6 +1,6 @@
 """Shared model primitives: norms, rotary embeddings, FFNs, embeddings.
 
-The port of `repro/models/common.py` for the dense path. Functional
+The port of `repro/models/common.py`. Functional
 style, as there: params are nested dicts of tensors and every layer is a
 function `f(params, x, ...)`. Initialisers take an explicit
 `torch.Generator` (None only on the `meta` device, where nothing is
@@ -46,7 +46,7 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6,
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (+ M-RoPE for Qwen2-VL), sinusoidal positions
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -67,17 +67,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections, theta: float = 1e6) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): positions (3, ..., S) for (t, h, w);
+    `sections` splits the rotary half-width across the three components,
+    frequency i turning with component j where i falls in section j."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # (Dh/2,)
+    sec = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))            # (Dh/2,)
+    pos_sel = positions.index_select(0, sec).movedim(0, -1)  # (..., S, Dh/2)
+    angles = pos_sel.float() * freqs
+    if x.dim() == angles.dim() + 1:
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (seq, d), in f32; the
+    callers cast them to the activation dtype."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Dense / SwiGLU FFN
 # ---------------------------------------------------------------------------
 def linear_init(gen, d_in: int, d_out: int, dtype, device,
-                lead: tuple = ()) -> dict:
+                lead: tuple = (), bias: bool = False) -> dict:
+    """Weight N(0, 1/d_in); the bias, where asked for, zeros, as the
+    reference's."""
     w = _normal(gen, lead + (d_in, d_out), dtype, device)
-    return {"w": w.div_(math.sqrt(d_in))}
+    p = {"w": w.div_(math.sqrt(d_in))}
+    if bias:
+        p["b"] = torch.zeros(lead + (d_out,), dtype=dtype, device=device)
+    return p
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype)
+    """x @ w, plus the bias in x's dtype where the layer has one."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def swiglu_init(gen, d: int, d_ff: int, dtype, device,

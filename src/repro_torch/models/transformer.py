@@ -1,12 +1,15 @@
-"""Model assembly for the decoder LMs: the dense and SSM paths of
+"""Model assembly for the decoder LMs: the dense, VLM and SSM paths of
 `repro/models/transformer.py`.
 
 Parameters keep the reference's tree: every per-layer leaf is stacked on
 a leading layer axis under `blocks["l0"]` (the reference scans over it;
 the port loops over layers in Python and takes views). The decode cache
 is stacked the same way: k/v for attention layers, the SSM state and
-conv tail for Mamba-2 layers. A model with tied embeddings has no
-`unembed` leaf and reads the logits off the input table. The forward
+conv tail for Mamba-2 layers (int8 k/v and their scales with
+`cfg.kv_quant`). A model with tied embeddings has no `unembed` leaf and
+reads the logits off the input table. The VLM family is the dense stack
+with vision-patch embeddings ahead of the text and M-RoPE positions in
+every attention layer; its loss scores the text tail only. The forward
 takes each stacked leaf apart with one `unbind`, whose backward is one
 `stack` (indexing layer by layer would scatter every layer's gradient
 into a zeroed copy of the whole stack). With `cfg.remat`, under autograd,
@@ -17,6 +20,9 @@ Public entry points:
   init_params(cfg, seed, device)                  -> param tree
   compute_params(params, cfg)                     -> matrices in cfg.dtype
   forward(params, cfg, batch)                     -> f32 logits
+                                                     (batch: tokens[,
+                                                     vision_embeds,
+                                                     mrope_positions])
   loss_fn(params, cfg, batch)                     -> scalar loss
   init_cache(cfg, batch, max_len, device)         -> decode cache tree
   decode_step(params, cfg, cache, token, length)  -> (logits, cache)
@@ -37,15 +43,16 @@ from repro_torch.models import common, ssm
 from repro_torch.models.common import dtype_of
 
 # Leaves that keep their dtype in `compute_params`: the norm scales (the
-# kernels take them in f32) and the SSM's f32 parameters, which the
-# reference uses in f32 (`repro/models/ssm.py:160-162,196-197,205`).
+# kernels take them in f32; qk-norm's too) and the SSM's f32 parameters,
+# which the reference uses in f32 (`repro/models/ssm.py:160-162,196-197,
+# 205`).
 F32_LEAVES = frozenset({"scale", "A_log", "D", "dt_bias"})
 
 
 def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
-    """-> (mixer, ffn) for a layer index: the dense family has GQA
-    attention and a SwiGLU FFN in every layer, the ssm family a Mamba-2
-    mixer and no FFN."""
+    """-> (mixer, ffn) for a layer index: the dense and vlm families have
+    GQA attention and a SwiGLU FFN in every layer, the ssm family a
+    Mamba-2 mixer and no FFN."""
     if cfg.family == "ssm":
         return "ssm", "none"
     return "attn", "dense"
@@ -67,6 +74,24 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 def _requires_grad(tree: dict) -> bool:
     return any(_requires_grad(v) if isinstance(v, dict) else v.requires_grad
                for v in tree.values())
+
+
+def run_layers(layer_fn, blocks: dict, n: int, x: torch.Tensor,
+               cfg: ArchConfig, *args) -> torch.Tensor:
+    """x through the n layers stacked in `blocks`, `layer_fn(p, x, cfg, i,
+    *args)` for layer i, each under `torch.utils.checkpoint` when
+    cfg.remat is set and autograd is on."""
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and (x.requires_grad or _requires_grad(blocks)
+                  or any(isinstance(a, torch.Tensor) and a.requires_grad
+                         for a in args)))
+    for i, p in enumerate(_unstack(blocks, n)):
+        if remat:
+            x = checkpoint(layer_fn, p, x, cfg, i, *args,
+                           use_reentrant=False)
+        else:
+            x = layer_fn(p, x, cfg, i, *args)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -121,11 +146,12 @@ def compute_params(params: dict, cfg: ArchConfig) -> dict:
 # Forward (prefill without a cache)
 # ---------------------------------------------------------------------------
 def _apply_layer(p: dict, x, cfg: ArchConfig, layer: int, positions,
-                 use_kernel):
+                 mrope_positions, use_kernel):
     mixer, ffn = layer_kind(cfg, layer)
     h = common.rmsnorm(p["ln1"], x, use_kernel=use_kernel)
     if mixer == "attn":
         h = attn.gqa_attend(p["attn"], h, cfg, positions,
+                            mrope_positions=mrope_positions,
                             use_kernel=use_kernel)
     else:
         h = ssm.ssm_apply(p["ssm"], h, cfg, use_kernel=use_kernel)
@@ -138,39 +164,42 @@ def _apply_layer(p: dict, x, cfg: ArchConfig, layer: int, positions,
 
 def forward(params: dict, cfg: ArchConfig, batch: dict,
             use_kernel: bool | None = None) -> torch.Tensor:
-    """batch: {tokens (B, S)} -> f32 logits (B, S, V). `use_kernel=False`
-    takes the kernels' plain versions on the card."""
+    """batch: {tokens (B, S)[, vision_embeds (B, Sv, d), mrope_positions
+    (3, B, S_total)]} -> f32 logits (B, S_total, V), the vision positions
+    first. `use_kernel=False` takes the kernels' plain versions on the
+    card."""
     adtype = dtype_of(cfg.dtype)
     x = common.embed(params["embed"], batch["tokens"], adtype)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(adtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    blocks = params["blocks"]["l0"]
-    remat = (cfg.remat and torch.is_grad_enabled()
-             and (x.requires_grad or _requires_grad(blocks)))
-    for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
-        if remat:
-            x = checkpoint(_apply_layer, p, x, cfg, i, positions,
-                           use_kernel, use_reentrant=False)
-        else:
-            x = _apply_layer(p, x, cfg, i, positions, use_kernel)
+    mrope_positions = batch.get("mrope_positions")
+    x = run_layers(_apply_layer, params["blocks"]["l0"], cfg.num_layers, x,
+                   cfg, positions, mrope_positions, use_kernel)
     x = common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
     return common.lm_head(params.get("unembed", params["embed"]), x)
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
             use_kernel: bool | None = None) -> torch.Tensor:
-    """Next-token cross-entropy of the dense family, from the f32 masters:
-    they reach the products through `compute_params`' cast, and the
-    gradients flow back through it. batch: {tokens, labels} (B, S)."""
-    if cfg.family != "dense":
+    """Next-token cross-entropy of the dense and vlm families, from the
+    f32 masters: they reach the products through `compute_params`' cast,
+    and the gradients flow back through it. batch: {tokens, labels} (B,
+    S), and for the vlm family its vision embeddings and M-RoPE
+    positions; the vision positions carry no loss, the text tail is
+    scored."""
+    if cfg.family == "ssm":
         raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported (ROADMAP "
-            "item 12g: mamba2 needs a gradient through ssd_scan)")
+            "training the 'ssm' family is not ported (ROADMAP item 12g: "
+            "mamba2 needs a gradient through ssd_scan)")
     if cfg.mtp_depth:
         raise NotImplementedError(
             "the MTP auxiliary loss is not ported (ROADMAP item 12g)")
     logits = forward(compute_params(params, cfg), cfg, batch,
                      use_kernel=use_kernel)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        logits = logits[:, batch["vision_embeds"].shape[1]:]
     return common.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
@@ -180,14 +209,23 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Zeroed caches stacked over the L layers: attention layers
-    (B, max_len, KV, Dh) k and v in cfg.dtype; SSM layers the f32 state
-    h (B, H, P, N) and the conv tail (B, K-1, conv_dim) in cfg.dtype."""
+    (B, max_len, KV, Dh) k and v in cfg.dtype, or with `cfg.kv_quant`
+    int8 k_q and v_q and their f32 scales k_s and v_s (B, max_len, KV, 1);
+    SSM layers the f32 state h (B, H, P, N) and the conv tail (B, K-1,
+    conv_dim) in cfg.dtype."""
     dev = resolve_device(device)
     adtype = dtype_of(cfg.dtype)
     if layer_kind(cfg, 0)[0] == "ssm":
         return {"l0": ssm.ssm_init_state(cfg, batch, adtype, dev,
                                          (cfg.num_layers,))}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.dh)
+    if cfg.kv_quant:
+        scales = shape[:-1] + (1,)
+        return {"l0": {
+            "k_q": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_s": torch.zeros(scales, dtype=torch.float32, device=dev),
+            "v_q": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v_s": torch.zeros(scales, dtype=torch.float32, device=dev)}}
     return {"l0": {"k": torch.zeros(shape, dtype=adtype, device=dev),
                    "v": torch.zeros(shape, dtype=adtype, device=dev)}}
 

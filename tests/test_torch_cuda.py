@@ -22,7 +22,10 @@ plain versions; training: the rmsnorm and flash-attention autograd
 Functions' backwards within 1e-5 (f32) and 2e-2 (bf16, relative L2) of
 autograd through the plain versions, their forwards bitwise the
 buffer-free kernel calls, and one train step's loss of stablelm-3b at
-full width (2 layers) through the kernels within 1e-3 of the plain path.
+full width (2 layers) through the kernels within 1e-3 of the plain path;
+whisper-large-v3 at full width and 2 + 2 layers, and a reduced qwen3
+with qk-norm, through the kernels within chip_smoke's serving bounds of
+the plain versions, and the int8 KV cache's decode steps finite.
 """
 import importlib.util
 import pathlib
@@ -335,7 +338,8 @@ def test_al_step_kernel_short_days(dev, fleets, day_hours):
 @pytest.mark.parametrize("N,d,bf16", [(960, 2560, True), (8, 2560, True),
                                       (5, 100, True), (33, 128, False),
                                       (3, 8192, False), (3072, 1536, True),
-                                      (3072, 3072, True)])
+                                      (3072, 3072, True), (32_768, 128, True),
+                                      (12_000, 1280, True)])
 def test_rmsnorm_kernel_matches_plain(dev, N, d, bf16):
     gen = torch.Generator(device=dev).manual_seed(N + d)
     x = 1.5 * torch.randn((N, d), generator=gen, device=dev)
@@ -406,12 +410,13 @@ def test_rmsnorm_kernel_unaligned_rows_and_bad_operands(dev):
         rmsnorm_cuda(x, scale[:-1])
 
 
-@pytest.mark.parametrize("case", range(9))
+@pytest.mark.parametrize("case", range(14))
 def test_flash_attention_kernel_matches_plain(dev, case):
     """chip_smoke.py's cases: causal and not, GQA and MQA, tails, Dv != Dh,
-    q_offset, float32, a head width of no whole 16-byte vector, and a
-    1024-token prefill."""
-    assert len(_load_chip_smoke().FA_CASES) == 9
+    q_offset, float32, a head width of no whole 16-byte vector, a
+    1024-token prefill, whisper's encoder, cross-attention and decoder,
+    granite-20b's MQA and qwen3-32b's GQA at Dh 128."""
+    assert len(_load_chip_smoke().FA_CASES) == 14
     c = _load_chip_smoke().FA_CASES[case]
     causal, q_offset, bf16 = c[7], c[8], c[9]
     q, k, v = _load_chip_smoke().fa_inputs(torch, c, seed=case, dev=dev)
@@ -482,6 +487,79 @@ def test_reduced_stablelm_kernel_path_matches_plain_path(dev):
     assert out.shape == (3, 4)
     assert rmsnorm_cuda.launches - r0 == (2 * 2 + 1) * (1 + 9 + 3)
     assert flash_attention_cuda.launches - f0 == 2
+
+
+def test_whisper_kernel_path_matches_plain_path(dev):
+    """whisper-large-v3 at full width and 2 + 2 layers in bf16: encoder
+    output and logits through the kernels against the plain versions
+    (relative L2 < 0.05, top-1 >= 0.9, chip_smoke's serving bounds), and
+    the launches of encode, forward and a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), num_layers=2,
+                              encoder_layers=2)
+    params = tf.compute_params(encdec.init_params(cfg, seed=0, device=dev),
+                               cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"frames": torch.randn((2, 1500, 1280), generator=gen,
+                                   device=dev),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen, device=dev)}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    enc = encdec.encode(params, cfg, batch["frames"])
+    assert (rmsnorm_cuda.launches - r0, flash_attention_cuda.launches - f0) \
+        == (5, 2)
+    assert rel(enc, encdec.encode(params, cfg, batch["frames"],
+                                  use_kernel=False)) < 0.05
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    kern = encdec.forward(params, cfg, batch)
+    assert (rmsnorm_cuda.launches - r0, flash_attention_cuda.launches - f0) \
+        == (12, 6)
+    plain = encdec.forward(params, cfg, batch, use_kernel=False)
+    assert rel(kern, plain) < 0.05
+    assert float((kern.argmax(-1) == plain.argmax(-1)).float().mean()) >= 0.9
+    cache = encdec.start_cache(params, cfg, enc, 2, 8)
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    logits, _ = encdec.decode_step(params, cfg, cache,
+                                   batch["tokens"][:, :1], 0)
+    assert (rmsnorm_cuda.launches - r0, flash_attention_cuda.launches - f0) \
+        == (7, 0)
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_qk_norm_and_int8_cache_paths_on_the_card(dev):
+    """A reduced bf16 qwen3 (qk-norm through the rmsnorm kernel over rows
+    of Dh) through the kernels against the plain versions, and its int8
+    KV cache's decode steps finite and written."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(
+        reduced(get_config("qwen3-32b"), layers=2, d_model=512, vocab=512),
+        dtype="bfloat16")                        # 4 heads of Dh = 128
+    params = tf.compute_params(tf.init_params(cfg, seed=0, device=dev), cfg)
+    toks = torch.randint(0, 512, (3, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    r0 = rmsnorm_cuda.launches
+    kern = tf.forward(params, cfg, {"tokens": toks})
+    assert rmsnorm_cuda.launches - r0 == 4 * 2 + 1
+    _close(kern, tf.forward(params, cfg, {"tokens": toks}, use_kernel=False),
+           0.05)
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    cache = tf.init_cache(qcfg, 3, 8, device=dev)
+    for t in range(8):
+        logits, cache = tf.decode_step(params, qcfg, cache,
+                                       toks[:, t:t + 1], t)
+        assert bool(torch.isfinite(logits).all())
+    assert int(cache["l0"]["k_q"].abs().max()) == 127
 
 
 # ---------------------------------------------------------------------------

@@ -125,14 +125,21 @@ def test_full_width_parameter_count_from_shapes():
 
 
 def test_convert_refuses_parameters_of_unported_paths():
-    """A qkv bias or qk-norm scale (qwen families) has no place in the
-    port's dense path: the conversion says so instead of dropping it."""
+    """An MoE router or an MLA down-projection (deepseek, qwen3-moe) has no
+    place in the port yet: the conversion names the ROADMAP item that
+    ports it instead of dropping it, and refuses a leaf no model has."""
     w = np.zeros((1, 8, 8), np.float32)
-    tree = {"blocks": {"l0": {"attn": {"wq": {"w": w, "b": w[:, 0]}}}}}
-    with pytest.raises(NotImplementedError, match="'b'"):
+    tree = {"blocks": {"l0": {"moe": {"router": {"w": w}}}}}
+    with pytest.raises(NotImplementedError, match="'moe'.*12d"):
         transformer_params_from_arrays(tree, device="cpu")
-    tree = {"blocks": {"l0": {"attn": {"q_norm": {"scale": w[:, 0]}}}}}
-    with pytest.raises(NotImplementedError, match="q_norm"):
+    tree = {"blocks": {"l0": {"attn": {"wdq": {"w": w},
+                                       "q_norm": {"scale": w[:, 0]}}}}}
+    with pytest.raises(NotImplementedError, match="'wdq'.*12d"):
+        transformer_params_from_arrays(tree, device="cpu")
+    with pytest.raises(NotImplementedError, match="'mtp'.*12g"):
+        transformer_params_from_arrays({"mtp": {}}, device="cpu")
+    tree = {"blocks": {"l0": {"attn": {"wo": {"w": w, "b": w[:, 0]}}}}}
+    with pytest.raises(NotImplementedError, match="'b'"):
         transformer_params_from_arrays(tree, device="cpu")
 
 

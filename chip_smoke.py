@@ -16,12 +16,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
    shapes (W = 10,000, T = 48) and at W = 130 (a tail block); rmsnorm at
    stablelm-3b's and mamba2-780m's prefill and decode rows (d 2560; d
    1536 and the gated norm's 3072), qwen3-32b's qk-norm rows (32,768,
-   128) and whisper's encoder rows (12,000, 1280); flash attention at its
+   128), whisper's encoder rows (12,000, 1280) and the MoE / MLA prefill
+   rows (512 tokens at d 2048 and 7168, and MLA's kv latent of 512);
+   flash attention at its
    prefill, at a 1024-token prefill (16 kv blocks), at whisper's
    non-causal encoder (8 x 1500, 20 heads of 64, a masked tail of 28
    keys) and cross-attention (128 queries over 1500 keys), both timed
    beside SDPA, at whisper's causal decoder, granite-20b's MQA (48:1)
-   and qwen3-32b's GQA (8:1) at Dh 128, and at cases for causal/non-
+   and qwen3-32b's GQA (8:1) at Dh 128, deepseek-v3's MLA prefill (8 x
+   64, 128 heads, Dh 192 and Dv 128) and a 1024-token MLA prefill (both
+   timed beside SDPA, with the backend SDPA picks), MLA widths with
+   ragged tails, a q_offset and in float32, and at cases for causal/non-
    causal, GQA, tails, Dv != Dh and q_offset;
    ssd_scan at mamba2-780m's prefill, a long prefill, the JAX package's
    test dims and two tail cases;
@@ -114,7 +119,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    120-token prompts, mamba2-780m 8 requests of 384-token prompts,
    qwen3-32b (qk-norm: 4L + 1 norms a step) and granite-20b (MQA) at
    full depth in bf16 parameters 8 requests of 64-token prompts, each
-   with 16 new tokens, one model resident at a time;
+   with 16 new tokens, one model resident at a time (qwen3-moe-30b-a3b,
+   the fifth path, is served in 6d, after phase 8);
 6b. whisper-large-v3 at full width and depth (f32 masters and one bf16
    copy): `encode` of 8 seeded frame sets of 1500, `start_cache`, a
    4-token prompt and 124 greedy `decode_step`s to max_len 128, each
@@ -131,6 +137,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
    through the kernels against the plain versions; granite-20b (8 of
    52) over 16 decode steps with the int8 KV cache beside the bf16 one
    (finite logits; their agreement reported);
+6d. (run last, after phase 8) mixture of experts and multi-head latent
+   attention, bf16 parameters, one model resident at a time, each served
+   as phase 6 serves (8 requests of 64-token prompts, 16 new tokens,
+   max_batch 8 then 4, launches by counter): qwen3-moe-30b-a3b at full
+   width and depth (48 layers, 128 experts top-8, qk-norm) and
+   deepseek-v3-671b at full width and 2 of its 61 layers without its MTP
+   head (MLA: 4L + 1 norms a step; 256 experts top-8 and a shared one),
+   both at the published capacity
+   factor 1.25 with the einsum dispatch; the prefill logits through the
+   kernels against the plain versions with free routing (and, if that
+   misses with some expert set flipped, with the kernel path's expert
+   ids replayed into the plain path), the share of (token, layer) expert
+   sets that agree and of slots dropped; layer 0's scatter dispatch
+   against the einsum one; a profiled decode step's idle share;
+   deepseek's greedy decode over the latent cache against the
+   teacher-forced forward at capacity factor 8;
 7. guardrails and observability, on phase 3's W = 10,000 fleet through
    the kernels unless stated (every count reset just before and read just
    after a counted run): CR1(1.45) at 600 steps and CR2(0.78) at 6 x 400
@@ -183,6 +205,8 @@ Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -211,18 +235,36 @@ PRESERVATION_TOL = 1e-3
 # max_batch 8 and two at 4, as every path here, which keeps the script
 # inside its time limit. mamba2-780m's prompts of 384 make each prefill's
 # ssd_chunked two chunks of 256 with a padded tail of 128.
-# qwen3-32b (qk-norm, GQA 8:1) and granite-20b (MQA) run at full width and
-# depth with the reference's `param_dtype="bfloat16"`: 61.02 and 52.46 GiB
-# of parameters, where f32 masters would not fit on the card.
+# qwen3-32b (qk-norm, GQA 8:1), granite-20b (MQA) and qwen3-moe-30b-a3b
+# (128 experts top-8) run at full width and depth with the reference's
+# `param_dtype="bfloat16"`: 61.02, 52.46 and 56.87 GiB of parameters, where
+# f32 masters would not fit on the card. Phase 6 serves the first four;
+# qwen3-moe is served in phase 6d, which runs after phase 8.
 SERVE_PATHS = (("stablelm-3b", 8, 120, 16, 136, "float32"),
                ("mamba2-780m", 8, 384, 16, 400, "float32"),
                ("qwen3-32b", 8, 64, 16, 96, "bfloat16"),
-               ("granite-20b", 8, 64, 16, 96, "bfloat16"))
+               ("granite-20b", 8, 64, 16, 96, "bfloat16"),
+               ("qwen3-moe-30b-a3b", 8, 64, 16, 96, "bfloat16"))
+MOE_SERVE = 4                   # the index in SERVE_PATHS phase 6d serves
 SERVE_BATCHES = (8, 4)
 # Prefill logits through the kernels vs through the plain versions, in
 # bfloat16 over 32 or 48 layers of random weights: relative L2 error and
 # the share of positions whose top-1 token agrees.
 LOGITS_REL_TOL, TOP1_MIN = 0.05, 0.9
+# Phase 6d: deepseek-v3-671b at full width and DEEPSEEK_LAYERS of its 61
+# layers, without its MTP head (`mtp_depth=0`; the serving path reads
+# none), bf16 parameters (24.9e9, ~46 GiB), served as the SERVE_PATHS
+# models are (8 requests of 64 tokens, 16 new); its greedy decode over the
+# latent cache held against the teacher-forced forward over
+# DEEPSEEK_DECODE tokens at capacity factor DECODE_CF, the reference's
+# no-drop setting (`reduced()`): at the published 1.25 a prefill group of
+# 256 tokens and a decode group of 8 drop different slots by design.
+DEEPSEEK = ("deepseek-v3-671b", 8, 64, 16, 96, "bfloat16")
+DEEPSEEK_LAYERS, DEEPSEEK_DECODE, DECODE_CF = 2, 32, 8.0
+# The MoE layer alone, scatter against einsum dispatch on one bf16 input
+# at full width: relative L2 within 2^-6 (the einsum combine sums its k
+# weighted slots in f32; scatter rounds each weighted slot to bf16 first).
+DISPATCH_REL_TOL = 2.0 ** -6
 # Phase 6b: whisper-large-v3 at full width and depth (1,954,032,640
 # parameters: f32 masters and one bf16 copy), 8 seeded frame sets of 1500,
 # a 4-token prompt and greedy decode steps to max_len 128.
@@ -238,10 +280,12 @@ OPTION_LAYERS, OPTION_BATCH, OPTION_SEQ, KV_QUANT_STEPS = 8, 4, 64, 16
 # stablelm-3b prefill 8 x 120 and decode 8; mamba2-780m prefill 8 x 384
 # at d 1536 (ln1, ln_f) and d_in 3072 (the gated norm), and its decode
 # rows at both widths; qwen3-32b's qk-norm over rows of Dh 128 (8 x 64
-# tokens x 64 heads) and whisper-large-v3's encoder rows (8 x 1500 at d
-# 1280).
+# tokens x 64 heads), whisper-large-v3's encoder rows (8 x 1500 at d
+# 1280), and phase 6d's prefill rows (8 x 64 tokens): qwen3-moe's d 2048,
+# deepseek-v3's d 7168 and MLA's kv latent of 512 (its q latent is 1536).
 RMSNORM_ROWS = ((960, 2560), (8, 2560), (3072, 1536), (3072, 3072),
-                (8, 1536), (8, 3072), (32_768, 128), (12_000, 1280))
+                (8, 1536), (8, 3072), (32_768, 128), (12_000, 1280),
+                (512, 2048), (512, 7168), (512, 512))
 # ssd_scan cases (B, NC, H, P, N); the first is mamba2-780m's prefill at
 # max_batch 8 (S 384 in chunks of 256), the second a long prefill (1 x
 # 8192), then the JAX package's test dims (tests/test_kernels.py), a
@@ -270,9 +314,15 @@ FA_CASES = (
     (8, 128, 128, 20, 20, 64, 64, True, 0, True),      # whisper decoder
     (8, 64, 64, 48, 1, 128, 128, True, 0, True),       # granite-20b, MQA
     (8, 64, 64, 64, 8, 128, 128, True, 0, True),       # qwen3-32b, GQA 8:1
+    (8, 64, 64, 128, 128, 192, 128, True, 0, True),    # deepseek MLA prefill
+    (1, 1024, 1024, 128, 128, 192, 128, True, 0, True),  # MLA, 16 kv blocks
+    (2, 250, 333, 16, 16, 192, 128, False, 0, True),   # MLA, ragged tails
+    (1, 70, 326, 16, 16, 192, 128, True, 256, True),   # MLA, q_offset
+    (1, 50, 90, 16, 16, 192, 128, True, 40, False),    # MLA, float32
 )
 FA_LONG = 8                     # timed beside the serving shape
 FA_WHISPER = (9, 10)            # timed: the encoder and cross-attention
+FA_MLA = (14, 15)               # timed: deepseek's prefill, 1024 tokens
 # The streaming day: 24 ticks of a 48-hour horizon, per policy (name,
 # cold steps, warm steps a round, AL rounds): the JAX package's
 # controller defaults for CR1, `solve_day`'s cold // 4 for CR2.
@@ -290,6 +340,7 @@ SCAN_PP = 0.01       # per-tick loop vs day, realized carbon (JAX contract)
 COMMIT_ATOL = 5e-3   # per-tick loop vs day, committed NP (JAX contract)
 REPLAY_TOL = 1e-6    # graph replay vs the eager day, NP
 TRACE_TRIES = 3      # profiler traces of one replay (`device_launches`)
+TRACE_PAD_S = 0.25   # host time in a profiler session around its work
 # CR3 (phase 5d): the kernel path vs the plain path at the default budget,
 # rho relative; a sweep over rho (the JAX package's sweep test grid around
 # the paper's 0.02) at 150 steps, each lane vs its solve() at the JAX
@@ -461,20 +512,52 @@ def fa_live_pairs(Sq, Skv, causal, q_offset):
 # ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _padded_trace(torch, activities):
+    """`torch.profiler.profile(activities)` around the block, with
+    TRACE_PAD_S of host time inside the session before and after it.
+    Kineto keeps only the device records whose span lies inside the
+    session's window on the host's clock, and the card's timestamps,
+    carried over to that clock, can stand late on it in a long process:
+    traces taken there lost whole tails of records (the last dr_features
+    of a CR2 day replay, the last ~50 records of a train step, an rmsnorm
+    among them) in every retake. The pads keep the block's records
+    inside the window."""
+    from torch.profiler import profile
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
 def _traced_launches(torch, fn, names):
     """(launches of each kernel in `names`, device records) of one run of
-    `fn()` under `torch.profiler`, a CUDA graph's kernels included. The
-    trace records the device only: with the CPU's operators recorded too,
-    traces of the 32-layer train step lost ~50 device records, an rmsnorm
-    launch among them, in four of five tries over two runs, while traces
-    of the device alone, taken between them, held every launch."""
+    `fn()` under `torch.profiler`, a CUDA graph's kernels included, in a
+    padded window (`_padded_trace`). The trace records the device only:
+    with the CPU's operators recorded too, traces of the 32-layer train
+    step lost ~50 device records, an rmsnorm launch among them, in four
+    of five tries over two runs, while traces of the device alone, taken
+    between them, held every launch. Logs where the device records lie in
+    the trace against where the host ran `fn`, both from the trace's
+    start: a gap between the two that grows over a run is the clock
+    offset that the pads absorb."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+    with _padded_trace(torch, [ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if events:
+        first = min(e.time_range.start for e in events) * 1e-3
+        last = max(e.time_range.end for e in events) * 1e-3
+        log(f"[profiler] device records from {first:.3f} to {last:.3f} ms "
+            f"of the trace; the host ran the work from about "
+            f"{TRACE_PAD_S * 1e3:.0f} to {(TRACE_PAD_S + wall) * 1e3:.3f} "
+            f"ms")
     return ({n: sum(f"{n}_kernel" in e.name for e in events) for n in names},
             len(events))
 
@@ -505,6 +588,15 @@ def device_launches(torch, what, fn, want,
         short.append((got, n_records))
     raise AssertionError(f"{what}: the device ran {[g for g, _ in short]} in "
                          f"{TRACE_TRIES} traces, expected {want}")
+
+
+def sdpa_backend(torch, q, k, v, causal):
+    """The backend SDPA's dispatcher picks for these (B, heads, S, D)
+    inputs (`torch._fused_sdp_choice`; no profiler session, which could
+    change what a later trace records)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v,
+                                              is_causal=causal)).name
 
 
 def kernel_ms(torch, fn, reps=50, inner=20):
@@ -1565,10 +1657,9 @@ def device_busy(torch, fn):
     """(wall s, device-busy s) of `fn()` under `torch.profiler`: busy is
     the union of the traced kernel and copy intervals."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+    with _padded_trace(torch, [ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2086,14 +2177,16 @@ def phase_flash_attention(torch):
             torch, got, attention_ref(q, k, v, causal=causal,
                                       q_offset=q_offset),
             tol, tol, f"flash_attention {case}"))
-        if n in (0, FA_LONG) + FA_WHISPER:
+        if n in (0, FA_LONG) + FA_WHISPER + FA_MLA:
             timed = {"ms": kernel_ms(torch, lambda: flash_attention_cuda(
                 q, k, v, causal=causal))}
             # SDPA only where H = KV: the calls below pass no enable_gqa.
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
             timed["library_ms"] = kernel_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal))
+            timed["sdpa"] = sdpa_backend(torch, qt, kt, vt, causal)
             pairs = B * H * fa_live_pairs(Sq, Skv, causal, q_offset)
             nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * 2
             timed["bound_ms"], timed["bound_by"] = bound(
@@ -2114,11 +2207,13 @@ def phase_flash_attention(torch):
         f"peak)")
     for n, t in other.items():
         log(f"[check] flash_attention at {FA_CASES[n]}: kernel "
-            f"{t['ms'] * 1e3:.2f} us, SDPA {t['library_ms'] * 1e3:.2f} us, "
-            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+            f"{t['ms'] * 1e3:.2f} us, SDPA {t['library_ms'] * 1e3:.2f} us "
+            f"({t['sdpa']}), bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']})")
     log(f"[check] flash_attention: bf16 kernel blocks per SM at Dh 80: "
         f"{bf16_blocks_per_sm(80, 80)}, at Dh 64: {bf16_blocks_per_sm(64, 64)}"
-        f", at Dh 128: {bf16_blocks_per_sm(128, 128)} "
+        f", at Dh 128: {bf16_blocks_per_sm(128, 128)}, at Dh 192 / Dv 128: "
+        f"{bf16_blocks_per_sm(192, 128)} "
         f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     return rec
 
@@ -2164,22 +2259,28 @@ def expected_serve_launches(cfg, requests, prompt, new):
     """Launches of each serving kernel at both admission limits: per batch
     one forward and prompt + new - 1 decode steps, each with 2L + 1
     RMSNorms (ln1 and ln2, or ln1 and the SSM's gated norm, per layer,
-    and ln_f), and 2L more with qk-norm (q and k per layer); flash
-    attention (dense) or ssd_scan (ssm) once per layer of the forward."""
+    and ln_f), and 2L more with qk-norm (q and k per layer) or MLA (its q
+    and kv latents per layer); flash attention (dense and moe) or ssd_scan
+    (ssm) once per layer of the forward."""
     batches = sum(-(-requests // mb) for mb in SERVE_BATCHES)
     L = cfg.num_layers
     per_forward = L * batches
-    norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+    norms = 2 * L + 1 + (2 * L if cfg.qk_norm or cfg.mla else 0)
     return {"rmsnorm": norms * (1 + prompt + new - 1) * batches,
-            "flash_attention": per_forward if cfg.family == "dense" else 0,
+            "flash_attention": (per_forward if cfg.family in ("dense", "moe")
+                                else 0),
             "ssd_scan": per_forward if cfg.family == "ssm" else 0}
 
 
 def phase_serve(np, torch, arch, requests, prompt, new, max_len,
-                param_dtype):
+                param_dtype, cut=None, after=None):
     """One model at full width through `serve_requests`, the path a user
     calls; the kernels' launch counts are reset just before and read just
-    after. Returns the counts."""
+    after. `cut` replaces config fields (a depth cut, named in the log);
+    `after(cfg, params)` runs last, on the bf16 parameters. An MoE model's
+    prefill check reports its routing (`_moe_prefill_check`) and holds its
+    scatter dispatch against the einsum one on layer 0. Returns the
+    counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
@@ -2189,7 +2290,8 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len,
     from repro_torch.models import transformer as tf
 
     wall0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), param_dtype=param_dtype)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, param_dtype=param_dtype, **(cut or {}))
     t0 = time.perf_counter()
     masters = tf.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2197,12 +2299,22 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len,
     size = sum(t.numel() * t.element_size() for t in _leaves(masters))
     copy = ("" if param_dtype == cfg.dtype
             else f" + one {cfg.dtype} copy per batch")
+    mixer = (f"MLA (ranks {cfg.mla.q_lora_rank} / {cfg.mla.kv_lora_rank}, "
+             f"q/k {cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}, v "
+             f"{cfg.mla.v_head_dim})" if cfg.mla else
+             f"{cfg.num_kv_heads} kv heads of {cfg.dh}, qk-norm "
+             f"{cfg.qk_norm}")
+    e = cfg.moe
+    ffn = (f"; {e.num_experts} experts top-{e.top_k} of {e.d_expert_ff} + "
+           f"{e.num_shared} shared, capacity factor {e.capacity_factor}, "
+           f"{e.dispatch} dispatch" if e else "")
+    cuts = "".join(f"; cut: {k} {getattr(full, k)} -> {v}"
+                   for k, v in (cut or {}).items())
     log(f"[serve] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d "
-        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} kv "
-        f"heads of {cfg.dh}, qk-norm {cfg.qk_norm}, vocab "
+        f"{cfg.d_model}, {cfg.num_heads} heads, {mixer}{ffn}, vocab "
         f"{cfg.vocab_size}; {n_params} parameters, {param_dtype} "
         f"{size / 2**30:.2f} GiB{copy}, drawn in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s{cuts}")
     require(n_params == cfg.param_count(), "parameter count")
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (requests, prompt),
@@ -2226,7 +2338,8 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len,
     launches = {name: fn.launches for name, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     want = expected_serve_launches(cfg, requests, prompt, new)
-    qk = " + 2L qk-norm" if cfg.qk_norm else ""
+    qk = (" + 2L qk-norm" if cfg.qk_norm else
+          " + 2L MLA latent norms" if cfg.mla else "")
     log(f"[serve] {arch}: launches on the serving path: {launches} "
         f"(expected {want}: rmsnorm (2L+1{qk}) x (1 forward + {prompt} "
         f"replayed + {new - 1} decode steps), L flash_attention or ssd_scan per "
@@ -2253,19 +2366,24 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len,
     del masters
     toks = torch.as_tensor(prompts[:SERVE_BATCHES[0]], dtype=torch.long,
                            device="cuda")
-    kern = tf.forward(params, cfg, {"tokens": toks})
-    plain = tf.forward(params, cfg, {"tokens": toks}, use_kernel=False)
-    require(tuple(kern.shape) == (SERVE_BATCHES[0], prompt, cfg.vocab_size)
-            and bool(torch.isfinite(kern).all()),
-            f"{arch} prefill logits not finite or of the wrong shape")
-    rel = float((kern - plain).norm() / plain.norm())
-    top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-    log(f"[serve] {arch} prefill logits, kernel vs plain path: relative "
-        f"error {rel:.3e} (bound {LOGITS_REL_TOL}), top-1 agreement "
-        f"{top1:.4f} (bound {TOP1_MIN})")
-    require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
-            f"{arch} prefill logits: kernel path too far from the plain path")
-    del kern, plain
+    if cfg.moe is not None:
+        _moe_prefill_check(torch, cfg, params, toks)
+        _dispatch_check(torch, cfg, params, toks)
+    else:
+        kern = tf.forward(params, cfg, {"tokens": toks})
+        plain = tf.forward(params, cfg, {"tokens": toks}, use_kernel=False)
+        require(tuple(kern.shape) == (SERVE_BATCHES[0], prompt,
+                                      cfg.vocab_size)
+                and bool(torch.isfinite(kern).all()),
+                f"{arch} prefill logits not finite or of the wrong shape")
+        rel, top1 = _agreement(torch, kern, plain)
+        log(f"[serve] {arch} prefill logits, kernel vs plain path: relative "
+            f"error {rel:.3e} (bound {LOGITS_REL_TOL}), top-1 agreement "
+            f"{top1:.4f} (bound {TOP1_MIN})")
+        require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
+                f"{arch} prefill logits: kernel path too far from the plain "
+                f"path")
+        del kern, plain
 
     def wall_ms(fn, reps=5):
         fn()
@@ -2282,10 +2400,208 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len,
     step = toks[:, :1]
     pre = wall_ms(lambda: tf.forward(params, cfg, {"tokens": toks}))
     dec = wall_ms(lambda: tf.decode_step(params, cfg, cache, step, prompt))
+    idle = ""
+    if cfg.moe is not None:
+        wall, busy, top = _device_breakdown(
+            torch, lambda: tf.decode_step(params, cfg, cache, step, prompt),
+            top=3)
+        idle = (f"; a profiled decode step: wall {wall * 1e3:.3f} ms, device "
+                f"busy {busy * 1e3:.3f} ms, idle share "
+                f"{1 - busy / wall:.4f}, top kernels "
+                + ", ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in top))
     log(f"[serve] {arch}: prefill of {SERVE_BATCHES[0]} x {prompt} tokens "
         f"{pre:.3f} ms; decode step at batch {SERVE_BATCHES[0]}, {prompt} "
-        f"cached, {dec:.3f} ms (host clock, median of 5); phase wall "
-        f"{time.perf_counter() - wall0:.2f} s")
+        f"cached, {dec:.3f} ms (host clock, median of 5){idle}")
+    del cache
+    if after is not None:
+        after(cfg, params)
+    log(f"[serve] {arch}: phase wall {time.perf_counter() - wall0:.2f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6d: mixture of experts and multi-head latent attention
+# ---------------------------------------------------------------------------
+def _route(torch, records, replay=None):
+    """Wrap the port's `moe._router` so that each call appends its expert
+    ids (G, gs, k) to `records`; with `replay` (another run's records),
+    call i takes replay[i]'s ids, weighted by its own probabilities at
+    them, so that positions and drops follow those ids. Returns the undo.
+    The package has no such option: this is the check's own wrapper."""
+    from repro_torch.models import moe
+    orig, calls = moe._router, None if replay is None else iter(replay)
+
+    def routed(p, x, e):
+        if calls is None:
+            weights, ids = orig(p, x, e)
+        else:
+            ids = next(calls)
+            probs = torch.softmax(x.float() @ p["router"]["w"].float(), -1)
+            weights = probs.gather(-1, ids)
+            weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+        records.append(ids)
+        return weights, ids
+
+    moe._router = routed
+    return lambda: setattr(moe, "_router", orig)
+
+
+def _routed_forward(torch, cfg, params, toks, use_kernel, replay=None):
+    from repro_torch.models import transformer as tf
+    records = []
+    undo = _route(torch, records, replay)
+    try:
+        out = tf.forward(params, cfg, {"tokens": toks}, use_kernel=use_kernel)
+    finally:
+        undo()
+    require(len(records) == cfg.num_layers,
+            f"{cfg.name}: {len(records)} routings, {cfg.num_layers} layers")
+    return out, records
+
+
+def _moe_prefill_check(torch, cfg, params, toks):
+    """Prefill logits through the kernels against the plain versions, with
+    free routing, at LOGITS_REL_TOL and TOP1_MIN. Over many layers of
+    random weights a rounding difference can flip a token's k-th expert,
+    which moves that token's output far more than rounding does: if the
+    free check misses and some (token, layer) expert set differs, the
+    plain path runs again with the kernel path's expert ids replayed into
+    it (`_route`), and that run must hold at the same bounds. Logs the
+    share of (token, layer) expert sets the two paths agree on and the
+    share of slots the config's capacity factor drops."""
+    from repro_torch.models import moe
+    e = cfg.moe
+    kern, k_ids = _routed_forward(torch, cfg, params, toks, None)
+    plain, p_ids = _routed_forward(torch, cfg, params, toks, False)
+    require(tuple(kern.shape) == tuple(toks.shape) + (cfg.vocab_size,)
+            and bool(torch.isfinite(kern).all()),
+            f"{cfg.name} prefill logits not finite or of the wrong shape")
+    sets = sum(ids.numel() // e.top_k for ids in k_ids)
+    same = sum(int((a.sort(-1).values == b.sort(-1).values).all(-1).sum())
+               for a, b in zip(k_ids, p_ids))
+    slots = sum(ids.numel() for ids in k_ids)
+    dropped = sum(int((moe._positions(ids, e.num_experts)
+                       >= moe._capacity(ids.shape[1], e)).sum())
+                  for ids in k_ids)
+    rel, top1 = _agreement(torch, kern, plain)
+    log(f"[moe 6d] {cfg.name} prefill of {tuple(toks.shape)}, kernel vs "
+        f"plain path, free routing: relative L2 {rel:.3e} (bound "
+        f"{LOGITS_REL_TOL}), top-1 agreement {top1:.4f} (bound {TOP1_MIN}); "
+        f"expert sets that agree {same} of {sets} (token, layer) pairs "
+        f"({same / sets:.6f}, flip share {1 - same / sets:.6f}); capacity "
+        f"factor {e.capacity_factor} drops {dropped} of {slots} slots "
+        f"({dropped / slots:.6f}) on the kernel path")
+    free_ok = rel < LOGITS_REL_TOL and top1 >= TOP1_MIN
+    require(free_ok or same < sets, f"{cfg.name} prefill logits: kernel "
+            f"path too far from the plain path with every expert set "
+            f"agreeing")
+    del plain
+    # Reported always; required only where free routing missed.
+    pinned, _ = _routed_forward(torch, cfg, params, toks, False,
+                                replay=k_ids)
+    rel, top1 = _agreement(torch, kern, pinned)
+    log(f"[moe 6d] {cfg.name} prefill, the plain path on the kernel path's "
+        f"expert ids: relative L2 {rel:.3e} (bound {LOGITS_REL_TOL}), top-1 "
+        f"agreement {top1:.4f} (bound {TOP1_MIN}); "
+        f"{'reported' if free_ok else 'required: free routing missed'}")
+    require(free_ok or (rel < LOGITS_REL_TOL and top1 >= TOP1_MIN),
+            f"{cfg.name} prefill logits: kernel path too far from the plain "
+            f"path on the same routing")
+
+
+def _dispatch_check(torch, cfg, params, toks):
+    """Layer 0's MoE FFN at full width on one bf16 input of the prefill's
+    shape: the scatter dispatch against the einsum one (relative L2
+    within DISPATCH_REL_TOL; the slots the capacity drops reported), both
+    timed there and at a decode batch."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    p = tf._layer(params["blocks"]["l0"], 0)["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sc = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                          dispatch="scatter"))
+    ec = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                          dispatch="einsum"))
+    times = []
+    for shape in (tuple(toks.shape), (toks.shape[0], 1)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen,
+                        device="cuda").bfloat16()
+        ein, sca = moe.moe_apply(p, x, ec), moe.moe_apply(p, x, sc)
+        rel = _rel_l2(torch, sca, ein)
+        require(rel < DISPATCH_REL_TOL,
+                f"{cfg.name} layer 0 at {shape}: scatter vs einsum dispatch "
+                f"relative L2 {rel:.3e} (bound {DISPATCH_REL_TOL})")
+        xg, _, gs = moe._group(x, moe.GROUP_SIZE)
+        ids = moe._router(p, xg, cfg.moe)[1]
+        drops = int((moe._positions(ids, cfg.moe.num_experts)
+                     >= moe._capacity(gs, cfg.moe)).sum())
+        times.append(f"{shape}: relative L2 {rel:.3e}, {drops} slots "
+                     f"dropped; einsum "
+                     f"{plain_ms(torch, lambda: moe.moe_apply(p, x, ec)):.3f}"
+                     f" ms, scatter "
+                     f"{plain_ms(torch, lambda: moe.moe_apply(p, x, sc)):.3f}"
+                     f" ms")
+    log(f"[moe 6d] {cfg.name} layer 0's MoE FFN, scatter vs einsum dispatch "
+        f"(bound {DISPATCH_REL_TOL:.4g}; CUDA events): " + "; ".join(times))
+
+
+def _mla_decode_check(torch, cfg, params):
+    """Greedy decode over the latent cache (a 4-token prompt replayed, then
+    greedy tokens, DEEPSEEK_DECODE steps in all) against the
+    teacher-forced forward over the same tokens, at capacity factor
+    DECODE_CF: relative L2 < LOGITS_REL_TOL and top-1 >= TOP1_MIN, as
+    phase 6b holds whisper's decode."""
+    from repro_torch.models import transformer as tf
+    c8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DECODE_CF))
+    B, T = SERVE_BATCHES[0], DEEPSEEK_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = list(torch.randint(0, cfg.vocab_size, (B, 4), generator=gen,
+                              device="cuda").unbind(1))
+    cache = tf.init_cache(c8, B, T, device="cuda")
+    steps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(T):
+        out, cache = tf.decode_step(params, c8, cache, toks[t][:, None], t)
+        steps.append(out)
+        if t + 1 == len(toks):
+            toks.append(out[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / T
+    seq = torch.stack(toks[:T], dim=1)
+    fwd = tf.forward(params, c8, {"tokens": seq})
+    got = torch.cat(steps, dim=1)
+    require(bool(torch.isfinite(got).all()), "MLA decode logits not finite")
+    rel, top1 = _agreement(torch, got, fwd)
+    log(f"[moe 6d] {cfg.name} greedy decode over the latent cache (c_kv "
+        f"{tuple(cache['l0']['c_kv'].shape)}, k_rope "
+        f"{tuple(cache['l0']['k_rope'].shape)}), {T} steps at batch {B}, "
+        f"capacity factor {DECODE_CF}: {ms:.3f} ms a step (host clock); "
+        f"against the teacher-forced forward: relative L2 {rel:.3e} (bound "
+        f"{LOGITS_REL_TOL}), top-1 agreement {top1:.4f} (bound {TOP1_MIN})")
+    require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
+            f"{cfg.name} decode too far from the teacher-forced forward")
+
+
+def phase_moe_mla(np, torch):
+    """6d: qwen3-moe-30b-a3b at full width and depth (SERVE_PATHS
+    [MOE_SERVE]) and deepseek-v3-671b at full width and DEEPSEEK_LAYERS
+    layers without its MTP head, bf16 parameters, one resident at a time,
+    each through `phase_serve` (serving at both admission limits with its
+    launches by counter, the prefill with its routing report, the two
+    dispatches on layer 0, a profiled decode step); then deepseek's
+    decode over the latent cache against its forward. Returns the
+    launches."""
+    launches = {}
+    runs = ((SERVE_PATHS[MOE_SERVE], None, None),
+            (DEEPSEEK, {"num_layers": DEEPSEEK_LAYERS, "mtp_depth": 0},
+             lambda cfg, params: _mla_decode_check(torch, cfg, params)))
+    for path, cut, after in runs:
+        for name, n in phase_serve(np, torch, *path, cut=cut,
+                                   after=after).items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()        # one model resident at a time
     return launches
 
 
@@ -2832,10 +3148,9 @@ def _device_breakdown(torch, fn, top=10):
     """(wall s, device-busy s, [(kernel name, device ms, launches)] of
     the `top` kernels by device time) of `fn()` under `torch.profiler`."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+    with _padded_trace(torch, [ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3066,17 +3381,17 @@ def phase_train(np, torch):
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
-        # 8b: the plan, as main() builds it. Its paper fleet (160 / 10,000)
-        # is calibrated here, after every timed phase before it.
-        t0 = time.perf_counter()
-        cached_paper_fleet(hours=48, device="cuda")
-        log(f"[train 8b] the coordinator's paper fleet (160 / 10,000) "
-            f"calibrated in {time.perf_counter() - t0:.2f} s")
-        t0 = time.perf_counter()
-        throttle = dr_throttle(full.name, TRAIN_LAMBDA, device="cuda")
-        log(f"[train 8b] FleetCoordinator([stablelm-3b], caiso_2021(48), "
-            f"lam={TRAIN_LAMBDA}).plan() in {time.perf_counter() - t0:.2f} s;"
-            f" throttle {np.round(throttle, 3).tolist()}")
+        # 8b: the plan's paper fleet (160 / 10,000), as main() builds it,
+        # is calibrated in a thread beside train() and the restore below,
+        # after every phase before it, and awaited before the plan and the
+        # timed 32-layer step. Its EDD simulations are a host loop: they
+        # share the host with train()'s launches and the checkpoint's
+        # copies, whose walls are reported, not bounded.
+        t_fleet = time.perf_counter()
+        calibration = concurrent.futures.ThreadPoolExecutor(1)
+        fleet_ready = calibration.submit(cached_paper_fleet, hours=48,
+                                         device="cuda")
+        calibration.shutdown(wait=False)
 
         # 8b: train() at full width and depth: one run of 6 steps with
         # one (final) 33.5 GB checkpoint, within the run's 45 GiB of disk
@@ -3132,6 +3447,17 @@ def phase_train(np, torch):
             f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
         require(same and at == TRAIN_STEPS, "checkpoint restore not bitwise")
         del restored, state, mgr
+        t0 = time.perf_counter()
+        fleet_ready.result()
+        log(f"[train 8b] the coordinator's paper fleet (160 / 10,000) "
+            f"calibrated in {time.perf_counter() - t_fleet:.2f} s, beside "
+            f"train() and the restore ({time.perf_counter() - t0:.2f} s "
+            f"awaited after them)")
+        t0 = time.perf_counter()
+        throttle = dr_throttle(full.name, TRAIN_LAMBDA, device="cuda")
+        log(f"[train 8b] FleetCoordinator([stablelm-3b], caiso_2021(48), "
+            f"lam={TRAIN_LAMBDA}).plan() in {time.perf_counter() - t0:.2f} s;"
+            f" throttle {np.round(throttle, 3).tolist()}")
         shutil.rmtree(tmp / "train")
         masters, opt = report["params"], report["opt_state"]
         del report
@@ -3390,7 +3716,7 @@ def _run_phases(np, torch, smi, wall0):
     for phase in (phase_regions, phase_region_lanes):
         for name, n in phase(np, torch, fleets[0], p_regions).items():
             launches[name] += n
-    for path in SERVE_PATHS:
+    for path in SERVE_PATHS[:MOE_SERVE] + SERVE_PATHS[MOE_SERVE + 1:]:
         for name, n in phase_serve(np, torch, *path).items():
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()        # one model resident at a time
@@ -3404,6 +3730,14 @@ def _run_phases(np, torch, smi, wall0):
     for name, n in phase_train(np, torch).items():
         launches[name] += n
     for name, n in phase_train_whisper(np, torch).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    # 6d runs last, so that the phases before it run as they did before
+    # it was added: in one run with 6d between 6c and 7, all three
+    # profiler traces of 8b's 32-layer train step read one rmsnorm launch
+    # short (54 device records lost), which 6d alone before that step
+    # did not reproduce.
+    for name, n in phase_moe_mla(np, torch).items():
         launches[name] += n
     kernels = []
     for name, line in (("dr_features", 26), ("al_step", 41), ("rmsnorm", 20),

@@ -2,17 +2,19 @@
 """Rehearse chip_smoke's model phases on the CPU at reduced sizes.
 
     PYTHONPATH=src python3 scripts/rehearse_chip_phases.py [serve] [whisper]
-        [options] [train]
+        [options] [moe] [train]
 
-Runs `phase_serve` for qwen3-32b and granite-20b (phase 6's new paths),
-`phase_whisper` (6b), `phase_dense_options` (6c) and
+Runs `phase_serve` for qwen3-32b and granite-20b (phase 6's bf16 paths),
+`phase_whisper` (6b), `phase_dense_options` (6c), `phase_moe_mla` (6d:
+qwen3-moe and deepseek-v3 served, their routing report, the two
+dispatches, deepseek's decode against its forward) and
 `phase_train_whisper` (8c) of `chip_smoke.py` with every model reduced
 (2 layers, d_model 128, vocab 512, bf16 activations, remat on), on the
 CPU: the script's "cuda" device reads "cpu", the kernels' plain versions
 run and each call a kernel would have made is counted as its launch, and
-the card's memory and sync calls do nothing. It checks the phases' control
-flow, shapes and launch counts; no number it prints is a device metric.
-With no argument it runs all four.
+the card's memory and sync calls do nothing, and CUDA-event timings read
+0. It checks the phases' control flow, shapes and launch counts; no
+number it prints is a device metric. With no argument it runs all five.
 """
 from __future__ import annotations
 
@@ -40,8 +42,9 @@ def load_smoke():
     mod = types.ModuleType("chip_smoke_cpu")
     mod.__file__ = str(ROOT / "chip_smoke.py")
     exec(compile(src, "chip_smoke_cpu", "exec"), mod.__dict__)
-    mod._device_breakdown = lambda torch, fn: (fn(), (1.0, 0.5, [
+    mod._device_breakdown = lambda torch, fn, top=10: (fn(), (1.0, 0.5, [
         ("(not measured on the CPU)", 0.0, 0)]))[1]
+    mod.plain_ms = lambda torch, fn, reps=10: (fn(), 0.0)[1]
     return mod
 
 
@@ -66,20 +69,28 @@ def main(which) -> int:
 
     def small(arch):
         cfg = configs.reduced(full(arch), layers=2, d_model=128, vocab=512)
+        if cfg.moe is not None:
+            # Every token on all 4 experts: at this size a bf16 rounding
+            # flips a top-2 choice often enough to move deepseek's decode
+            # past the bound it is held to against its forward.
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, top_k=cfg.moe.num_experts))
         return dataclasses.replace(cfg, dtype="bfloat16", remat=True)
 
     configs.get_config = small
     cs = load_smoke()
     cs.WHISPER_PARAMS = small("whisper-large-v3").param_count()
     cs.WHISPER_TRAIN_SEQ = 24
-    which = which or ["serve", "whisper", "options", "train"]
+    which = which or ["serve", "whisper", "options", "moe", "train"]
     if "serve" in which:
-        for path in cs.SERVE_PATHS[2:]:
+        for path in cs.SERVE_PATHS[2:cs.MOE_SERVE]:
             print(cs.phase_serve(np, torch, *path))
     if "whisper" in which:
         print(cs.phase_whisper(np, torch))
     if "options" in which:
         print(cs.phase_dense_options(np, torch))
+    if "moe" in which:
+        print(cs.phase_moe_mla(np, torch))
     if "train" in which:
         print(cs.phase_train_whisper(np, torch))
     return 0

@@ -2,18 +2,20 @@
 
 `get_config(arch_id)` returns the full config; `reduced(cfg)` shrinks it
 as the JAX package's `repro.configs.reduced` does for the ported
-families. The reference's MoE, MLA and hybrid configs are not registered:
-their families wait for ROADMAP items 12d and 12e.
+families. The reference's hybrid config (jamba) is not registered: its
+family waits for ROADMAP item 12e.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import (ArchConfig, ShapeCell,  # noqa: F401
-                                      SSMConfig)
+from repro_torch.configs.base import (ArchConfig, MLAConfig,  # noqa: F401
+                                      MoEConfig, ShapeCell, SSMConfig)
 
 _MODULES = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "mamba2-780m": "mamba2_780m",
     "whisper-large-v3": "whisper_large_v3",
     "qwen1.5-110b": "qwen1_5_110b",
@@ -39,8 +41,11 @@ def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
     """Same-family tiny config, with the JAX package's reduction rules:
     2-4 heads, 1-2 kv heads (0 for SSM), d_ff = 2·d_model (0 where the
     model has no FFN), SSM d_state 16, head_dim 16 and chunk 8, M-RoPE
-    sections split over the reduced rotary half-width, the encoder as
-    deep as the decoder over 16 frames, float32 throughout, no remat."""
+    sections split over the reduced rotary half-width, MoE at 4 experts of
+    d_model, top-2, capacity factor 8 (no token dropped, so per-token
+    decode groups and whole-sequence forward groups agree), MLA at ranks
+    32 / 16 with heads of 16 + 8 (head_dim 16), the encoder as deep as
+    the decoder over 16 frames, float32 throughout, no remat."""
     heads = max(2, min(4, cfg.num_heads))
     updates = dict(
         num_layers=layers, d_model=d_model, num_heads=heads,
@@ -54,9 +59,18 @@ def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
         t = max(1, half // 4)
         hw = (half - t) // 2
         updates["mrope_sections"] = (t, hw, half - t - hw)
+    if cfg.moe is not None:
+        updates["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=2, d_expert_ff=d_model,
+            capacity_factor=8.0)
     if cfg.ssm is not None:
         updates["ssm"] = dataclasses.replace(cfg.ssm, d_state=16,
                                              head_dim=16, chunk=8)
+    if cfg.mla is not None:
+        updates["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                   qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                   v_head_dim=16)
+        updates["head_dim"] = 16
     if cfg.family == "encdec":
         updates["encoder_layers"] = layers
         updates["encoder_seq"] = 16

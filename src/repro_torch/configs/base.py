@@ -5,21 +5,45 @@ The port's own copy of the fields of the JAX package's `ArchConfig` and
 and numerics only, under the reference's names and defaults. Four
 families are ported: `dense` (GQA or MQA attention and a SwiGLU FFN in
 every layer, with the qk-norm, qkv-bias and int8 KV-cache options),
-`ssm` (a Mamba-2 SSD mixer and no FFN in every layer), `encdec` (the
-Whisper-style encoder-decoder of `models/encdec.py`) and `vlm` (the dense
-stack with M-RoPE over vision embeddings and text). `moe` and `hybrid`,
-and an MLA config, are refused by name. `mla`, `moe` and `mtp_depth` are
-kept so that the refusals can name what they refuse. `ShapeCell` is the
-reference's (seq_len, global_batch, kind) cell, which the data pipeline
-and `train()` read.
+`moe` (the dense stack with a mixture-of-experts FFN, `MoEConfig`, in
+every layer), `ssm` (a Mamba-2 SSD mixer and no FFN in
+every layer), `encdec` (the Whisper-style encoder-decoder of
+`models/encdec.py`) and `vlm` (the dense stack with M-RoPE over vision
+embeddings and text). Any decoder family may take DeepSeek's multi-head
+latent attention (`MLAConfig`) in place of GQA. `hybrid` is refused by
+name; `mtp_depth` is kept so that the training path can name what it
+refuses. `ShapeCell` is the reference's (seq_len, global_batch, kind)
+cell, which the data pipeline and `train()` read.
 """
 from __future__ import annotations
 
 import dataclasses
 
-FAMILIES = ("dense", "ssm", "encdec", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "encdec", "vlm")
 # Families of the reference that wait for a slice of their own.
-_UNPORTED = {"moe": "ROADMAP item 12d", "hybrid": "ROADMAP item 12e"}
+_UNPORTED = {"hybrid": "ROADMAP item 12e"}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert_ff: int            # per-expert hidden width
+    num_shared: int = 0         # shared (always-on) experts
+    layer_period: int = 1       # MoE every Nth layer (1 = every layer)
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+    dispatch: str = "einsum"    # "einsum" (GShard one-hot) | "scatter"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 multi-head latent attention."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +72,8 @@ class ArchConfig:
     qkv_bias: bool = False               # qwen1.5 / qwen2 family
     rope_theta: float = 1e6
     mrope_sections: tuple[int, int, int] | None = None   # qwen2-vl (t,h,w)
-    mla: object | None = None            # DeepSeek MLA (not ported)
-    moe: object | None = None            # mixture of experts (not ported)
+    mla: MLAConfig | None = None         # deepseek-v3
+    moe: MoEConfig | None = None         # mixture-of-experts FFN
     ssm: SSMConfig | None = None
     encoder_layers: int = 0              # encoder-decoder
     encoder_seq: int = 1500              # whisper frame positions
@@ -69,14 +93,12 @@ class ArchConfig:
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}; ported: "
                              f"{FAMILIES}")
-        if self.mla is not None:
+        if self.moe is not None and self.moe.layer_period != 1:
+            # The reference's decoder stack is homogeneous; only its hybrid
+            # family interleaves MoE and dense FFNs.
             raise NotImplementedError(
-                "multi-head latent attention is not ported (ROADMAP item "
-                "12d)")
-        if self.moe is not None:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported (ROADMAP item "
-                "12d)")
+                "an MoE layer_period other than 1 belongs to the hybrid "
+                "family (ROADMAP item 12e)")
         if self.mrope_sections is not None and \
                 2 * sum(self.mrope_sections) != self.dh:
             raise ValueError(f"mrope_sections {self.mrope_sections} must "
@@ -84,7 +106,7 @@ class ArchConfig:
         if self.family == "ssm":
             if self.ssm is None:
                 raise ValueError("the ssm family needs an SSMConfig")
-        elif self.num_heads % self.num_kv_heads:
+        elif self.mla is None and self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
 
     @property
@@ -94,9 +116,20 @@ class ArchConfig:
     def _attn_params(self, self_attn: bool = True) -> int:
         """One attention block: q, k, v and o, and for self-attention the
         qkv biases and the qk-norm scales where configured (the
-        encoder-decoder's cross-attention has neither)."""
+        encoder-decoder's cross-attention has neither); with MLA its
+        seven projections and its two norms."""
         d, H, KV, dh = (self.d_model, self.num_heads, self.num_kv_heads,
                         self.dh)
+        if self.mla is not None:
+            m = self.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            return (d * m.q_lora_rank + m.q_lora_rank        # wdq, q_norm
+                    + m.q_lora_rank * H * qk                 # wuq
+                    + d * m.kv_lora_rank + m.kv_lora_rank    # wdkv, kv_norm
+                    + d * m.qk_rope_head_dim                 # wkr
+                    + m.kv_lora_rank * H * (m.qk_nope_head_dim
+                                            + m.v_head_dim)  # wuk, wuv
+                    + H * m.v_head_dim * d)                  # wo
         n = 2 * d * H * dh + 2 * d * KV * dh
         if self_attn and self.qkv_bias:
             n += H * dh + 2 * KV * dh
@@ -128,6 +161,10 @@ class ArchConfig:
                      + (s.conv_kernel + 1) * conv_dim     # conv_w, conv_b
                      + 3 * H + d_in + d_in * d)           # A, D, dt; norm; out
         else:
+            if self.moe is not None:
+                e = self.moe
+                ffn = (d * e.num_experts + (e.num_experts + e.num_shared)
+                       * 3 * d * e.d_expert_ff)
             layer = self._attn_params() + ffn + 2 * d
         return tables * self.vocab_size * d + self.num_layers * layer + d
 

@@ -69,36 +69,39 @@ def engine_state_from_arrays(x, lam_eq, lam_in, mu,
 
 
 # The parameter trees of the ported models, decoder-only
-# (`repro.models.transformer`: dense, vlm and SSM) and encoder-decoder
-# (`repro.models.encdec`): the keys each level may hold (`unembed` only
-# where the embeddings are untied, `b` where the model has qkv biases,
-# `q_norm` / `k_norm` with qk-norm).
+# (`repro.models.transformer`: dense, moe, vlm and SSM, GQA or MLA) and
+# encoder-decoder (`repro.models.encdec`): the keys each level may hold
+# (`unembed` only where the embeddings are untied, `b` where the model has
+# qkv biases, `q_norm` / `k_norm` with qk-norm; under `moe` the stacked
+# experts are arrays and `shared` only where the model has shared
+# experts; MLA's `q_norm` is over the query latent).
 _PARAM_KEYS = {
     "": {"embed", "blocks", "ln_f", "unembed",
          "enc_blocks", "enc_ln", "dec_blocks", "dec_ln"},
     "embed": {"table"}, "unembed": {"table"}, "blocks": {"l0"},
-    "l0": {"ln1", "attn", "ln2", "ffn", "ssm"},
+    "l0": {"ln1", "attn", "ln2", "ffn", "moe", "ssm"},
     "enc_blocks": {"ln1", "attn", "ln2", "ffn"},
     "dec_blocks": {"ln1", "attn", "lnx", "xattn", "ln2", "ffn"},
-    "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm"},
+    "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm",
+             "wdq", "wuq", "wdkv", "kv_norm", "wkr", "wuk", "wuv"},
     "xattn": {"wq", "wk", "wv", "wo"},
     "wq": {"w", "b"}, "wk": {"w", "b"}, "wv": {"w", "b"}, "wo": {"w"},
     "ffn": {"w_gate", "w_up", "w_down"},
+    "moe": {"router", "w_gate", "w_up", "w_down", "shared"},
+    "shared": {"w_gate", "w_up", "w_down"},
+    **{w: {"w"} for w in ("router", "wdq", "wuq", "wdkv", "wkr", "wuk",
+                          "wuv")},
     "w_gate": {"w"}, "w_up": {"w"}, "w_down": {"w"},
     "ssm": {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
             "out_proj"},
     "in_proj": {"w"}, "out_proj": {"w"},
     **{norm: {"scale"} for norm in ("ln_f", "ln1", "ln2", "lnx", "enc_ln",
-                                    "dec_ln", "norm", "q_norm", "k_norm")},
+                                    "dec_ln", "norm", "q_norm", "k_norm",
+                                    "kv_norm")},
 }
 # Leaves of the reference's paths that the port does not have yet, and the
 # ROADMAP item that ports each.
-_UNPORTED_KEYS = {
-    **dict.fromkeys(("moe", "router"), "item 12d (MoE)"),
-    **dict.fromkeys(("wdq", "wuq", "wdkv", "wkr", "wuk", "wuv", "kv_norm"),
-                    "item 12d (MLA)"),
-    "mtp": "item 12g (MTP)",
-}
+_UNPORTED_KEYS = {"mtp": "item 12g (MTP)"}
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -112,7 +115,7 @@ def _to_tensor(a, device) -> torch.Tensor:
 def transformer_params_from_arrays(tree: dict, device=None) -> dict:
     """The port's parameters (same tree, same dtypes, on `device`, the
     card by default) from the reference's `init_params` tree of either
-    model module: `transformer` (dense, vlm, SSM) or `encdec`."""
+    model module: `transformer` (dense, moe, vlm, SSM) or `encdec`."""
     dev = resolve_device(device)
 
     def walk(node, name):

@@ -39,11 +39,15 @@
 //   copies (zero-filled past Skv or Sq; the copy loops walk their tiles
 //   without a division per copy). K and V are double-buffered: block j+1's
 //   copies are in flight while block j's products run, with one barrier a
-//   kv block. Head widths pad up to D16 * 16 columns with zeros written
-//   once into shared memory; the row stride D16 * 16 + 8 puts the 8 rows
-//   of an ldmatrix on distinct banks. Head widths of no whole 16-byte
-//   vector (Dh = 30) stage through a scalar loop into the same tiles.
-// - Occupancy: 128 registers a thread at D16 <= 5 and 67.5 KB of shared
+//   kv block. Head widths pad up to DQ * 16 columns (Q and K) and DV * 16
+//   (V and O) with zeros written once into shared memory; the row stride
+//   D * 16 + 8 puts the 8 rows of an ldmatrix on distinct banks. Up to Dh
+//   = Dv = 128 both pad to one width, DQ = DV; MLA's Dh 192 and Dv 128
+//   (DeepSeek-V3's qk_nope 128 + qk_rope 64, v 128) run at DQ = 12 and DV
+//   = 8, so the output takes 64 accumulator registers a thread, not 96.
+//   Head widths of no whole 16-byte vector (Dh = 30) stage through a
+//   scalar loop into the same tiles.
+// - Occupancy: 128 registers a thread at DQ = DV <= 5 and 67.5 KB of shared
 //   memory at Dh 80 give 2 blocks, 16 warps, an SM, so the serving shape's
 //   256 blocks run in one wave of 264 slots, and each (batch, head) reads
 //   its K and V once. Measured against the alternatives on the card
@@ -54,6 +58,9 @@
 //   sequences (whisper's 1500-frame encoder, 8k-token prefills), where this
 //   design is 1.6x SDPA; at the serving shape the time is set by bytes,
 //   latency and occupancy.
+// - At DQ = 12, DV = 8 a block takes 134 KB of shared memory (Q 50 KB, two
+//   K and V stages 84 KB), so one block of 8 warps runs an SM; deepseek's
+//   prefill (8 x 64 queries, 128 heads) is 1024 blocks, 7.8 waves of 132.
 //
 // float32, `fa_f32_kernel`: products on the CUDA cores in f32 (tensor
 // cores would round f32 to TF32, and no serving path attends in f32).
@@ -98,7 +105,8 @@ struct Args {
 // ---------------------------------------------------------------------------
 constexpr float kLog2e = 1.4426950408889634f;
 
-// D16: head width in 16-column steps (Dh and Dv both pad up to D16 * 16).
+// DQ, DV: the Q/K and the V/O head widths in 16-column steps (Dh pads up to
+// DQ * 16 columns, Dv to DV * 16).
 __host__ __device__ constexpr int tc_stride(int d16) { return d16 * 16 + 8; }
 __host__ __device__ constexpr int tc_tile(int d16) {
   return kBK * tc_stride(d16);
@@ -108,9 +116,13 @@ constexpr int kTcWarps = 8;  // 16 query rows each
 constexpr int kTcBQ = 16 * kTcWarps;  // query rows per block
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kQTiles = kTcBQ / kBK;  // Q's rows, in tiles of kBK rows
-// The K, V ring (K of stage s at tile 2 s, V at 2 s + 1), then Q.
-__host__ __device__ constexpr int tc_smem_bytes(int d16) {
-  return (2 * kStages + kQTiles) * tc_tile(d16) *
+// The K, V ring (stage s: K at s (tc_tile(DQ) + tc_tile(DV)), V after it),
+// then Q (kQTiles tiles of width DQ).
+__host__ __device__ constexpr int tc_stage(int dq, int dv) {
+  return tc_tile(dq) + tc_tile(dv);
+}
+__host__ __device__ constexpr int tc_smem_bytes(int dq, int dv) {
+  return (kStages * tc_stage(dq, dv) + kQTiles * tc_tile(dq)) *
          static_cast<int>(sizeof(bf16));
 }
 
@@ -215,14 +227,15 @@ __device__ __forceinline__ void stage(bf16* tile, int ts, const bf16* src,
   }
 }
 
-template <int D16, int MIN_BLOCKS>
+template <int DQ, int DV, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kTcThreads, MIN_BLOCKS)
 fa_bf16_kernel(Args a) {
-  constexpr int TS = tc_stride(D16), TE = tc_tile(D16);
-  constexpr int NT = 2 * D16;  // output tiles of 8 columns
+  constexpr int TS = tc_stride(DQ), TV = tc_stride(DV);  // row strides
+  constexpr int TE = tc_tile(DQ), SE = tc_stage(DQ, DV);
+  constexpr int NT = 2 * DV;  // output tiles of 8 columns
   extern __shared__ uint4 smem_tc[];
   bf16* const base = reinterpret_cast<bf16*>(smem_tc);
-  bf16* const Qs = base + 2 * kStages * TE;
+  bf16* const Qs = base + kStages * SE;
 
   // The blocks with the most kv blocks (causal) start first.
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;
@@ -240,14 +253,17 @@ fa_bf16_kernel(Args a) {
   const bf16* vg = static_cast<const bf16*>(a.v) +
                    size_t(b) * a.Skv * v_rs + size_t(kvh) * a.Dv;
 
-  // Zero columns [D, D16 * 16) of every tile, once; no copy writes them.
+  // Zero columns [D, width) of every tile, once; no copy writes them.
   for (int tile = 0; tile < 2 * kStages + kQTiles; ++tile) {
     const bool v_tile = tile < 2 * kStages && (tile & 1);
-    const int D = v_tile ? a.Dv : a.Dh, pad = D16 * 16 - D;
-    bf16* tp = base + tile * TE;
+    const int D = v_tile ? a.Dv : a.Dh, pad = (v_tile ? DV : DQ) * 16 - D;
+    const int ts = v_tile ? TV : TS;
+    bf16* tp = tile < 2 * kStages
+                   ? base + (tile >> 1) * SE + (v_tile ? TE : 0)
+                   : Qs + (tile - 2 * kStages) * TE;
     for (int idx = threadIdx.x; idx < kBK * pad; idx += kTcThreads) {
       const int r = idx / pad;
-      tp[r * TS + D + idx - r * pad] = __float2bfloat16(0.f);
+      tp[r * ts + D + idx - r * pad] = __float2bfloat16(0.f);
     }
   }
 
@@ -259,13 +275,13 @@ fa_bf16_kernel(Args a) {
   // Copies of kv block j: K, then V, as two groups (empty past the last).
   const Walk wk = make_walk(a.Dh, vec), wv = make_walk(a.Dv, vec);
   auto load_kv = [&](int j) {
-    bf16* const Kn = base + 2 * (j % kStages) * TE;
+    bf16* const Kn = base + (j % kStages) * SE;
     const int k0 = j * kBK;
     if (j < nblk)
       stage(Kn, TS, kg + k0 * k_rs, k_rs, kBK, a.Skv - k0, wk, vec);
     cp_async_commit();
     if (j < nblk)
-      stage(Kn + TE, TS, vg + k0 * v_rs, v_rs, kBK, a.Skv - k0, wv, vec);
+      stage(Kn + TE, TV, vg + k0 * v_rs, v_rs, kBK, a.Skv - k0, wv, vec);
     cp_async_commit();
   };
   stage(Qs, TS, qg, q_rs, kTcBQ, a.Sq - q0, wk, vec);
@@ -273,11 +289,11 @@ fa_bf16_kernel(Args a) {
   cp_async_wait<2 * kStages - 3>();                 // Q and K0
   __syncthreads();
 
-  unsigned qf[D16][4];
+  unsigned qf[DQ][4];
   {
     const int r = warp * 16 + (lane & 15), c = (lane >> 4) * 8;
 #pragma unroll
-    for (int kk = 0; kk < D16; ++kk)
+    for (int kk = 0; kk < DQ; ++kk)
       ldsm_x4(smem_addr(Qs + r * TS + c + kk * 16), qf[kk]);
   }
 
@@ -293,12 +309,12 @@ fa_bf16_kernel(Args a) {
   // V rows are keys read transposed (B of P·V).
   const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * TS +
                     ((lane >> 3) & 1) * 8;
-  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * TS +
+  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * TV +
                     (lane >> 4) * 8;
 
   for (int j = 0; j < nblk; ++j) {
     const int k0 = j * kBK;
-    bf16* const Kt = base + 2 * (j % kStages) * TE;
+    bf16* const Kt = base + (j % kStages) * SE;
     bf16* const Vt = Kt + TE;
     // Pending: K_j, V_j, then blocks j+1 .. j+kStages-2 (two groups each).
     cp_async_wait<2 * kStages - 4>();  // K_j and V_j
@@ -319,7 +335,7 @@ fa_bf16_kernel(Args a) {
 #pragma unroll
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D16; ++kk) {
+    for (int kk = 0; kk < DQ; ++kk) {
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         if (2 * np >= n_live) continue;
@@ -384,9 +400,9 @@ fa_bf16_kernel(Args a) {
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int np = 0; np < D16; ++np) {
+      for (int np = 0; np < DV; ++np) {
         unsigned bv[4];
-        ldsm_x4_trans(smem_addr(Vt + kk * 16 * TS + np * 16 + v_off), bv);
+        ldsm_x4_trans(smem_addr(Vt + kk * 16 * TV + np * 16 + v_off), bv);
         mma_bf16(o[2 * np], pa, bv[0], bv[1]);
         mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
       }
@@ -422,17 +438,19 @@ fa_bf16_kernel(Args a) {
   }
 }
 
-// Registers: Q fragments 4 D16, the output 8 D16, scores 32 a thread; up to
-// D16 = 5 they fit 128, so 16 warps share an SM (8 at D16 = 8).
-constexpr int tc_min_blocks(int d16) {
-  return (d16 <= 5 ? 16 : 8) / kTcWarps;
+// Registers: Q fragments 4 DQ, the output 8 DV, scores 32 a thread; up to
+// DQ = DV = 5 they fit 128, so 16 warps share an SM (8 at 8, and at DQ =
+// 12, DV = 8: 144 in the three arrays, under the 255 of one block an SM).
+constexpr int tc_min_blocks(int dq, int dv) {
+  return (dq <= 5 && dv <= 5 ? 16 : 8) / kTcWarps;
 }
 
-template <int D16>
+template <int DQ, int DV>
 int tc_set_attributes() {
-  const auto kern = fa_bf16_kernel<D16, tc_min_blocks(D16)>;
+  const auto kern = fa_bf16_kernel<DQ, DV, tc_min_blocks(DQ, DV)>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem_bytes(D16));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc_smem_bytes(DQ, DV));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -440,29 +458,32 @@ int tc_set_attributes() {
   return static_cast<int>(err);
 }
 
-template <int D16>
+template <int DQ, int DV>
 int tc_launch(const Args& a, cudaStream_t stream) {
-  static const int attr = tc_set_attributes<D16>();
+  static const int attr = tc_set_attributes<DQ, DV>();
   if (attr) return attr;
   const dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, a.H, a.B);
-  fa_bf16_kernel<D16, tc_min_blocks(D16)>
-      <<<grid, kTcThreads, tc_smem_bytes(D16), stream>>>(a);
+  fa_bf16_kernel<DQ, DV, tc_min_blocks(DQ, DV)>
+      <<<grid, kTcThreads, tc_smem_bytes(DQ, DV), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D16>
+template <int DQ, int DV>
 int tc_blocks_per_sm() {
-  if (const int attr = tc_set_attributes<D16>()) return -attr;
+  if (const int attr = tc_set_attributes<DQ, DV>()) return -attr;
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, fa_bf16_kernel<D16, tc_min_blocks(D16)>, kTcThreads,
-      tc_smem_bytes(D16));
+      &n, fa_bf16_kernel<DQ, DV, tc_min_blocks(DQ, DV)>, kTcThreads,
+      tc_smem_bytes(DQ, DV));
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// The instantiated widths: 32, 64, 80 and 128 columns.
+// The instantiated widths, Q/K and V/O alike: 32, 64, 80 and 128 columns;
+// and Q/K 192 with V/O 128 (MLA). Returns the case, 0 for none.
 int tc_width(int Dh, int Dv) {
-  const int d16 = ((Dh > Dv ? Dh : Dv) + 15) / 16;
+  const int dq = (Dh + 15) / 16, dv = (Dv + 15) / 16;
+  if (dq > 8) return dq <= 12 && dv <= 8 ? 12 : 0;
+  const int d16 = dq > dv ? dq : dv;
   return d16 <= 2 ? 2 : d16 <= 4 ? 4 : d16 <= 5 ? 5 : d16 <= 8 ? 8 : 0;
 }
 
@@ -682,17 +703,19 @@ int f32_launch_width(const Args& a, cudaStream_t stream) {
 
 int bf16_launch_width(const Args& a, cudaStream_t stream) {
   switch (tc_width(a.Dh, a.Dv)) {
-    case 2: return tc_launch<2>(a, stream);
-    case 4: return tc_launch<4>(a, stream);
-    case 5: return tc_launch<5>(a, stream);
-    case 8: return tc_launch<8>(a, stream);
+    case 2: return tc_launch<2, 2>(a, stream);
+    case 4: return tc_launch<4, 4>(a, stream);
+    case 5: return tc_launch<5, 5>(a, stream);
+    case 8: return tc_launch<8, 8>(a, stream);
+    case 12: return tc_launch<12, 8>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). Dh, Dv <= 128;
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). Dh <= 192 and
+// Dv <= 128 (Dh, Dv <= 128, or Dh in 129..192 with Dv <= 128);
 // the wrapper checks shapes, types and contiguity. vec: Dh and Dv are
 // whole 16-byte vectors and q, k, v are 16-byte aligned. lse: null, or a
 // (B, H, Sq) f32 buffer that takes each query row's log-sum-exp of its
@@ -718,10 +741,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // cudaError_t.
 extern "C" int flash_attention_bf16_blocks_per_sm(int Dh, int Dv) {
   switch (tc_width(Dh, Dv)) {
-    case 2: return tc_blocks_per_sm<2>();
-    case 4: return tc_blocks_per_sm<4>();
-    case 5: return tc_blocks_per_sm<5>();
-    case 8: return tc_blocks_per_sm<8>();
+    case 2: return tc_blocks_per_sm<2, 2>();
+    case 4: return tc_blocks_per_sm<4, 4>();
+    case 5: return tc_blocks_per_sm<5, 5>();
+    case 8: return tc_blocks_per_sm<8, 8>();
+    case 12: return tc_blocks_per_sm<12, 8>();
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,7 +20,9 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)  # index = the C dtype code
-MAX_HEAD_DIM = 128
+# Head widths the kernel takes: Dh (q, k) up to 192 and Dv (v, out) up to
+# 128, MLA's 128 + 64 and 128 (the TPU kernel takes up to 256).
+MAX_DH, MAX_DV = 192, 128
 
 
 @functools.cache
@@ -50,8 +52,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
                          with_lse: bool = False):
     """q (B, Sq, H, Dh), k (B, Skv, KV, Dh), v (B, Skv, KV, Dv): contiguous
-    CUDA tensors of one dtype (float32 or bfloat16), H % KV == 0 and
-    Dh, Dv <= 128 -> (B, Sq, H, Dv), on the current stream. `with_lse`
+    CUDA tensors of one dtype (float32 or bfloat16), H % KV == 0,
+    Dh <= 192 and Dv <= 128 -> (B, Sq, H, Dv), on the current stream. `with_lse`
     also returns each query row's f32 log-sum-exp of its scaled scores,
     (B, H, Sq), which the backward reads; the output is the same bits
     with or without it."""
@@ -66,9 +68,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if KV < 1 or H % KV:
         raise ValueError(f"H = {H} query heads need a multiple of KV = {KV}")
-    if not (0 < Dh <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM):
-        raise ValueError(f"head dims must be in 1..{MAX_HEAD_DIM}; got "
-                         f"Dh = {Dh}, Dv = {Dv}")
+    if not (0 < Dh <= MAX_DH and 0 < Dv <= MAX_DV):
+        raise ValueError(f"head dims must be Dh in 1..{MAX_DH} and Dv in "
+                         f"1..{MAX_DV}; got Dh = {Dh}, Dv = {Dv}")
     build.check_operand("q", q, q.dtype, (B, Sq, H, Dh), q.device)
     build.check_operand("k", k, q.dtype, (B, Skv, KV, Dh), q.device)
     build.check_operand("v", v, q.dtype, (B, Skv, KV, Dv), q.device)

@@ -1,5 +1,6 @@
-"""GQA/MQA attention with RoPE or M-RoPE, qk-norm and qkv bias: the GQA
-path of `repro/models/attention.py` (MLA is not ported, ROADMAP 12d).
+"""GQA/MQA attention with RoPE or M-RoPE, qk-norm and qkv bias, and
+DeepSeek's multi-head latent attention (MLA): the port of
+`repro/models/attention.py`.
 
 Full-sequence attention (`gqa_attend`, `gqa_prefill_cache`) goes through
 the hand-written flash-attention kernel on the card, where the JAX model
@@ -14,6 +15,16 @@ The decode cache is updated in place: the reference's
 token's k/v (or, with `cfg.kv_quant`, its int8 k/v and their scales)
 into the cache it was given (one (B, KV, Dh) row per step, not a copy of
 the whole cache) and returns that same dict.
+
+MLA (`mla_attend`, `mla_decode`): queries come up from a q_lora_rank
+latent, keys and values from a kv_lora_rank latent c_kv, and a rotary key
+of qk_rope_head_dim columns shared by every head. Its two latent norms
+go through the rmsnorm kernel. Full-sequence attention expands the
+latents to per-head keys (qk_nope + qk_rope columns: 192 at deepseek's
+widths) and values (v_head_dim: 128) and goes through the flash-attention
+kernel at those two widths. Decode keeps only {c_kv, k_rope} in its cache
+and absorbs W_uk into the query and W_uv into the output, in plain torch
+with f32 scores and weighted sum, as the reference.
 """
 from __future__ import annotations
 
@@ -148,4 +159,101 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
         k_cache, v_cache = cache["k"], cache["v"]
     out = decode_attention(q, k_cache, v_cache, length + 1)
     y = linear(p["wo"], out.reshape(B, 1, cfg.num_heads * cfg.dh))
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3 multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+def mla_init(gen, cfg: ArchConfig, dtype, device, lead: tuple = ()) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wdq": linear_init(gen, d, m.q_lora_rank, dtype, device, lead),
+        "q_norm": common.rmsnorm_init(m.q_lora_rank, dtype, device, lead),
+        "wuq": linear_init(gen, m.q_lora_rank, H * qk_head, dtype, device,
+                           lead),
+        "wdkv": linear_init(gen, d, m.kv_lora_rank, dtype, device, lead),
+        "kv_norm": common.rmsnorm_init(m.kv_lora_rank, dtype, device, lead),
+        "wkr": linear_init(gen, d, m.qk_rope_head_dim, dtype, device, lead),
+        "wuk": linear_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                           dtype, device, lead),
+        "wuv": linear_init(gen, m.kv_lora_rank, H * m.v_head_dim, dtype,
+                           device, lead),
+        "wo": linear_init(gen, H * m.v_head_dim, d, dtype, device, lead),
+    }
+
+
+def _mla_qkr(p: dict, x: torch.Tensor, cfg: ArchConfig,
+             positions: torch.Tensor, use_kernel: bool | None = None):
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr), c_kv (B, S, r),
+    k_rope (B, S, dr)): the query heads, the kv latent and the rotary key
+    shared by the heads."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q_lat = common.rmsnorm(p["q_norm"], linear(p["wdq"], x),
+                           use_kernel=use_kernel)
+    q = linear(p["wuq"], q_lat).reshape(B, S, H, qk_head)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
+                                     m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = common.rmsnorm(p["kv_norm"], linear(p["wdkv"], x),
+                          use_kernel=use_kernel)
+    k_rope = apply_rope(linear(p["wkr"], x), positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attend(p: dict, x: torch.Tensor, cfg: ArchConfig,
+               positions: torch.Tensor, causal: bool = True,
+               use_kernel: bool | None = None) -> torch.Tensor:
+    """Prefill and training: the latents expanded to per-head keys (Dh =
+    qk_nope + qk_rope) and values (Dv = v_head_dim), then flash attention
+    (the kernel on the card)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(p, x, cfg, positions,
+                                            use_kernel)
+    k_nope = linear(p["wuk"], c_kv).reshape(B, S, H, m.qk_nope_head_dim)
+    v = linear(p["wuv"], c_kv).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    out = fa_ops.flash_attention(q, k, v, causal=causal,
+                                 use_kernel=use_kernel)
+    return linear(p["wo"], out.reshape(B, S, H * m.v_head_dim))
+
+
+def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
+               length: int) -> tuple[torch.Tensor, dict]:
+    """Absorbed decode over the latent cache {c_kv (B, S_max, r), k_rope
+    (B, S_max, dr)}: scores q_nope·W_uk·c_kv + q_rope·k_rope, W_uk folded
+    into the query and W_uv into the output, so the cache stays
+    compressed. x: (B, 1, d); the new token's latent and rotary key are
+    written at index `length`, in place."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_qkr(p, x, cfg, pos)
+    cache["c_kv"][:, length] = c_new[:, 0]
+    cache["k_rope"][:, length] = kr_new[:, 0]
+    c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
+    wuk = p["wuk"]["w"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wuk.to(x.dtype))
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c_cache.float())
+         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                        kr_cache.float())) * scale
+    idx = torch.arange(c_cache.shape[1], device=x.device)
+    s = s.masked_fill(idx >= length + 1, NEG_INF)
+    pattn = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhs,bsr->bhr", pattn.float(),
+                       c_cache.float()).to(x.dtype)
+    wuv = p["wuv"]["w"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bhr,rhv->bhv", ctx, wuv.to(x.dtype))
+    y = linear(p["wo"], out.reshape(B, 1, H * m.v_head_dim))
     return y, cache

@@ -1,13 +1,14 @@
-"""Model assembly for the decoder LMs: the dense, VLM and SSM paths of
-`repro/models/transformer.py`.
+"""Model assembly for the decoder LMs: the dense, MoE, VLM and SSM paths
+of `repro/models/transformer.py`, with GQA or MLA attention.
 
 Parameters keep the reference's tree: every per-layer leaf is stacked on
 a leading layer axis under `blocks["l0"]` (the reference scans over it;
 the port loops over layers in Python and takes views). The decode cache
-is stacked the same way: k/v for attention layers, the SSM state and
-conv tail for Mamba-2 layers (int8 k/v and their scales with
-`cfg.kv_quant`). A model with tied embeddings has no `unembed` leaf and
-reads the logits off the input table. The VLM family is the dense stack
+is stacked the same way: k/v for attention layers (int8 k/v and their
+scales with `cfg.kv_quant`), the latent c_kv and the rotary key for MLA
+layers, the SSM state and conv tail for Mamba-2 layers. An MoE layer's
+FFN is `models/moe.py`'s. A model with tied embeddings has no `unembed`
+leaf and reads the logits off the input table. The VLM family is the dense stack
 with vision-patch embeddings ahead of the text and M-RoPE positions in
 every attention layer; its loss scores the text tail only. The forward
 takes each stacked leaf apart with one `unbind`, whose backward is one
@@ -39,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import common, ssm
+from repro_torch.models import common, moe, ssm
 from repro_torch.models.common import dtype_of
 
 # Leaves that keep their dtype in `compute_params`: the norm scales (the
@@ -47,15 +48,20 @@ from repro_torch.models.common import dtype_of
 # which the reference uses in f32 (`repro/models/ssm.py:160-162,196-197,
 # 205`).
 F32_LEAVES = frozenset({"scale", "A_log", "D", "dt_bias"})
+# Subtrees that keep their dtype: the MoE router, whose logits the
+# reference forms from the f32 weight (`repro/models/moe.py:51-52`).
+F32_NODES = frozenset({"router"})
 
 
 def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
-    """-> (mixer, ffn) for a layer index: the dense and vlm families have
-    GQA attention and a SwiGLU FFN in every layer, the ssm family a
-    Mamba-2 mixer and no FFN."""
+    """-> (mixer, ffn) for a layer index: mixer `mla` where the config
+    has an MLAConfig, else `attn` (GQA), and `ssm` for the ssm family;
+    ffn `moe` where it has a MoEConfig (every layer: `layer_period` 1),
+    `none` for the ssm family, else `dense` (SwiGLU)."""
     if cfg.family == "ssm":
         return "ssm", "none"
-    return "attn", "dense"
+    return ("mla" if cfg.mla is not None else "attn",
+            "moe" if cfg.moe is not None else "dense")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -110,10 +116,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     block = {"ln1": common.rmsnorm_init(d, pdtype, dev, (L,))}
     if mixer == "attn":
         block["attn"] = attn.gqa_init(gen, cfg, pdtype, dev, (L,))
+    elif mixer == "mla":
+        block["attn"] = attn.mla_init(gen, cfg, pdtype, dev, (L,))
     else:
         block["ssm"] = ssm.ssm_init(gen, cfg, pdtype, dev, (L,))
     if ffn != "none":
         block["ln2"] = common.rmsnorm_init(d, pdtype, dev, (L,))
+    if ffn == "moe":
+        block["moe"] = moe.moe_init(gen, cfg, pdtype, dev, (L,))
+    elif ffn == "dense":
         block["ffn"] = common.swiglu_init(gen, d, cfg.d_ff, pdtype, dev,
                                           (L,))
     params = {"embed": common.embedding_init(gen, cfg.vocab_size, d, pdtype,
@@ -128,14 +139,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
 def compute_params(params: dict, cfg: ArchConfig) -> dict:
     """The tree with every matrix (linear weights, embedding tables, the
-    SSM's conv) in cfg.dtype and the `F32_LEAVES` as they are. The
-    reference casts each weight to the activation dtype at every use;
-    casting once gives the same numbers (the casts commute with the
-    gathers and products) and keeps the f32 masters out of every step."""
+    SSM's conv, the stacked experts) in cfg.dtype, and the `F32_LEAVES`
+    and `F32_NODES` as they are. The reference casts each weight to the
+    activation dtype at every use; casting once gives the same numbers
+    (the casts commute with the gathers and products) and keeps the f32
+    masters out of every step."""
     adtype = dtype_of(cfg.dtype)
 
     def cast(tree):
-        return {k: cast(v) if isinstance(v, dict)
+        return {k: v if k in F32_NODES
+                else cast(v) if isinstance(v, dict)
                 else (v if k in F32_LEAVES else v.to(adtype))
                 for k, v in tree.items()}
 
@@ -153,13 +166,21 @@ def _apply_layer(p: dict, x, cfg: ArchConfig, layer: int, positions,
         h = attn.gqa_attend(p["attn"], h, cfg, positions,
                             mrope_positions=mrope_positions,
                             use_kernel=use_kernel)
+    elif mixer == "mla":
+        h = attn.mla_attend(p["attn"], h, cfg, positions,
+                            use_kernel=use_kernel)
     else:
         h = ssm.ssm_apply(p["ssm"], h, cfg, use_kernel=use_kernel)
     x = x + h
     if ffn == "none":
         return x
-    h = common.rmsnorm(p["ln2"], x, use_kernel=use_kernel)
-    return x + common.swiglu(p["ffn"], h)
+    return x + _ffn(p, common.rmsnorm(p["ln2"], x, use_kernel=use_kernel),
+                    cfg, ffn)
+
+
+def _ffn(p: dict, h, cfg: ArchConfig, ffn: str):
+    return (moe.moe_apply(p["moe"], h, cfg) if ffn == "moe"
+            else common.swiglu(p["ffn"], h))
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict,
@@ -183,8 +204,8 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
             use_kernel: bool | None = None) -> torch.Tensor:
-    """Next-token cross-entropy of the dense and vlm families, from the
-    f32 masters: they reach the products through `compute_params`' cast,
+    """Next-token cross-entropy of the dense, moe and vlm families, from
+    the f32 masters: they reach the products through `compute_params`' cast,
     and the gradients flow back through it. batch: {tokens, labels} (B,
     S), and for the vlm family its vision embeddings and M-RoPE
     positions; the vision positions carry no loss, the text tail is
@@ -211,13 +232,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Zeroed caches stacked over the L layers: attention layers
     (B, max_len, KV, Dh) k and v in cfg.dtype, or with `cfg.kv_quant`
     int8 k_q and v_q and their f32 scales k_s and v_s (B, max_len, KV, 1);
-    SSM layers the f32 state h (B, H, P, N) and the conv tail (B, K-1,
+    MLA layers the latent c_kv (B, max_len, kv_lora_rank) and the rotary
+    key k_rope (B, max_len, qk_rope_head_dim) in cfg.dtype; SSM layers the f32 state h (B, H, P, N) and the conv tail (B, K-1,
     conv_dim) in cfg.dtype."""
     dev = resolve_device(device)
     adtype = dtype_of(cfg.dtype)
-    if layer_kind(cfg, 0)[0] == "ssm":
+    mixer = layer_kind(cfg, 0)[0]
+    if mixer == "ssm":
         return {"l0": ssm.ssm_init_state(cfg, batch, adtype, dev,
                                          (cfg.num_layers,))}
+    if mixer == "mla":
+        m, lead = cfg.mla, (cfg.num_layers, batch, max_len)
+        return {"l0": {
+            "c_kv": torch.zeros(lead + (m.kv_lora_rank,), dtype=adtype,
+                                device=dev),
+            "k_rope": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=adtype,
+                                  device=dev)}}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.dh)
     if cfg.kv_quant:
         scales = shape[:-1] + (1,)
@@ -235,7 +265,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 ) -> tuple[torch.Tensor, dict]:
     """token: (B, 1) int; `length` = tokens already cached. Returns
     (f32 logits (B, 1, V), the cache with the token written in: its k/v,
-    or the SSM layers' new state)."""
+    its latent and rotary key, or the SSM layers' new state)."""
     adtype = dtype_of(cfg.dtype)
     x = common.embed(params["embed"], token, adtype)
     blocks, layers = params["blocks"]["l0"], cache["l0"]
@@ -253,13 +283,14 @@ def _decode_layer(p: dict, x, cfg: ArchConfig, layer: int, cache: dict,
     h = common.rmsnorm(p["ln1"], x)
     if mixer == "attn":
         h, _ = attn.gqa_decode(p["attn"], h, cfg, cache, length)
+    elif mixer == "mla":
+        h, _ = attn.mla_decode(p["attn"], h, cfg, cache, length)
     else:
         h, _ = ssm.ssm_decode(p["ssm"], h, cfg, cache)
     x = x + h
     if ffn == "none":
         return x
-    h = common.rmsnorm(p["ln2"], x)
-    return x + common.swiglu(p["ffn"], h)
+    return x + _ffn(p, common.rmsnorm(p["ln2"], x), cfg, ffn)
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -32,6 +32,9 @@ from repro_torch.obs.events import EventWriter, SpanEvent
 
 __all__ = ["span", "SpanScope", "profile", "compile_count"]
 
+# Host time a CUDA profiling session holds on each side of its block.
+PROFILE_PAD_S = 0.25
+
 
 @dataclasses.dataclass
 class SpanScope:
@@ -109,16 +112,30 @@ def profile(logdir, *, name: str = "trace.json"):
 
         with obs.profile("var/profile"):
             solve_day(problem, CR1(lam=1.45), mci_stack)
+
+    With CUDA traced, the session waits for the device and holds
+    `PROFILE_PAD_S` of host time on each side of the block: the profiler
+    keeps only the device records that lie inside its window on the
+    host's clock, and late in a long process the card's timestamps can
+    stand late on it, which lost a block's tail of records, or all of a
+    short block's.
     """
     import torch
     from torch.profiler import ProfilerActivity
 
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
     os.makedirs(os.fspath(logdir), exist_ok=True)
     with torch.profiler.profile(activities=acts) as prof:
+        if cuda:
+            time.sleep(PROFILE_PAD_S)
         yield prof
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
     prof.export_chrome_trace(os.path.join(os.fspath(logdir), name))
 
 

@@ -25,7 +25,9 @@ buffer-free kernel calls, and one train step's loss of stablelm-3b at
 full width (2 layers) through the kernels within 1e-3 of the plain path;
 whisper-large-v3 at full width and 2 + 2 layers, and a reduced qwen3
 with qk-norm, through the kernels within chip_smoke's serving bounds of
-the plain versions, and the int8 KV cache's decode steps finite.
+the plain versions, and the int8 KV cache's decode steps finite; a
+reduced qwen3-moe and deepseek-v3 (MLA at its own widths, Dh 192 and Dv
+128) within those bounds, and their decode steps against the forward.
 """
 import importlib.util
 import pathlib
@@ -410,13 +412,15 @@ def test_rmsnorm_kernel_unaligned_rows_and_bad_operands(dev):
         rmsnorm_cuda(x, scale[:-1])
 
 
-@pytest.mark.parametrize("case", range(14))
+@pytest.mark.parametrize("case", range(19))
 def test_flash_attention_kernel_matches_plain(dev, case):
     """chip_smoke.py's cases: causal and not, GQA and MQA, tails, Dv != Dh,
     q_offset, float32, a head width of no whole 16-byte vector, a
     1024-token prefill, whisper's encoder, cross-attention and decoder,
-    granite-20b's MQA and qwen3-32b's GQA at Dh 128."""
-    assert len(_load_chip_smoke().FA_CASES) == 14
+    granite-20b's MQA and qwen3-32b's GQA at Dh 128, and deepseek-v3's
+    MLA at Dh 192, Dv 128 (its prefill, 1024 tokens, ragged tails,
+    q_offset, float32)."""
+    assert len(_load_chip_smoke().FA_CASES) == 19
     c = _load_chip_smoke().FA_CASES[case]
     causal, q_offset, bf16 = c[7], c[8], c[9]
     q, k, v = _load_chip_smoke().fa_inputs(torch, c, seed=case, dev=dev)
@@ -440,10 +444,17 @@ def test_flash_attention_kernel_matches_plain(dev, case):
     (1, 100, 300, 4, 2, 80, 80, True, 200, True),    # q_offset, tails
     (2, 17, 150, 4, 4, 64, 64, True, 133, True),     # one decode-like block
     (1, 300, 300, 2, 2, 80, 80, True, 0, False),     # float32, 5 kv blocks
+    (1, 700, 700, 4, 4, 192, 128, True, 0, True),    # Dh 192: 11 kv blocks
+    (1, 130, 333, 4, 2, 192, 128, False, 0, True),   # Dh 192, GQA, tails
+    (1, 100, 300, 2, 2, 176, 64, True, 200, True),   # Dh 176, Dv 64: pads
+    (2, 17, 150, 4, 4, 136, 72, True, 133, True),    # Dh 136, Dv 72: pads
+    (1, 70, 90, 2, 1, 150, 100, False, 0, True),     # Dh 150: scalar loads
+    (1, 200, 200, 2, 2, 192, 128, False, 0, False),  # float32, Dh 192
 ])
 def test_flash_attention_kernel_many_blocks_widths_tails(dev, case):
     """The bf16 tensor-core kernel's double buffer (many kv blocks), its
-    head widths 30, 64, 80 and 128, ragged Sq and Skv, and q_offset."""
+    head widths 30, 64, 80 and 128, the wide Q/K width (Dh 136 to 192
+    with Dv up to 128, padded), ragged Sq and Skv, and q_offset."""
     causal, q_offset, bf16 = case[7], case[8], case[9]
     q, k, v = _load_chip_smoke().fa_inputs(torch, case, seed=sum(case[:7]),
                                            dev=dev)
@@ -457,9 +468,13 @@ def test_flash_attention_kernel_rejects_bad_shapes(dev):
     q = torch.zeros((1, 8, 4, 32), device=dev)
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_cuda(q, q[:, :, :3], q[:, :, :3].contiguous())
-    big = torch.zeros((1, 8, 1, 160), device=dev)
+    big = torch.zeros((1, 8, 1, 200), device=dev)       # Dh 200 > 192
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention_cuda(big, big, big)
+        flash_attention_cuda(big, big, big[..., :128].contiguous())
+    qk = torch.zeros((1, 8, 1, 192), device=dev)
+    wide_v = torch.zeros((1, 8, 1, 160), device=dev)    # Dv 160 > 128
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(qk, qk, wide_v)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_cuda(q, q.bfloat16(), q.bfloat16())
 
@@ -560,6 +575,53 @@ def test_qk_norm_and_int8_cache_paths_on_the_card(dev):
                                        toks[:, t:t + 1], t)
         assert bool(torch.isfinite(logits).all())
     assert int(cache["l0"]["k_q"].abs().max()) == 127
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b"])
+def test_moe_and_mla_kernel_paths_match_plain_path(dev, arch):
+    """A reduced bf16 qwen3-moe and deepseek-v3 (MLA at its own widths:
+    ranks 1536 / 512, Dh 192 and Dv 128) through the kernels against the
+    plain versions within chip_smoke's serving bounds (relative L2 and
+    top-1), the launches of a forward (4L + 1 norms, L flash attentions)
+    and of a greedy decode, and the decode steps against the forward.
+    Every token takes all 4 experts (top-4), so that no routing decision
+    can flip between the paths; chip_smoke's phase 6d reports flips at
+    full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(reduced(get_config(arch), d_model=256,
+                                      vocab=512),
+                              dtype="bfloat16", mtp_depth=0)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           top_k=4))
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=get_config(arch).mla)
+    params = tf.compute_params(tf.init_params(cfg, seed=0, device=dev), cfg)
+    toks = torch.randint(0, 512, (2, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    smoke = _load_chip_smoke()
+
+    def agree(got, want):
+        rel, top1 = smoke._agreement(torch, got, want)
+        assert rel < smoke.LOGITS_REL_TOL and top1 >= smoke.TOP1_MIN
+
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    kern = tf.forward(params, cfg, {"tokens": toks})
+    assert (rmsnorm_cuda.launches - r0, flash_attention_cuda.launches - f0) \
+        == (4 * 2 + 1, 2)
+    agree(kern, tf.forward(params, cfg, {"tokens": toks}, use_kernel=False))
+    cache = tf.init_cache(cfg, 2, 40, device=dev)
+    steps = [tf.decode_step(params, cfg, cache, toks[:, t:t + 1], t)[0]
+             for t in range(40)]
+    agree(torch.cat(steps, dim=1), kern)
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    out = serve.greedy_decode(params, cfg, toks.cpu().numpy()[:, :9], 4, 13)
+    assert out.shape == (2, 4)
+    assert (rmsnorm_cuda.launches - r0, flash_attention_cuda.launches - f0) \
+        == ((4 * 2 + 1) * (1 + 9 + 3), 2)
 
 
 # ---------------------------------------------------------------------------

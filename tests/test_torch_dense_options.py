@@ -36,7 +36,8 @@ from repro.models import attention as j_attn
 from repro.models import common as j_common
 from repro.models import transformer as j_tf
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import FAMILIES, ArchConfig, ShapeCell
+from repro_torch.configs.base import (FAMILIES, ArchConfig, MLAConfig,
+                                      MoEConfig, ShapeCell)
 from repro_torch.convert import transformer_params_from_arrays
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -151,17 +152,19 @@ def test_full_width_parameter_count_from_shapes(arch):
 
 
 def test_unported_families_and_mla_are_refused_by_name():
+    """ROADMAP item 12d lifted the refusals of the moe family and of an
+    MLA config: both now construct, and so does qwen3-moe-30b-a3b. The
+    hybrid family (12e) is still refused by name."""
     base = dict(name="x", num_layers=2, d_model=64, num_heads=4,
                 num_kv_heads=2, d_ff=128, vocab_size=256)
-    with pytest.raises(NotImplementedError, match="12d"):
-        ArchConfig(family="moe", **base)
+    assert ArchConfig(family="moe", moe=MoEConfig(4, 2, 64), **base).moe \
+        == MoEConfig(num_experts=4, top_k=2, d_expert_ff=64)
     with pytest.raises(NotImplementedError, match="12e"):
         ArchConfig(family="hybrid", **base)
-    with pytest.raises(NotImplementedError, match="12d"):
-        ArchConfig(family="dense", mla=object(), **base)
-    with pytest.raises(KeyError):
-        get_config("qwen3-moe-30b-a3b")
-    assert FAMILIES == ("dense", "ssm", "encdec", "vlm")
+    assert ArchConfig(family="dense", mla=MLAConfig(), **base).mla == \
+        MLAConfig()
+    assert get_config("qwen3-moe-30b-a3b").family == "moe"
+    assert FAMILIES == ("dense", "moe", "ssm", "encdec", "vlm")
 
 
 # ---------------------------------------------------------------------------

@@ -125,17 +125,21 @@ def test_full_width_parameter_count_from_shapes():
 
 
 def test_convert_refuses_parameters_of_unported_paths():
-    """An MoE router or an MLA down-projection (deepseek, qwen3-moe) has no
-    place in the port yet: the conversion names the ROADMAP item that
-    ports it instead of dropping it, and refuses a leaf no model has."""
+    """The MTP head (deepseek) has no place in the port yet: the
+    conversion names the ROADMAP item that ports it instead of dropping
+    it, and refuses a leaf no model has. ROADMAP item 12d ported the MoE
+    router and MLA's down-projection: those leaves convert."""
     w = np.zeros((1, 8, 8), np.float32)
     tree = {"blocks": {"l0": {"moe": {"router": {"w": w}}}}}
-    with pytest.raises(NotImplementedError, match="'moe'.*12d"):
-        transformer_params_from_arrays(tree, device="cpu")
+    got = transformer_params_from_arrays(tree, device="cpu")
+    assert tuple(got["blocks"]["l0"]["moe"]["router"]["w"].shape) == \
+        (1, 8, 8)
     tree = {"blocks": {"l0": {"attn": {"wdq": {"w": w},
                                        "q_norm": {"scale": w[:, 0]}}}}}
-    with pytest.raises(NotImplementedError, match="'wdq'.*12d"):
-        transformer_params_from_arrays(tree, device="cpu")
+    got = transformer_params_from_arrays(tree, device="cpu")
+    assert tuple(got["blocks"]["l0"]["attn"]["wdq"]["w"].shape) == (1, 8, 8)
+    assert tuple(got["blocks"]["l0"]["attn"]["q_norm"]["scale"].shape) == \
+        (1, 8)
     with pytest.raises(NotImplementedError, match="'mtp'.*12g"):
         transformer_params_from_arrays({"mtp": {}}, device="cpu")
     tree = {"blocks": {"l0": {"attn": {"wo": {"w": w, "b": w[:, 0]}}}}}

@@ -16,8 +16,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
    shapes (W = 10,000, T = 48) and at W = 130 (a tail block); rmsnorm at
    stablelm-3b's and mamba2-780m's prefill and decode rows (d 2560; d
    1536 and the gated norm's 3072), qwen3-32b's qk-norm rows (32,768,
-   128), whisper's encoder rows (12,000, 1280) and the MoE / MLA prefill
-   rows (512 tokens at d 2048 and 7168, and MLA's kv latent of 512);
+   128), whisper's encoder rows (12,000, 1280), the MoE / MLA prefill
+   rows (512 tokens at d 2048 and 7168, and MLA's kv latent of 512) and
+   jamba's rows at d 4096 and its gated norm's at d_in 8192 (its
+   serving, check and long prefills, 512, 2048 and 8192 tokens, and its
+   decode, 8);
    flash attention at its
    prefill, at a 1024-token prefill (16 kv blocks), at whisper's
    non-causal encoder (8 x 1500, 20 heads of 64, a masked tail of 28
@@ -26,10 +29,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
    and qwen3-32b's GQA (8:1) at Dh 128, deepseek-v3's MLA prefill (8 x
    64, 128 heads, Dh 192 and Dv 128) and a 1024-token MLA prefill (both
    timed beside SDPA, with the backend SDPA picks), MLA widths with
-   ragged tails, a q_offset and in float32, and at cases for causal/non-
-   causal, GQA, tails, Dv != Dh and q_offset;
-   ssd_scan at mamba2-780m's prefill, a long prefill, the JAX package's
-   test dims and two tail cases;
+   ragged tails, a q_offset and in float32, jamba's three prefills (32
+   heads over 8, Dh 128: 8 x 64, 2 x 1024 and 1 x 8192 tokens; timed
+   beside SDPA with `enable_gqa`), and
+   at cases for causal/non-causal, GQA, tails, Dv != Dh and q_offset;
+   ssd_scan at mamba2-780m's prefill, a long prefill, jamba's 128 heads
+   of (64, 64) at its three prefills (1, 4 and 32 chunks; the five
+   timed), the JAX package's test dims and two tail cases;
 5. the fleet path: solve CR1(1.45) and CR2(0.78) at their default steps
    through the kernels (launch counts reset just before and read just
    after), then with `use_kernel=False`, and compare;
@@ -137,7 +143,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    through the kernels against the plain versions; granite-20b (8 of
    52) over 16 decode steps with the int8 KV cache beside the bf16 one
    (finite logits; their agreement reported);
-6d. (run last, after phase 8) mixture of experts and multi-head latent
+6d. (after phase 8) mixture of experts and multi-head latent
    attention, bf16 parameters, one model resident at a time, each served
    as phase 6 serves (8 requests of 64-token prompts, 16 new tokens,
    max_batch 8 then 4, launches by counter): qwen3-moe-30b-a3b at full
@@ -153,6 +159,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
    against the einsum one; a profiled decode step's idle share;
    deepseek's greedy decode over the latent cache against the
    teacher-forced forward at capacity factor 8;
+6e. (after 6d) the hybrid family: jamba-v0.1-52b at full width and 16 of
+   its 32 layers (two 8-layer groups: 14 Mamba-2 and 2 attention layers,
+   8 MoE FFNs of 16 experts top-2), bf16 parameters, the published
+   capacity factor 1.25 and the einsum dispatch, served as phase 6d
+   serves (launches 2L + L_ssm + 1 rmsnorm a pass, one flash attention
+   per attention layer and one ssd_scan per Mamba-2 layer of a prefill);
+   the prefill logits through the kernels against the plain versions on
+   2 x 1024 tokens (4 chunks, so that ssd_scan carries state across
+   chunks), free and, if that misses with an expert set flipped,
+   replayed; the dispatches on its first MoE layer; a profiled decode
+   step's idle share; its greedy decode over the mixed cache (k/v in the
+   attention layers, the SSM state and conv tail in the others) against
+   the teacher-forced forward at capacity factor 8, reported; one timed
+   1 x 8192 prefill beside its analytic FLOPs and bytes
+   (`launch/analytics.analytic_record`), its share of the card's bf16
+   peak and of its roofline bound; then the same decode check, required,
+   in float32 at full width on 8 layers of 16 experts and on 16 layers
+   (two groups) of 8 experts;
 7. guardrails and observability, on phase 3's W = 10,000 fleet through
    the kernels unless stated (every count reset just before and read just
    after a counted run): CR1(1.45) at 600 steps and CR2(0.78) at 6 x 400
@@ -261,6 +285,30 @@ LOGITS_REL_TOL, TOP1_MIN = 0.05, 0.9
 # 256 tokens and a decode group of 8 drop different slots by design.
 DEEPSEEK = ("deepseek-v3-671b", 8, 64, 16, 96, "bfloat16")
 DEEPSEEK_LAYERS, DEEPSEEK_DECODE, DECODE_CF = 2, 32, 8.0
+# Phase 6e: jamba-v0.1-52b (hybrid: Mamba-2, GQA attention and MoE) at full
+# width and JAMBA_LAYERS of its 32 layers (two of its four 8-layer block
+# groups: 14 Mamba-2 and 2 attention layers, 8 MoE FFNs), bf16 parameters
+# (26.0e9, 48.44 GiB; 24 layers would take 72.2 GiB), served as the
+# SERVE_PATHS models are at the published capacity factor 1.25 and the
+# einsum dispatch. Its prefill logits check runs on JAMBA_PREFILL tokens
+# (4 chunks of 256, so that ssd_scan carries state across chunks), and
+# one prefill of JAMBA_LONG tokens is timed beside its analytic FLOPs
+# (`launch/analytics.py`), the long context the config is marked for.
+# Its greedy decode over the mixed cache (k/v in the attention layers,
+# SSM state and conv tail in the others), DEEPSEEK_DECODE steps at
+# DECODE_CF, is reported for the bf16 model and held against the
+# teacher-forced forward in float32 on each JAMBA_F32 model at full
+# width: (layers, experts) 8 of 16 (one block group, every layer kind;
+# 49.44 GiB) and 16 of 8 (two groups, so that the group loop runs past
+# its first group; 54.87 GiB, where 16 layers of 16 experts would take
+# 96.87 GiB). In bf16 the random Mamba-2 layers amplify the two paths'
+# rounding past the bound (relative L2 0.2465 at 16 layers, 0.1343 at 8;
+# float32 at 8: 1.784e-05, on an H100), and the reference's own bf16
+# decode misses it as the port's does on the CPU
+# (scripts/port_bf16_decode_gap.py; PERF.md).
+JAMBA = ("jamba-v0.1-52b", 8, 64, 16, 96, "bfloat16")
+JAMBA_LAYERS, JAMBA_F32 = 16, ((8, 16), (16, 8))
+JAMBA_PREFILL, JAMBA_LONG = (2, 1024), (1, 8192)
 # The MoE layer alone, scatter against einsum dispatch on one bf16 input
 # at full width: relative L2 within 2^-6 (the einsum combine sums its k
 # weighted slots in f32; scatter rounds each weighted slot to bf16 first).
@@ -282,21 +330,32 @@ OPTION_LAYERS, OPTION_BATCH, OPTION_SEQ, KV_QUANT_STEPS = 8, 4, 64, 16
 # rows at both widths; qwen3-32b's qk-norm over rows of Dh 128 (8 x 64
 # tokens x 64 heads), whisper-large-v3's encoder rows (8 x 1500 at d
 # 1280), and phase 6d's prefill rows (8 x 64 tokens): qwen3-moe's d 2048,
-# deepseek-v3's d 7168 and MLA's kv latent of 512 (its q latent is 1536).
+# deepseek-v3's d 7168 and MLA's kv latent of 512 (its q latent is 1536);
+# phase 6e's jamba at d 4096 and its SSM gated norm over d_in 8192: the
+# serving prefill (8 x 64), the 2 x 1024 prefill, the 1 x 8192 prefill
+# and the decode rows (8).
 RMSNORM_ROWS = ((960, 2560), (8, 2560), (3072, 1536), (3072, 3072),
                 (8, 1536), (8, 3072), (32_768, 128), (12_000, 1280),
-                (512, 2048), (512, 7168), (512, 512))
+                (512, 2048), (512, 7168), (512, 512), (512, 4096),
+                (512, 8192), (2048, 4096), (2048, 8192), (8192, 4096),
+                (8192, 8192), (8, 4096), (8, 8192))
 # ssd_scan cases (B, NC, H, P, N); the first is mamba2-780m's prefill at
 # max_batch 8 (S 384 in chunks of 256), the second a long prefill (1 x
-# 8192), then the JAX package's test dims (tests/test_kernels.py), a
-# P·N of no whole float4 (the scalar kernel) and a partial last block.
+# 8192), then jamba's heads (128 of P 64, state 64) at its three
+# prefills: serving (8 x 64 tokens, one chunk), the logits check (2 x
+# 1024, four chunks) and the long prefill (1 x 8192, 32 chunks); then the
+# JAX package's test dims (tests/test_kernels.py), a P·N of no whole
+# float4 (the scalar kernel) and a partial last block. The first
+# SSD_TIMED are timed.
 SSD_CASES = (
     (8, 2, 48, 64, 128),
     (1, 32, 48, 64, 128),
+    (8, 1, 128, 64, 64), (2, 4, 128, 64, 64), (1, 32, 128, 64, 64),
     (2, 6, 4, 16, 32), (1, 12, 2, 8, 16), (3, 3, 8, 32, 64),
     (2, 5, 3, 5, 7),
     (1, 7, 3, 24, 43),
 )
+SSD_TIMED = 5
 # Flash-attention cases (B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset,
 # bfloat16); the first is stablelm-3b's prefill at max_batch 8.
 FA_CASES = (
@@ -319,10 +378,14 @@ FA_CASES = (
     (2, 250, 333, 16, 16, 192, 128, False, 0, True),   # MLA, ragged tails
     (1, 70, 326, 16, 16, 192, 128, True, 256, True),   # MLA, q_offset
     (1, 50, 90, 16, 16, 192, 128, True, 40, False),    # MLA, float32
+    (8, 64, 64, 32, 8, 128, 128, True, 0, True),       # jamba, GQA 4:1
+    (2, 1024, 1024, 32, 8, 128, 128, True, 0, True),   # jamba's check
+    (1, 8192, 8192, 32, 8, 128, 128, True, 0, True),   # jamba, long
 )
 FA_LONG = 8                     # timed beside the serving shape
 FA_WHISPER = (9, 10)            # timed: the encoder and cross-attention
 FA_MLA = (14, 15)               # timed: deepseek's prefill, 1024 tokens
+FA_JAMBA = (19, 20, 21)         # timed: jamba's three prefills
 # The streaming day: 24 ticks of a 48-hour horizon, per policy (name,
 # cold steps, warm steps a round, AL rounds): the JAX package's
 # controller defaults for CR1, `solve_day`'s cold // 4 for CR2.
@@ -590,13 +653,13 @@ def device_launches(torch, what, fn, want,
                          f"{TRACE_TRIES} traces, expected {want}")
 
 
-def sdpa_backend(torch, q, k, v, causal):
+def sdpa_backend(torch, q, k, v, causal, enable_gqa=False):
     """The backend SDPA's dispatcher picks for these (B, heads, S, D)
     inputs (`torch._fused_sdp_choice`; no profiler session, which could
     change what a later trace records)."""
     from torch.nn.attention import SDPBackend
-    return SDPBackend(torch._fused_sdp_choice(q, k, v,
-                                              is_causal=causal)).name
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, is_causal=causal, enable_gqa=enable_gqa)).name
 
 
 def kernel_ms(torch, fn, reps=50, inner=20):
@@ -2177,16 +2240,16 @@ def phase_flash_attention(torch):
             torch, got, attention_ref(q, k, v, causal=causal,
                                       q_offset=q_offset),
             tol, tol, f"flash_attention {case}"))
-        if n in (0, FA_LONG) + FA_WHISPER + FA_MLA:
+        if n in (0, FA_LONG) + FA_WHISPER + FA_MLA + FA_JAMBA:
             timed = {"ms": kernel_ms(torch, lambda: flash_attention_cuda(
                 q, k, v, causal=causal))}
-            # SDPA only where H = KV: the calls below pass no enable_gqa.
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            gqa = H != KV
 
             timed["library_ms"] = kernel_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal))
-            timed["sdpa"] = sdpa_backend(torch, qt, kt, vt, causal)
+                    qt, kt, vt, is_causal=causal, enable_gqa=gqa))
+            timed["sdpa"] = sdpa_backend(torch, qt, kt, vt, causal, gqa)
             pairs = B * H * fa_live_pairs(Sq, Skv, causal, q_offset)
             nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * 2
             timed["bound_ms"], timed["bound_by"] = bound(
@@ -2234,7 +2297,7 @@ def phase_ssd_scan(torch):
         # and the sum as the plain version does, so they agree exactly.
         errs += [check_close(torch, g, w, 1e-5, 1e-5, f"ssd_scan {dims} {o}")
                  for g, w, o in zip(got, want, ("h_prev", "h_last"))]
-        if n > 1:
+        if n >= SSD_TIMED:
             continue
         B, NC, H, P, N = dims
         # Read states and decays once, write h_prev and h_last once; one
@@ -2257,30 +2320,36 @@ def phase_ssd_scan(torch):
 
 def expected_serve_launches(cfg, requests, prompt, new):
     """Launches of each serving kernel at both admission limits: per batch
-    one forward and prompt + new - 1 decode steps, each with 2L + 1
-    RMSNorms (ln1 and ln2, or ln1 and the SSM's gated norm, per layer,
-    and ln_f), and 2L more with qk-norm (q and k per layer) or MLA (its q
-    and kv latents per layer); flash attention (dense and moe) or ssd_scan
-    (ssm) once per layer of the forward."""
+    one forward and prompt + new - 1 decode steps, each with one RMSNorm
+    per layer (ln1), one more for a layer with an FFN (ln2) or a Mamba-2
+    mixer (its gated norm), two more for an attention layer with qk-norm
+    (q and k) or MLA (its q and kv latents), and ln_f; flash attention
+    once per attention layer (GQA or MLA) of the forward and ssd_scan once
+    per Mamba-2 layer (`ArchConfig.layer_kind`): 2L + 1 for the dense, moe
+    and ssm families, 4L + 1 with qk-norm or MLA, 2L + L_ssm + 1 for the
+    hybrid."""
     batches = sum(-(-requests // mb) for mb in SERVE_BATCHES)
-    L = cfg.num_layers
-    per_forward = L * batches
-    norms = 2 * L + 1 + (2 * L if cfg.qk_norm or cfg.mla else 0)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    attn = sum(m in ("attn", "mla") for m, _ in kinds)
+    ssm = sum(m == "ssm" for m, _ in kinds)
+    norms = 1 + sum(1 + (m == "ssm") + (f != "none")
+                    + (2 if m in ("attn", "mla") and (cfg.qk_norm or cfg.mla)
+                       else 0) for m, f in kinds)
     return {"rmsnorm": norms * (1 + prompt + new - 1) * batches,
-            "flash_attention": (per_forward if cfg.family in ("dense", "moe")
-                                else 0),
-            "ssd_scan": per_forward if cfg.family == "ssm" else 0}
+            "flash_attention": attn * batches,
+            "ssd_scan": ssm * batches}
 
 
 def phase_serve(np, torch, arch, requests, prompt, new, max_len,
-                param_dtype, cut=None, after=None):
+                param_dtype, cut=None, after=None, check=None):
     """One model at full width through `serve_requests`, the path a user
     calls; the kernels' launch counts are reset just before and read just
     after. `cut` replaces config fields (a depth cut, named in the log);
-    `after(cfg, params)` runs last, on the bf16 parameters. An MoE model's
-    prefill check reports its routing (`_moe_prefill_check`) and holds its
-    scatter dispatch against the einsum one on layer 0. Returns the
-    counts."""
+    `after(cfg, params)` runs last, on the bf16 parameters. The prefill
+    logits check runs on the first max_batch prompts, or on seeded tokens
+    of the shape `check` (B, S). An MoE model's prefill check reports its
+    routing (`_moe_prefill_check`) and holds its scatter dispatch against
+    the einsum one on its first MoE layer. Returns the counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
@@ -2340,11 +2409,13 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len,
     want = expected_serve_launches(cfg, requests, prompt, new)
     qk = (" + 2L qk-norm" if cfg.qk_norm else
           " + 2L MLA latent norms" if cfg.mla else "")
+    if cfg.family == "hybrid":
+        qk = " + L_ssm gated norms"
     log(f"[serve] {arch}: launches on the serving path: {launches} "
         f"(expected {want}: rmsnorm (2L+1{qk}) x (1 forward + {prompt} "
-        f"replayed + {new - 1} decode steps), L flash_attention or ssd_scan per "
-        f"prefill, {sum(-(-requests // mb) for mb in SERVE_BATCHES)} "
-        f"batches)")
+        f"replayed + {new - 1} decode steps), flash_attention per attention "
+        f"layer and ssd_scan per Mamba-2 layer of each prefill, "
+        f"{sum(-(-requests // mb) for mb in SERVE_BATCHES)} batches)")
     require(launches == want, f"{arch} serving launches {launches} != {want}")
     for mb, (stats, reqs) in runs.items():
         for r in reqs:
@@ -2366,14 +2437,16 @@ def phase_serve(np, torch, arch, requests, prompt, new, max_len,
     del masters
     toks = torch.as_tensor(prompts[:SERVE_BATCHES[0]], dtype=torch.long,
                            device="cuda")
+    ctoks = toks if check is None else torch.randint(
+        0, cfg.vocab_size, check, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(4))
     if cfg.moe is not None:
-        _moe_prefill_check(torch, cfg, params, toks)
+        _moe_prefill_check(torch, cfg, params, ctoks)
         _dispatch_check(torch, cfg, params, toks)
     else:
-        kern = tf.forward(params, cfg, {"tokens": toks})
-        plain = tf.forward(params, cfg, {"tokens": toks}, use_kernel=False)
-        require(tuple(kern.shape) == (SERVE_BATCHES[0], prompt,
-                                      cfg.vocab_size)
+        kern = tf.forward(params, cfg, {"tokens": ctoks})
+        plain = tf.forward(params, cfg, {"tokens": ctoks}, use_kernel=False)
+        require(tuple(kern.shape) == tuple(ctoks.shape) + (cfg.vocab_size,)
                 and bool(torch.isfinite(kern).all()),
                 f"{arch} prefill logits not finite or of the wrong shape")
         rel, top1 = _agreement(torch, kern, plain)
@@ -2446,6 +2519,15 @@ def _route(torch, records, replay=None):
     return lambda: setattr(moe, "_router", orig)
 
 
+def _moe_layers(cfg):
+    return [i for i in range(cfg.num_layers)
+            if cfg.layer_kind(i)[1] == "moe"]
+
+
+def _tag(cfg):
+    return "[hybrid 6e]" if cfg.family == "hybrid" else "[moe 6d]"
+
+
 def _routed_forward(torch, cfg, params, toks, use_kernel, replay=None):
     from repro_torch.models import transformer as tf
     records = []
@@ -2454,8 +2536,9 @@ def _routed_forward(torch, cfg, params, toks, use_kernel, replay=None):
         out = tf.forward(params, cfg, {"tokens": toks}, use_kernel=use_kernel)
     finally:
         undo()
-    require(len(records) == cfg.num_layers,
-            f"{cfg.name}: {len(records)} routings, {cfg.num_layers} layers")
+    n_moe = len(_moe_layers(cfg))
+    require(len(records) == n_moe,
+            f"{cfg.name}: {len(records)} routings, {n_moe} MoE layers")
     return out, records
 
 
@@ -2484,7 +2567,7 @@ def _moe_prefill_check(torch, cfg, params, toks):
                        >= moe._capacity(ids.shape[1], e)).sum())
                   for ids in k_ids)
     rel, top1 = _agreement(torch, kern, plain)
-    log(f"[moe 6d] {cfg.name} prefill of {tuple(toks.shape)}, kernel vs "
+    log(f"{_tag(cfg)} {cfg.name} prefill of {tuple(toks.shape)}, kernel vs "
         f"plain path, free routing: relative L2 {rel:.3e} (bound "
         f"{LOGITS_REL_TOL}), top-1 agreement {top1:.4f} (bound {TOP1_MIN}); "
         f"expert sets that agree {same} of {sets} (token, layer) pairs "
@@ -2500,7 +2583,7 @@ def _moe_prefill_check(torch, cfg, params, toks):
     pinned, _ = _routed_forward(torch, cfg, params, toks, False,
                                 replay=k_ids)
     rel, top1 = _agreement(torch, kern, pinned)
-    log(f"[moe 6d] {cfg.name} prefill, the plain path on the kernel path's "
+    log(f"{_tag(cfg)} {cfg.name} prefill, the plain path on the kernel path's "
         f"expert ids: relative L2 {rel:.3e} (bound {LOGITS_REL_TOL}), top-1 "
         f"agreement {top1:.4f} (bound {TOP1_MIN}); "
         f"{'reported' if free_ok else 'required: free routing missed'}")
@@ -2510,13 +2593,15 @@ def _moe_prefill_check(torch, cfg, params, toks):
 
 
 def _dispatch_check(torch, cfg, params, toks):
-    """Layer 0's MoE FFN at full width on one bf16 input of the prefill's
-    shape: the scatter dispatch against the einsum one (relative L2
-    within DISPATCH_REL_TOL; the slots the capacity drops reported), both
-    timed there and at a decode batch."""
+    """The first MoE layer's FFN at full width on one bf16 input of the
+    prefill's shape: the scatter dispatch against the einsum one
+    (relative L2 within DISPATCH_REL_TOL; the slots the capacity drops
+    reported), both timed there and at a decode batch."""
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
-    p = tf._layer(params["blocks"]["l0"], 0)["moe"]
+    first = _moe_layers(cfg)[0]
+    G = cfg.block_group_size()
+    p = tf._layer(params["blocks"][f"l{first % G}"], first // G)["moe"]
     gen = torch.Generator(device="cuda").manual_seed(5)
     sc = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                           dispatch="scatter"))
@@ -2529,8 +2614,8 @@ def _dispatch_check(torch, cfg, params, toks):
         ein, sca = moe.moe_apply(p, x, ec), moe.moe_apply(p, x, sc)
         rel = _rel_l2(torch, sca, ein)
         require(rel < DISPATCH_REL_TOL,
-                f"{cfg.name} layer 0 at {shape}: scatter vs einsum dispatch "
-                f"relative L2 {rel:.3e} (bound {DISPATCH_REL_TOL})")
+                f"{cfg.name} layer {first} at {shape}: scatter vs einsum "
+                f"dispatch relative L2 {rel:.3e} (bound {DISPATCH_REL_TOL})")
         xg, _, gs = moe._group(x, moe.GROUP_SIZE)
         ids = moe._router(p, xg, cfg.moe)[1]
         drops = int((moe._positions(ids, cfg.moe.num_experts)
@@ -2541,16 +2626,22 @@ def _dispatch_check(torch, cfg, params, toks):
                      f" ms, scatter "
                      f"{plain_ms(torch, lambda: moe.moe_apply(p, x, sc)):.3f}"
                      f" ms")
-    log(f"[moe 6d] {cfg.name} layer 0's MoE FFN, scatter vs einsum dispatch "
-        f"(bound {DISPATCH_REL_TOL:.4g}; CUDA events): " + "; ".join(times))
+    log(f"{_tag(cfg)} {cfg.name} layer {first}'s MoE FFN, scatter vs einsum "
+        f"dispatch (bound {DISPATCH_REL_TOL:.4g}; CUDA events): "
+        + "; ".join(times))
 
 
-def _mla_decode_check(torch, cfg, params):
-    """Greedy decode over the latent cache (a 4-token prompt replayed, then
-    greedy tokens, DEEPSEEK_DECODE steps in all) against the
+def _decode_check(torch, cfg, params, required=True):
+    """Greedy decode over the model's cache (a 4-token prompt replayed,
+    then greedy tokens, DEEPSEEK_DECODE steps in all) against the
     teacher-forced forward over the same tokens, at capacity factor
     DECODE_CF: relative L2 < LOGITS_REL_TOL and top-1 >= TOP1_MIN, as
-    phase 6b holds whisper's decode."""
+    phase 6b holds whisper's decode, where `required`; reported where
+    not. The forward is also run on the decode steps' expert ids
+    (`_route`: step t's ids of batch row b are the forward's token
+    (b, t)) and reported, which tells a routing flip from rounding.
+    deepseek's cache is MLA's latent one, jamba's mixed: k/v in its
+    attention layers, the SSM state and conv tail in the others."""
     from repro_torch.models import transformer as tf
     c8 = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=DECODE_CF))
@@ -2559,28 +2650,49 @@ def _mla_decode_check(torch, cfg, params):
     toks = list(torch.randint(0, cfg.vocab_size, (B, 4), generator=gen,
                               device="cuda").unbind(1))
     cache = tf.init_cache(c8, B, T, device="cuda")
-    steps = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(T):
-        out, cache = tf.decode_step(params, c8, cache, toks[t][:, None], t)
-        steps.append(out)
-        if t + 1 == len(toks):
-            toks.append(out[:, -1].argmax(-1))
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / T
+    steps, ids = [], []
+    undo = _route(torch, ids)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            out, cache = tf.decode_step(params, c8, cache, toks[t][:, None],
+                                        t)
+            steps.append(out)
+            if t + 1 == len(toks):
+                toks.append(out[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T
+    finally:
+        undo()
     seq = torch.stack(toks[:T], dim=1)
     fwd = tf.forward(params, c8, {"tokens": seq})
     got = torch.cat(steps, dim=1)
-    require(bool(torch.isfinite(got).all()), "MLA decode logits not finite")
+    require(bool(torch.isfinite(got).all()),
+            f"{cfg.name} decode logits not finite")
     rel, top1 = _agreement(torch, got, fwd)
-    log(f"[moe 6d] {cfg.name} greedy decode over the latent cache (c_kv "
-        f"{tuple(cache['l0']['c_kv'].shape)}, k_rope "
-        f"{tuple(cache['l0']['k_rope'].shape)}), {T} steps at batch {B}, "
+    # Step t's (1, B, k) ids of MoE layer m, as the forward's one group of
+    # B·T tokens in (b, t) order.
+    M = len(_moe_layers(cfg))
+    replay = [torch.stack([ids[t * M + m][0] for t in range(T)], dim=1)
+              .reshape(1, B * T, -1) for m in range(M)]
+    pinned, _ = _routed_forward(torch, c8, params, seq, None, replay=replay)
+    rel_p, top1_p = _agreement(torch, got, pinned)
+    kinds = {}
+    for pos, leaves in cache.items():
+        kinds.setdefault(tuple(leaves), (pos, leaves))
+    shapes = "; ".join(f"{pos}: " + ", ".join(
+        f"{k} {tuple(v.shape)}" for k, v in leaves.items())
+        for pos, leaves in kinds.values())
+    log(f"{_tag(cfg)} {cfg.name} ({cfg.num_layers} layers, "
+        f"{cfg.moe.num_experts} experts, {cfg.dtype}) "
+        f"greedy decode over its cache ({shapes}), {T} steps at batch {B}, "
         f"capacity factor {DECODE_CF}: {ms:.3f} ms a step (host clock); "
         f"against the teacher-forced forward: relative L2 {rel:.3e} (bound "
-        f"{LOGITS_REL_TOL}), top-1 agreement {top1:.4f} (bound {TOP1_MIN})")
-    require(rel < LOGITS_REL_TOL and top1 >= TOP1_MIN,
+        f"{LOGITS_REL_TOL}), top-1 agreement {top1:.4f} (bound {TOP1_MIN}); "
+        f"against the forward on the decode's expert ids: {rel_p:.3e}, "
+        f"{top1_p:.4f}; {'required' if required else 'reported'}")
+    require(not required or (rel < LOGITS_REL_TOL and top1 >= TOP1_MIN),
             f"{cfg.name} decode too far from the teacher-forced forward")
 
 
@@ -2596,12 +2708,90 @@ def phase_moe_mla(np, torch):
     launches = {}
     runs = ((SERVE_PATHS[MOE_SERVE], None, None),
             (DEEPSEEK, {"num_layers": DEEPSEEK_LAYERS, "mtp_depth": 0},
-             lambda cfg, params: _mla_decode_check(torch, cfg, params)))
+             lambda cfg, params: _decode_check(torch, cfg, params)))
     for path, cut, after in runs:
         for name, n in phase_serve(np, torch, *path, cut=cut,
                                    after=after).items():
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()        # one model resident at a time
+    return launches
+
+
+def _long_prefill(torch, cfg, params, shape):
+    """One timed prefill of `shape` (B, S) tokens through the kernels:
+    its wall to a sync (the second of two calls), peak memory, finite
+    logits of the right shape, and beside them the cell's analytic FLOPs
+    and HBM bytes (`launch/analytics.analytic_record`): its share of the
+    card's bf16 peak and of its roofline bound, the larger of the FLOPs
+    at that peak and the bytes at the HBM rate."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import analytics
+    from repro_torch.models import transformer as tf
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, shape, device="cuda",
+                         generator=gen)
+    cell = ShapeCell(f"prefill_{shape[1]}", shape[1], shape[0], "prefill")
+    rec = analytics.analytic_record(cfg, cell, chips=1)
+    flops, nbytes = rec["flops"], rec["hbm_bytes_per_device"]
+    b_ms, b_by = bound(nbytes, flops, H100_BF16_OPS_PER_S)
+    tf.forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = tf.forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    require(tuple(out.shape) == tuple(shape) + (cfg.vocab_size,)
+            and bool(torch.isfinite(out).all()),
+            f"{cfg.name} {shape} prefill logits not finite or of the wrong "
+            f"shape")
+    share = flops / (ms * 1e-3) / H100_BF16_OPS_PER_S
+    log(f"{_tag(cfg)} {cfg.name} prefill of {shape} tokens: {ms:.3f} ms "
+        f"(host clock to a sync, second call), peak memory "
+        f"{peak / 2**30:.2f} GiB; analytic forward {flops:.6e} FLOP and "
+        f"{nbytes:.6e} HBM bytes (launch/analytics.py; "
+        f"{rec['active_param_count']} of {rec['param_count']} parameters "
+        f"active a token), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{share:.4f} of the bf16 peak ({H100_BF16_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s); roofline bound {b_ms:.3f} ms ({b_by}), "
+        f"{b_ms / ms:.4f} of it")
+    del out
+
+
+def phase_hybrid(np, torch):
+    """6e: jamba-v0.1-52b at full width and JAMBA_LAYERS layers, bf16
+    parameters, through `phase_serve` (serving at both admission limits
+    with its launches by counter, a profiled decode step; the prefill
+    logits through the kernels against the plain versions on
+    JAMBA_PREFILL tokens with its routing report; the two dispatches on
+    its first MoE layer); its greedy decode over the mixed cache against
+    the forward, reported; one timed JAMBA_LONG prefill. Then, with that
+    model freed, the decode check the run requires, in float32 at full
+    width on each JAMBA_F32 model (layers, experts), one resident at a
+    time. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+
+    def after(cfg, params):
+        _decode_check(torch, cfg, params, required=False)
+        _long_prefill(torch, cfg, params, JAMBA_LONG)
+
+    launches = phase_serve(np, torch, *JAMBA,
+                           cut={"num_layers": JAMBA_LAYERS}, after=after,
+                           check=JAMBA_PREFILL)
+    torch.cuda.empty_cache()
+    full = get_config(JAMBA[0])
+    for layers, experts in JAMBA_F32:
+        cfg = dataclasses.replace(
+            full, num_layers=layers, param_dtype="float32", dtype="float32",
+            moe=dataclasses.replace(full.moe, num_experts=experts))
+        params = tf.init_params(cfg, seed=0, device="cuda")
+        _decode_check(torch, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+    log(f"[hybrid 6e] phase wall {time.perf_counter() - t0:.2f} s")
     return launches
 
 
@@ -3732,13 +3922,14 @@ def _run_phases(np, torch, smi, wall0):
     for name, n in phase_train_whisper(np, torch).items():
         launches[name] += n
     torch.cuda.empty_cache()
-    # 6d runs last, so that the phases before it run as they did before
-    # it was added: in one run with 6d between 6c and 7, all three
-    # profiler traces of 8b's 32-layer train step read one rmsnorm launch
-    # short (54 device records lost), which 6d alone before that step
-    # did not reproduce.
-    for name, n in phase_moe_mla(np, torch).items():
-        launches[name] += n
+    # 6d and then 6e run last, so that the phases before them run as
+    # they did before 6d was added: in one run with 6d between 6c and 7,
+    # all three profiler traces of 8b's 32-layer train step read one
+    # rmsnorm launch short (54 device records lost), which 6d alone
+    # before that step did not reproduce.
+    for phase in (phase_moe_mla, phase_hybrid):
+        for name, n in phase(np, torch).items():
+            launches[name] += n
     kernels = []
     for name, line in (("dr_features", 26), ("al_step", 41), ("rmsnorm", 20),
                        ("flash_attention", 28), ("ssd_scan", 24)):

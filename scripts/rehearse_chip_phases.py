@@ -2,19 +2,23 @@
 """Rehearse chip_smoke's model phases on the CPU at reduced sizes.
 
     PYTHONPATH=src python3 scripts/rehearse_chip_phases.py [serve] [whisper]
-        [options] [moe] [train]
+        [options] [moe] [hybrid] [train]
 
 Runs `phase_serve` for qwen3-32b and granite-20b (phase 6's bf16 paths),
 `phase_whisper` (6b), `phase_dense_options` (6c), `phase_moe_mla` (6d:
 qwen3-moe and deepseek-v3 served, their routing report, the two
-dispatches, deepseek's decode against its forward) and
-`phase_train_whisper` (8c) of `chip_smoke.py` with every model reduced
-(2 layers, d_model 128, vocab 512, bf16 activations, remat on), on the
-CPU: the script's "cuda" device reads "cpu", the kernels' plain versions
-run and each call a kernel would have made is counted as its launch, and
-the card's memory and sync calls do nothing, and CUDA-event timings read
-0. It checks the phases' control flow, shapes and launch counts; no
-number it prints is a device metric. With no argument it runs all five.
+dispatches, deepseek's decode against its forward), `phase_hybrid` (6e:
+jamba served at 16 layers, its routing report on a 2 x 1024 prefill,
+its decode over the mixed cache against its forward, and its long
+prefill, here of 1 x 1024 tokens) and `phase_train_whisper` (8c) of
+`chip_smoke.py` with every model reduced (2 layers, or one 8-layer
+group for the hybrid, d_model 128, vocab 512, bf16 activations, remat
+on), on the CPU: the script's "cuda" device reads "cpu", the kernels'
+plain versions run and each call a kernel would have made is counted as
+its launch, and the card's memory and sync calls do nothing, and
+CUDA-event timings read 0. It checks the phases' control flow, shapes
+and launch counts; no number it prints is a device metric. With no
+argument it runs all six.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.models import encdec, transformer  # noqa: E402
 
 
@@ -63,6 +69,8 @@ def main(which) -> int:
     rms_ops.rmsnorm = counted_plain(rms_ops.rmsnorm, rms_kernel.rmsnorm_cuda)
     fa_ops.flash_attention = counted_plain(fa_ops.flash_attention,
                                            fa_kernel.flash_attention_cuda)
+    ssd_ops.ssd_scan = counted_plain(ssd_ops.ssd_scan,
+                                     ssd_kernel.ssd_scan_cuda)
     cpu = lambda d=None: torch.device("cpu" if d is None else d)  # noqa
     transformer.resolve_device = encdec.resolve_device = cpu
     full = configs.get_config
@@ -81,7 +89,9 @@ def main(which) -> int:
     cs = load_smoke()
     cs.WHISPER_PARAMS = small("whisper-large-v3").param_count()
     cs.WHISPER_TRAIN_SEQ = 24
-    which = which or ["serve", "whisper", "options", "moe", "train"]
+    cs.JAMBA_LONG = (1, 1024)
+    which = which or ["serve", "whisper", "options", "moe", "hybrid",
+                      "train"]
     if "serve" in which:
         for path in cs.SERVE_PATHS[2:cs.MOE_SERVE]:
             print(cs.phase_serve(np, torch, *path))
@@ -91,6 +101,8 @@ def main(which) -> int:
         print(cs.phase_dense_options(np, torch))
     if "moe" in which:
         print(cs.phase_moe_mla(np, torch))
+    if "hybrid" in which:
+        print(cs.phase_hybrid(np, torch))
     if "train" in which:
         print(cs.phase_train_whisper(np, torch))
     return 0

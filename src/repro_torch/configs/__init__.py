@@ -1,17 +1,17 @@
 """Registry of the ported architectures and the reduced CPU-test configs.
 
 `get_config(arch_id)` returns the full config; `reduced(cfg)` shrinks it
-as the JAX package's `repro.configs.reduced` does for the ported
-families. The reference's hybrid config (jamba) is not registered: its
-family waits for ROADMAP item 12e.
+as the JAX package's `repro.configs.reduced` does; every config of the
+reference is registered.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import (ArchConfig, MLAConfig,  # noqa: F401
-                                      MoEConfig, ShapeCell, SSMConfig)
+from repro_torch.configs.base import (SHAPES, ArchConfig,  # noqa: F401
+                                      MLAConfig, MoEConfig, ShapeCell,
+                                      SSMConfig)
 
 _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
@@ -23,6 +23,7 @@ _MODULES = {
     "stablelm-3b": "stablelm_3b",
     "granite-20b": "granite_20b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -30,8 +31,7 @@ ARCH_IDS = tuple(_MODULES)
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown or unported arch {arch_id!r}; ported: "
-                       f"{ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
 
@@ -44,8 +44,10 @@ def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
     sections split over the reduced rotary half-width, MoE at 4 experts of
     d_model, top-2, capacity factor 8 (no token dropped, so per-token
     decode groups and whole-sequence forward groups agree), MLA at ranks
-    32 / 16 with heads of 16 + 8 (head_dim 16), the encoder as deep as
-    the decoder over 16 frames, float32 throughout, no remat."""
+    32 / 16 with heads of 16 + 8 (head_dim 16), a hybrid stack at least
+    one attention period deep (`attn_layer_period` layers) with the
+    attention offset inside it, the encoder as deep as the decoder over
+    16 frames, float32 throughout, no remat."""
     heads = max(2, min(4, cfg.num_heads))
     updates = dict(
         num_layers=layers, d_model=d_model, num_heads=heads,
@@ -71,6 +73,10 @@ def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
                                    qk_nope_head_dim=16, qk_rope_head_dim=8,
                                    v_head_dim=16)
         updates["head_dim"] = 16
+    if cfg.family == "hybrid":
+        updates["num_layers"] = max(layers, cfg.attn_layer_period)
+        updates["attn_layer_offset"] = min(cfg.attn_layer_offset,
+                                           updates["num_layers"] - 1)
     if cfg.family == "encdec":
         updates["encoder_layers"] = layers
         updates["encoder_seq"] = 16

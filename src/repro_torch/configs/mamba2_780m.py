@@ -1,5 +1,6 @@
 """mamba2-780m: 48L d=1536 attention-free SSD, d_state 128, head_dim 64,
-expand 2, chunk 256, vocab 50280, tied embeddings, as the JAX package's
+expand 2, chunk 256, vocab 50280, tied embeddings, marked for long
+contexts (its state is O(1) in the sequence), as the JAX package's
 `repro/configs/mamba2_780m.py`."""
 from repro_torch.configs.base import ArchConfig, SSMConfig
 
@@ -9,5 +10,5 @@ CONFIG = ArchConfig(
     d_ff=0, vocab_size=50280,
     ssm=SSMConfig(d_state=128, head_dim=64, expand=2, conv_kernel=4,
                   chunk=256, n_groups=1),
-    tie_embeddings=True,
+    long_context_ok=True, tie_embeddings=True,
 )

@@ -14,6 +14,8 @@ and, with `tree` the reference's `transformer.init_params` or
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -69,17 +71,19 @@ def engine_state_from_arrays(x, lam_eq, lam_in, mu,
 
 
 # The parameter trees of the ported models, decoder-only
-# (`repro.models.transformer`: dense, moe, vlm and SSM, GQA or MLA) and
-# encoder-decoder (`repro.models.encdec`): the keys each level may hold
-# (`unembed` only where the embeddings are untied, `b` where the model has
-# qkv biases, `q_norm` / `k_norm` with qk-norm; under `moe` the stacked
-# experts are arrays and `shared` only where the model has shared
-# experts; MLA's `q_norm` is over the query latent).
+# (`repro.models.transformer`: dense, moe, vlm, SSM and hybrid, GQA or
+# MLA) and encoder-decoder (`repro.models.encdec`): the keys each level
+# may hold (`blocks` holds a group's positions `l0` ... `l{G-1}`, which
+# the hybrid's mix: `attn` or `ssm`, `ffn` or `moe`; `unembed` only where
+# the embeddings are untied, `b` where the model has qkv biases, `q_norm`
+# / `k_norm` with qk-norm; under `moe` the stacked experts are arrays and
+# `shared` only where the model has shared experts; MLA's `q_norm` is
+# over the query latent). `_node` names a group position `l{j}`.
 _PARAM_KEYS = {
     "": {"embed", "blocks", "ln_f", "unembed",
          "enc_blocks", "enc_ln", "dec_blocks", "dec_ln"},
-    "embed": {"table"}, "unembed": {"table"}, "blocks": {"l0"},
-    "l0": {"ln1", "attn", "ln2", "ffn", "moe", "ssm"},
+    "embed": {"table"}, "unembed": {"table"}, "blocks": {"l{j}"},
+    "l{j}": {"ln1", "attn", "ln2", "ffn", "moe", "ssm"},
     "enc_blocks": {"ln1", "attn", "ln2", "ffn"},
     "dec_blocks": {"ln1", "attn", "lnx", "xattn", "ln2", "ffn"},
     "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm",
@@ -104,6 +108,11 @@ _PARAM_KEYS = {
 _UNPORTED_KEYS = {"mtp": "item 12g (MTP)"}
 
 
+def _node(key: str) -> str:
+    """The `_PARAM_KEYS` entry of a key: `l{j}` for a group position."""
+    return "l{j}" if re.fullmatch(r"l\d+", key) else key
+
+
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":        # ml_dtypes, which torch cannot read
@@ -115,11 +124,13 @@ def _to_tensor(a, device) -> torch.Tensor:
 def transformer_params_from_arrays(tree: dict, device=None) -> dict:
     """The port's parameters (same tree, same dtypes, on `device`, the
     card by default) from the reference's `init_params` tree of either
-    model module: `transformer` (dense, moe, vlm, SSM) or `encdec`."""
+    model module: `transformer` (dense, moe, vlm, SSM, hybrid) or
+    `encdec`."""
     dev = resolve_device(device)
 
     def walk(node, name):
-        extra = set(node) - _PARAM_KEYS.get(name, set())
+        extra = {k for k in node if _node(k) not in _PARAM_KEYS.get(name,
+                                                                    set())}
         unported = sorted(k for k in extra if k in _UNPORTED_KEYS)
         if unported:
             items = sorted({_UNPORTED_KEYS[k] for k in unported})
@@ -131,8 +142,8 @@ def transformer_params_from_arrays(tree: dict, device=None) -> dict:
             raise NotImplementedError(
                 f"parameters {sorted(extra)} under {name or 'the root'!r} "
                 "belong to a model path the port does not have")
-        return {k: walk(v, k) if isinstance(v, dict) else _to_tensor(v, dev)
-                for k, v in node.items()}
+        return {k: walk(v, _node(k)) if isinstance(v, dict)
+                else _to_tensor(v, dev) for k, v in node.items()}
 
     return walk(tree, "")
 

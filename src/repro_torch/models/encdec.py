@@ -109,8 +109,8 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     x = _with_positions(frames.to(dtype_of(cfg.dtype)), cfg.d_model)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x = run_layers(_enc_layer, params["enc_blocks"], cfg.encoder_layers, x,
-                   cfg, positions, use_kernel)
+    x = run_layers(_enc_layer, {"l0": params["enc_blocks"]},
+                   cfg.encoder_layers, x, cfg, positions, use_kernel)
     return common.rmsnorm(params["enc_ln"], x, use_kernel=use_kernel)
 
 
@@ -151,8 +151,8 @@ def decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = _with_positions(x, cfg.d_model)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x = run_layers(_dec_layer, params["dec_blocks"], cfg.num_layers, x, cfg,
-                   enc_out, positions, use_kernel)
+    x = run_layers(_dec_layer, {"l0": params["dec_blocks"]},
+                   cfg.num_layers, x, cfg, enc_out, positions, use_kernel)
     x = common.rmsnorm(params["dec_ln"], x, use_kernel=use_kernel)
     return common.lm_head(params["embed"], x)
 

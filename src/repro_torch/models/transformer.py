@@ -1,21 +1,27 @@
-"""Model assembly for the decoder LMs: the dense, MoE, VLM and SSM paths
-of `repro/models/transformer.py`, with GQA or MLA attention.
+"""Model assembly for the decoder LMs: the dense, MoE, VLM, SSM and
+hybrid paths of `repro/models/transformer.py`, with GQA or MLA attention.
 
-Parameters keep the reference's tree: every per-layer leaf is stacked on
-a leading layer axis under `blocks["l0"]` (the reference scans over it;
-the port loops over layers in Python and takes views). The decode cache
-is stacked the same way: k/v for attention layers (int8 k/v and their
-scales with `cfg.kv_quant`), the latent c_kv and the rotary key for MLA
-layers, the SSM state and conv tail for Mamba-2 layers. An MoE layer's
-FFN is `models/moe.py`'s. A model with tied embeddings has no `unembed`
-leaf and reads the logits off the input table. The VLM family is the dense stack
-with vision-patch embeddings ahead of the text and M-RoPE positions in
-every attention layer; its loss scores the text tail only. The forward
-takes each stacked leaf apart with one `unbind`, whose backward is one
-`stack` (indexing layer by layer would scatter every layer's gradient
-into a zeroed copy of the whole stack). With `cfg.remat`, under autograd,
-each layer runs inside `torch.utils.checkpoint` and is recomputed in the
-backward, as the reference's `jax.checkpoint` (`transformer.py:159`).
+Parameters keep the reference's tree: `blocks` holds one subtree per
+position of a block group, `l0` ... `l{G-1}` (G =
+`cfg.block_group_size()`: 1 for a homogeneous stack, 8 for Jamba's
+[Mamba x 4, attention, Mamba x 3] pattern with an MoE FFN in every other
+layer; each layer's kind is `cfg.layer_kind(layer)`), and every leaf of
+position j is stacked on a leading group axis over the layers g·G + j
+(the reference scans over groups; the port loops over them in Python and
+takes views). The decode cache is stacked the same way, per position:
+k/v for attention layers (int8 k/v and their scales with
+`cfg.kv_quant`), the latent c_kv and the rotary key for MLA layers, the
+SSM state and conv tail for Mamba-2 layers. An MoE layer's FFN is
+`models/moe.py`'s. A model with tied embeddings has no `unembed` leaf
+and reads the logits off the input table. The VLM family is the dense
+stack with vision-patch embeddings ahead of the text and M-RoPE
+positions in every attention layer; its loss scores the text tail only.
+The forward takes each stacked leaf apart with one `unbind`, whose
+backward is one `stack` (indexing layer by layer would scatter every
+layer's gradient into a zeroed copy of the whole stack). With
+`cfg.remat`, under autograd, each group runs inside
+`torch.utils.checkpoint` and is recomputed in the backward, as the
+reference's `jax.checkpoint` of its scan body (`transformer.py:159`).
 Public entry points:
 
   init_params(cfg, seed, device)                  -> param tree
@@ -53,17 +59,6 @@ F32_LEAVES = frozenset({"scale", "A_log", "D", "dt_bias"})
 F32_NODES = frozenset({"router"})
 
 
-def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
-    """-> (mixer, ffn) for a layer index: mixer `mla` where the config
-    has an MLAConfig, else `attn` (GQA), and `ssm` for the ssm family;
-    ffn `moe` where it has a MoEConfig (every layer: `layer_period` 1),
-    `none` for the ssm family, else `dense` (SwiGLU)."""
-    if cfg.family == "ssm":
-        return "ssm", "none"
-    return ("mla" if cfg.mla is not None else "attn",
-            "moe" if cfg.moe is not None else "dense")
-
-
 def _layer(tree: dict, i: int) -> dict:
     """Layer i's views of a stacked tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -84,25 +79,53 @@ def _requires_grad(tree: dict) -> bool:
 
 def run_layers(layer_fn, blocks: dict, n: int, x: torch.Tensor,
                cfg: ArchConfig, *args) -> torch.Tensor:
-    """x through the n layers stacked in `blocks`, `layer_fn(p, x, cfg, i,
-    *args)` for layer i, each under `torch.utils.checkpoint` when
-    cfg.remat is set and autograd is on."""
+    """x through the n groups of `blocks` ({"l0": ..., "l{G-1}": ...},
+    each position stacked over the groups), `layer_fn(p, x, cfg, j,
+    *args)` for position j of each group in turn; each group under
+    `torch.utils.checkpoint` when cfg.remat is set and autograd is on."""
     remat = (cfg.remat and torch.is_grad_enabled()
              and (x.requires_grad or _requires_grad(blocks)
                   or any(isinstance(a, torch.Tensor) and a.requires_grad
                          for a in args)))
-    for i, p in enumerate(_unstack(blocks, n)):
+    positions = [_unstack(blocks[f"l{j}"], n) for j in range(len(blocks))]
+
+    def group(ps, x, *args):
+        for j, p in enumerate(ps):
+            x = layer_fn(p, x, cfg, j, *args)
+        return x
+
+    for ps in zip(*positions):
         if remat:
-            x = checkpoint(layer_fn, p, x, cfg, i, *args,
-                           use_reentrant=False)
+            x = checkpoint(group, ps, x, *args, use_reentrant=False)
         else:
-            x = layer_fn(p, x, cfg, i, *args)
+            x = group(ps, x, *args)
     return x
 
 
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
+def _block_init(gen, cfg: ArchConfig, j: int, pdtype, dev, lead) -> dict:
+    """Position j's leaves of a group, one draw per group on `lead`."""
+    d = cfg.d_model
+    mixer, ffn = cfg.layer_kind(j)
+    block = {"ln1": common.rmsnorm_init(d, pdtype, dev, lead)}
+    if mixer == "attn":
+        block["attn"] = attn.gqa_init(gen, cfg, pdtype, dev, lead)
+    elif mixer == "mla":
+        block["attn"] = attn.mla_init(gen, cfg, pdtype, dev, lead)
+    else:
+        block["ssm"] = ssm.ssm_init(gen, cfg, pdtype, dev, lead)
+    if ffn != "none":
+        block["ln2"] = common.rmsnorm_init(d, pdtype, dev, lead)
+    if ffn == "moe":
+        block["moe"] = moe.moe_init(gen, cfg, pdtype, dev, lead)
+    elif ffn == "dense":
+        block["ffn"] = common.swiglu_init(gen, d, cfg.d_ff, pdtype, dev,
+                                          lead)
+    return block
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """Random parameters in cfg.param_dtype, drawn from a generator seeded
     with `seed` on `device` (the card by default; the `meta` device draws
@@ -111,25 +134,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(seed)
     pdtype = dtype_of(cfg.param_dtype)
-    L, d = cfg.num_layers, cfg.d_model
-    mixer, ffn = layer_kind(cfg, 0)
-    block = {"ln1": common.rmsnorm_init(d, pdtype, dev, (L,))}
-    if mixer == "attn":
-        block["attn"] = attn.gqa_init(gen, cfg, pdtype, dev, (L,))
-    elif mixer == "mla":
-        block["attn"] = attn.mla_init(gen, cfg, pdtype, dev, (L,))
-    else:
-        block["ssm"] = ssm.ssm_init(gen, cfg, pdtype, dev, (L,))
-    if ffn != "none":
-        block["ln2"] = common.rmsnorm_init(d, pdtype, dev, (L,))
-    if ffn == "moe":
-        block["moe"] = moe.moe_init(gen, cfg, pdtype, dev, (L,))
-    elif ffn == "dense":
-        block["ffn"] = common.swiglu_init(gen, d, cfg.d_ff, pdtype, dev,
-                                          (L,))
+    d, G = cfg.d_model, cfg.block_group_size()
+    lead = (cfg.num_layers // G,)
+    blocks = {f"l{j}": _block_init(gen, cfg, j, pdtype, dev, lead)
+              for j in range(G)}
     params = {"embed": common.embedding_init(gen, cfg.vocab_size, d, pdtype,
                                              dev),
-              "blocks": {"l0": block},
+              "blocks": blocks,
               "ln_f": common.rmsnorm_init(d, pdtype, dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = common.embedding_init(gen, cfg.vocab_size, d,
@@ -160,7 +171,7 @@ def compute_params(params: dict, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 def _apply_layer(p: dict, x, cfg: ArchConfig, layer: int, positions,
                  mrope_positions, use_kernel):
-    mixer, ffn = layer_kind(cfg, layer)
+    mixer, ffn = cfg.layer_kind(layer)
     h = common.rmsnorm(p["ln1"], x, use_kernel=use_kernel)
     if mixer == "attn":
         h = attn.gqa_attend(p["attn"], h, cfg, positions,
@@ -196,8 +207,9 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     mrope_positions = batch.get("mrope_positions")
-    x = run_layers(_apply_layer, params["blocks"]["l0"], cfg.num_layers, x,
-                   cfg, positions, mrope_positions, use_kernel)
+    x = run_layers(_apply_layer, params["blocks"],
+                   cfg.num_layers // cfg.block_group_size(), x, cfg,
+                   positions, mrope_positions, use_kernel)
     x = common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
     return common.lm_head(params.get("unembed", params["embed"]), x)
 
@@ -210,10 +222,11 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
     S), and for the vlm family its vision embeddings and M-RoPE
     positions; the vision positions carry no loss, the text tail is
     scored."""
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            "training the 'ssm' family is not ported (ROADMAP item 12g: "
-            "mamba2 needs a gradient through ssd_scan)")
+            f"training the {cfg.family!r} family is not ported (ROADMAP "
+            "item 12g: its Mamba-2 layers need a gradient through "
+            "ssd_scan)")
     if cfg.mtp_depth:
         raise NotImplementedError(
             "the MTP auxiliary loss is not ported (ROADMAP item 12g)")
@@ -227,37 +240,45 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
 # ---------------------------------------------------------------------------
 # Serving: cache init / decode / prefill
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device=None) -> dict:
-    """Zeroed caches stacked over the L layers: attention layers
-    (B, max_len, KV, Dh) k and v in cfg.dtype, or with `cfg.kv_quant`
-    int8 k_q and v_q and their f32 scales k_s and v_s (B, max_len, KV, 1);
-    MLA layers the latent c_kv (B, max_len, kv_lora_rank) and the rotary
-    key k_rope (B, max_len, qk_rope_head_dim) in cfg.dtype; SSM layers the f32 state h (B, H, P, N) and the conv tail (B, K-1,
-    conv_dim) in cfg.dtype."""
-    dev = resolve_device(device)
-    adtype = dtype_of(cfg.dtype)
-    mixer = layer_kind(cfg, 0)[0]
+def _layer_cache(cfg: ArchConfig, j: int, batch: int, max_len: int,
+                 adtype, dev, lead: tuple) -> dict:
+    """Group position j's zeroed cache, stacked on `lead`."""
+    mixer = cfg.layer_kind(j)[0]
     if mixer == "ssm":
-        return {"l0": ssm.ssm_init_state(cfg, batch, adtype, dev,
-                                         (cfg.num_layers,))}
+        return ssm.ssm_init_state(cfg, batch, adtype, dev, lead)
+    lead = lead + (batch, max_len)
     if mixer == "mla":
-        m, lead = cfg.mla, (cfg.num_layers, batch, max_len)
-        return {"l0": {
-            "c_kv": torch.zeros(lead + (m.kv_lora_rank,), dtype=adtype,
-                                device=dev),
-            "k_rope": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=adtype,
-                                  device=dev)}}
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.dh)
+        m = cfg.mla
+        return {"c_kv": torch.zeros(lead + (m.kv_lora_rank,), dtype=adtype,
+                                    device=dev),
+                "k_rope": torch.zeros(lead + (m.qk_rope_head_dim,),
+                                      dtype=adtype, device=dev)}
+    shape = lead + (cfg.num_kv_heads, cfg.dh)
     if cfg.kv_quant:
         scales = shape[:-1] + (1,)
-        return {"l0": {
-            "k_q": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "k_s": torch.zeros(scales, dtype=torch.float32, device=dev),
-            "v_q": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "v_s": torch.zeros(scales, dtype=torch.float32, device=dev)}}
-    return {"l0": {"k": torch.zeros(shape, dtype=adtype, device=dev),
-                   "v": torch.zeros(shape, dtype=adtype, device=dev)}}
+        return {"k_q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_s": torch.zeros(scales, dtype=torch.float32, device=dev),
+                "v_q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v_s": torch.zeros(scales, dtype=torch.float32, device=dev)}
+    return {"k": torch.zeros(shape, dtype=adtype, device=dev),
+            "v": torch.zeros(shape, dtype=adtype, device=dev)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed caches, one subtree per group position ("l0" ...), each
+    stacked over the groups: attention layers (B, max_len, KV, Dh) k and
+    v in cfg.dtype, or with `cfg.kv_quant` int8 k_q and v_q and their f32
+    scales k_s and v_s (B, max_len, KV, 1); MLA layers the latent c_kv
+    (B, max_len, kv_lora_rank) and the rotary key k_rope (B, max_len,
+    qk_rope_head_dim) in cfg.dtype; SSM layers the f32 state h (B, H, P,
+    N) and the conv tail (B, K-1, conv_dim) in cfg.dtype."""
+    dev = resolve_device(device)
+    adtype = dtype_of(cfg.dtype)
+    G = cfg.block_group_size()
+    lead = (cfg.num_layers // G,)
+    return {f"l{j}": _layer_cache(cfg, j, batch, max_len, adtype, dev, lead)
+            for j in range(G)}
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
@@ -268,10 +289,11 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     its latent and rotary key, or the SSM layers' new state)."""
     adtype = dtype_of(cfg.dtype)
     x = common.embed(params["embed"], token, adtype)
-    blocks, layers = params["blocks"]["l0"], cache["l0"]
-    for i in range(cfg.num_layers):
-        x = _decode_layer(_layer(blocks, i), x, cfg, i, _layer(layers, i),
-                          length)
+    G = cfg.block_group_size()
+    for g in range(cfg.num_layers // G):
+        for j in range(G):
+            x = _decode_layer(_layer(params["blocks"][f"l{j}"], g), x, cfg,
+                              j, _layer(cache[f"l{j}"], g), length)
     x = common.rmsnorm(params["ln_f"], x)
     return common.lm_head(params.get("unembed", params["embed"]), x), cache
 
@@ -279,7 +301,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
 def _decode_layer(p: dict, x, cfg: ArchConfig, layer: int, cache: dict,
                   length: int):
     """One layer of a decode step; writes the layer's cache in place."""
-    mixer, ffn = layer_kind(cfg, layer)
+    mixer, ffn = cfg.layer_kind(layer)
     h = common.rmsnorm(p["ln1"], x)
     if mixer == "attn":
         h, _ = attn.gqa_decode(p["attn"], h, cfg, cache, length)

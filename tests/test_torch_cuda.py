@@ -27,7 +27,10 @@ whisper-large-v3 at full width and 2 + 2 layers, and a reduced qwen3
 with qk-norm, through the kernels within chip_smoke's serving bounds of
 the plain versions, and the int8 KV cache's decode steps finite; a
 reduced qwen3-moe and deepseek-v3 (MLA at its own widths, Dh 192 and Dv
-128) within those bounds, and their decode steps against the forward.
+128) within those bounds, and their decode steps against the forward; a
+reduced jamba (hybrid) within those bounds and its launches, its decode
+over the mixed cache against the forward in float32 (1e-4), and rmsnorm
+and ssd_scan bit for bit their plain versions at jamba's shapes.
 """
 import importlib.util
 import pathlib
@@ -341,7 +344,10 @@ def test_al_step_kernel_short_days(dev, fleets, day_hours):
                                       (5, 100, True), (33, 128, False),
                                       (3, 8192, False), (3072, 1536, True),
                                       (3072, 3072, True), (32_768, 128, True),
-                                      (12_000, 1280, True)])
+                                      (12_000, 1280, True), (512, 8192, True),
+                                      (2048, 8192, True), (512, 4096, True),
+                                      (2048, 4096, True), (8192, 4096, True),
+                                      (8192, 8192, True), (8, 4096, True)])
 def test_rmsnorm_kernel_matches_plain(dev, N, d, bf16):
     gen = torch.Generator(device=dev).manual_seed(N + d)
     x = 1.5 * torch.randn((N, d), generator=gen, device=dev)
@@ -390,6 +396,21 @@ def test_rmsnorm_kernel_bit_exact_at_mamba2_rows(dev, N, d):
     assert float((got.float() - want.float()).abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("N,d", [(512, 4096), (512, 8192), (2048, 4096),
+                                 (2048, 8192), (8192, 4096), (8192, 8192),
+                                 (8, 4096), (8, 8192)])
+def test_rmsnorm_kernel_bit_exact_at_jamba_rows(dev, N, d):
+    """jamba's norms (d 4096, the gated norm over d_in 8192) at its
+    serving, check and long prefills and its decode: bit for bit
+    the plain version, as mamba2's, since its 14 Mamba-2 layers of random
+    weights amplify any rounding difference as mamba2's 48 do."""
+    gen = torch.Generator(device=dev).manual_seed(N + d)
+    x = (1.5 * torch.randn((N, d), generator=gen, device=dev)).bfloat16()
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    got, want = rmsnorm_cuda(x, scale), rmsnorm_ref(x, scale)
+    assert float((got.float() - want.float()).abs().max()) == 0.0
+
+
 def test_rmsnorm_kernel_refuses_rows_wider_than_it_holds(dev):
     with pytest.raises(ValueError, match="load units"):
         rmsnorm_cuda(torch.zeros((2, 32776), device=dev).bfloat16(),
@@ -412,15 +433,16 @@ def test_rmsnorm_kernel_unaligned_rows_and_bad_operands(dev):
         rmsnorm_cuda(x, scale[:-1])
 
 
-@pytest.mark.parametrize("case", range(19))
+@pytest.mark.parametrize("case", range(22))
 def test_flash_attention_kernel_matches_plain(dev, case):
     """chip_smoke.py's cases: causal and not, GQA and MQA, tails, Dv != Dh,
     q_offset, float32, a head width of no whole 16-byte vector, a
     1024-token prefill, whisper's encoder, cross-attention and decoder,
-    granite-20b's MQA and qwen3-32b's GQA at Dh 128, and deepseek-v3's
-    MLA at Dh 192, Dv 128 (its prefill, 1024 tokens, ragged tails,
-    q_offset, float32)."""
-    assert len(_load_chip_smoke().FA_CASES) == 19
+    granite-20b's MQA and qwen3-32b's GQA at Dh 128, deepseek-v3's MLA
+    at Dh 192, Dv 128 (its prefill, 1024 tokens, ragged tails, q_offset,
+    float32), and jamba's prefills (GQA 32:8 at Dh 128: 8 x 64 tokens,
+    2 x 1024 and 1 x 8192)."""
+    assert len(_load_chip_smoke().FA_CASES) == 22
     c = _load_chip_smoke().FA_CASES[case]
     causal, q_offset, bf16 = c[7], c[8], c[9]
     q, k, v = _load_chip_smoke().fa_inputs(torch, c, seed=case, dev=dev)
@@ -633,11 +655,13 @@ def _scan_inputs(dims, seed, dev):
             torch.rand(dims[:3], generator=gen, device=dev))
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(10))
 def test_ssd_scan_kernel_matches_plain(dev, case):
-    """chip_smoke.py's cases: mamba2-780m's prefill, a long prefill, the
-    JAX package's test dims, a P·N of no whole float4, a partial block."""
-    assert len(_load_chip_smoke().SSD_CASES) == 7
+    """chip_smoke.py's cases: mamba2-780m's prefill, a long prefill,
+    jamba's 128 heads of (64, 64) over 1, 4 and 32 chunks (its serving,
+    check and long prefills), the JAX package's test dims, a P·N of no
+    whole float4, a partial block."""
+    assert len(_load_chip_smoke().SSD_CASES) == 10
     dims = _load_chip_smoke().SSD_CASES[case]
     states, dec = _scan_inputs(dims, case, dev)
     before = ssd_scan_cuda.launches
@@ -692,6 +716,82 @@ def test_reduced_mamba2_kernel_path_matches_plain_path(dev):
     assert out.shape == (3, 4)
     assert rmsnorm_cuda.launches - r0 == (2 * 2 + 1) * (1 + 20 + 3)
     assert ssd_scan_cuda.launches - s0 == 2
+
+
+@pytest.mark.parametrize("dims", [(8, 1, 128, 64, 64), (2, 4, 128, 64, 64),
+                                  (1, 32, 128, 64, 64)])
+def test_ssd_scan_kernel_bit_exact_at_jamba_heads(dev, dims):
+    """jamba's 128 heads of P = 64 and N = 64 at its serving, check and
+    long prefills (1, 4 and 32 chunks) and from an initial state: bit for
+    bit the plain version (the same unfused multiply-add), which jamba's
+    logits check rests on."""
+    states, dec = _scan_inputs(dims, 11, dev)
+    h0 = torch.randn((dims[0],) + dims[2:], device=dev)
+    for g, w in zip(ssd_scan_cuda(states, dec, h0),
+                    ssd_scan_ref(states, dec, h0)):
+        assert float((g - w).abs().max()) == 0.0
+
+
+def _reduced_jamba(dev, dtype, layers=16):
+    """A reduced jamba (16 layers: two groups, 14 Mamba-2 and 2 attention
+    layers) with every token on all 4 experts, so that no routing
+    decision can flip between the paths."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tf
+    cfg = reduced(get_config("jamba-v0.1-52b"), layers=layers, d_model=256,
+                  vocab=512)
+    cfg = dataclasses.replace(cfg, dtype=dtype, moe=dataclasses.replace(
+        cfg.moe, top_k=4))
+    return cfg, tf.compute_params(tf.init_params(cfg, seed=0, device=dev),
+                                  cfg)
+
+
+def test_reduced_hybrid_kernel_path_matches_plain_path(dev):
+    """The hybrid serving path on the card at a reduced bf16 jamba: prefill
+    logits through the kernels against the plain versions within
+    chip_smoke's bounds (relative L2 and top-1), over 3 chunks of 8 and a
+    padded tail; the launches of a forward (2L + L_ssm + 1 norms, one
+    flash attention per attention layer, one ssd_scan per Mamba-2 layer)
+    and of a greedy decode (the norms alone a step)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg, params = _reduced_jamba(dev, "bfloat16")
+    smoke = _load_chip_smoke()
+    toks = torch.randint(0, 512, (2, 30), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    counts = (rmsnorm_cuda, flash_attention_cuda, ssd_scan_cuda)
+    before = [f.launches for f in counts]
+    kern = tf.forward(params, cfg, {"tokens": toks})
+    assert [f.launches - b for f, b in zip(counts, before)] == [47, 2, 14]
+    rel, top1 = smoke._agreement(
+        torch, kern, tf.forward(params, cfg, {"tokens": toks},
+                                use_kernel=False))
+    assert rel < smoke.LOGITS_REL_TOL and top1 >= smoke.TOP1_MIN
+    before = [f.launches for f in counts]
+    out = serve.greedy_decode(params, cfg, toks.cpu().numpy()[:1, :9], 4, 13)
+    assert out.shape == (1, 4)
+    assert [f.launches - b for f, b in zip(counts, before)] == \
+        [47 * (1 + 9 + 3), 2, 14]
+
+
+def test_reduced_hybrid_decode_over_the_mixed_cache_matches_forward(dev):
+    """Decode steps over the mixed cache (k/v at position 4, the SSM state
+    and conv tail elsewhere, written in place) against the teacher-forced
+    forward through the kernels, in float32 where the two agree to
+    rounding: within 1e-4."""
+    from repro_torch.models import transformer as tf
+    cfg, params = _reduced_jamba(dev, "float32")
+    toks = torch.randint(0, 512, (2, 20), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    cache = tf.init_cache(cfg, 2, 20, device=dev)
+    steps = [tf.decode_step(params, cfg, cache, toks[:, t:t + 1], t)[0]
+             for t in range(20)]
+    fwd = tf.forward(params, cfg, {"tokens": toks})
+    _close(torch.cat(steps, dim=1), fwd, 1e-4)
+    assert set(cache["l4"]) == {"k", "v"} and float(
+        cache["l3"]["h"].abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------

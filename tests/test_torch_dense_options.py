@@ -37,7 +37,7 @@ from repro.models import common as j_common
 from repro.models import transformer as j_tf
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import (FAMILIES, ArchConfig, MLAConfig,
-                                      MoEConfig, ShapeCell)
+                                      MoEConfig, ShapeCell, SSMConfig)
 from repro_torch.convert import transformer_params_from_arrays
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -127,7 +127,7 @@ def test_configs_match_jax_field_for_field(models, arch):
                       (m["cfg"], m["jcfg"])):
         for f in dataclasses.fields(cfg):
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
-        assert [tf.layer_kind(cfg, i) for i in range(cfg.num_layers)] == \
+        assert [cfg.layer_kind(i) for i in range(cfg.num_layers)] == \
             [j_tf.layer_kind(jcfg, i) for i in range(jcfg.num_layers)]
 
 
@@ -153,18 +153,29 @@ def test_full_width_parameter_count_from_shapes(arch):
 
 def test_unported_families_and_mla_are_refused_by_name():
     """ROADMAP item 12d lifted the refusals of the moe family and of an
-    MLA config: both now construct, and so does qwen3-moe-30b-a3b. The
-    hybrid family (12e) is still refused by name."""
+    MLA config, and 12e that of the hybrid family: all three now
+    construct, and so do qwen3-moe-30b-a3b and jamba-v0.1-52b. An MoE
+    `layer_period` other than 1 outside the hybrid family is still
+    refused by name (the reference's homogeneous stack cannot hold mixed
+    layers)."""
     base = dict(name="x", num_layers=2, d_model=64, num_heads=4,
                 num_kv_heads=2, d_ff=128, vocab_size=256)
     assert ArchConfig(family="moe", moe=MoEConfig(4, 2, 64), **base).moe \
         == MoEConfig(num_experts=4, top_k=2, d_expert_ff=64)
-    with pytest.raises(NotImplementedError, match="12e"):
-        ArchConfig(family="hybrid", **base)
+    hybrid = dict(base, num_layers=8, attn_layer_period=8)
+    cfg = ArchConfig(family="hybrid", ssm=SSMConfig(),
+                     moe=MoEConfig(4, 2, 64, layer_period=2), **hybrid)
+    assert cfg.block_group_size() == 8
+    for family in ("moe", "dense"):
+        with pytest.raises(NotImplementedError,
+                           match=f"layer_period.*{family!r}"):
+            ArchConfig(family=family,
+                       moe=MoEConfig(4, 2, 64, layer_period=2), **base)
     assert ArchConfig(family="dense", mla=MLAConfig(), **base).mla == \
         MLAConfig()
     assert get_config("qwen3-moe-30b-a3b").family == "moe"
-    assert FAMILIES == ("dense", "moe", "ssm", "encdec", "vlm")
+    assert get_config("jamba-v0.1-52b").family == "hybrid"
+    assert FAMILIES == ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 # ---------------------------------------------------------------------------

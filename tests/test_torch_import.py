@@ -45,7 +45,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "optim", "optim.adamw", "data.pipeline", "runtime",
               "runtime.checkpoint", "runtime.ft", "launch.steps",
               "launch.train", "kernels.rmsnorm.grad",
-              "kernels.flash_attention.grad"):
+              "kernels.flash_attention.grad", "launch.analytics",
+              "configs.jamba_v0_1_52b"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

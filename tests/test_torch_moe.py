@@ -149,7 +149,7 @@ def test_configs_match_jax_field_for_field(arch):
     jr, r = _configs(arch)
     for cfg, jcfg in ((get_config(arch), j_get_config(arch)), (r, jr)):
         _same_fields(cfg, jcfg)
-        assert [tf.layer_kind(cfg, i) for i in range(cfg.num_layers)] == \
+        assert [cfg.layer_kind(i) for i in range(cfg.num_layers)] == \
             [j_tf.layer_kind(jcfg, i) for i in range(jcfg.num_layers)]
     assert (r.moe.num_experts, r.moe.top_k, r.moe.capacity_factor) == \
         (4, 2, 8.0)

@@ -101,7 +101,7 @@ def test_reduced_config_matches_jax(model):
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert (cfg.num_heads, cfg.num_kv_heads, cfg.dh) == (4, 2, 32)
-    assert [tf.layer_kind(cfg, i) for i in range(cfg.num_layers)] == \
+    assert [cfg.layer_kind(i) for i in range(cfg.num_layers)] == \
         [j_tf.layer_kind(jcfg, i) for i in range(jcfg.num_layers)]
 
 

@@ -128,7 +128,7 @@ def test_reduced_config_matches_jax(model):
     _assert_same_config(cfg, jcfg)
     assert (cfg.num_kv_heads, cfg.d_ff, cfg.tie_embeddings) == (0, 0, True)
     assert ssm.ssm_dims(cfg) == j_ssm.ssm_dims(jcfg) == (128, 8, 16, 16)
-    assert [tf.layer_kind(cfg, i) for i in range(cfg.num_layers)] == \
+    assert [cfg.layer_kind(i) for i in range(cfg.num_layers)] == \
         [j_tf.layer_kind(jcfg, i) for i in range(jcfg.num_layers)]
 
 

@@ -20,7 +20,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    rows (512 tokens at d 2048 and 7168, and MLA's kv latent of 512) and
    jamba's rows at d 4096 and its gated norm's at d_in 8192 (its
    serving, check and long prefills, 512, 2048 and 8192 tokens, and its
-   decode, 8);
+   decode, 8), and the rows of phase 8d's train steps bit for bit
+   (mamba2's 2 x 4096, qwen3-moe's 1 x 4096 and its qk-norm rows,
+   deepseek's 1 x 1024 and its MTP head's 1023 at d 7168, 1536, 512);
    flash attention at its
    prefill, at a 1024-token prefill (16 kv blocks), at whisper's
    non-causal encoder (8 x 1500, 20 heads of 64, a masked tail of 28
@@ -31,11 +33,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    timed beside SDPA, with the backend SDPA picks), MLA widths with
    ragged tails, a q_offset and in float32, jamba's three prefills (32
    heads over 8, Dh 128: 8 x 64, 2 x 1024 and 1 x 8192 tokens; timed
-   beside SDPA with `enable_gqa`), and
+   beside SDPA with `enable_gqa`), phase 8d's train shapes (jamba's 1 x
+   2048, qwen3-moe's 1 x 4096 at 32 heads over 4, deepseek's MTP layer
+   over 1023 positions), and
    at cases for causal/non-causal, GQA, tails, Dv != Dh and q_offset;
    ssd_scan at mamba2-780m's prefill, a long prefill, jamba's 128 heads
    of (64, 64) at its three prefills (1, 4 and 32 chunks; the five
-   timed), the JAX package's test dims and two tail cases;
+   timed), the JAX package's test dims and two tail cases; the ssd_scan
+   backward kernel at phase 8d's train shapes (mamba2's 2 x 4096 and
+   jamba's 1 x 2048, both timed) and the forward's cases, with and
+   without h0 and a gradient on h_last, against autograd through the
+   plain version (dstates and dh0 bitwise, the decay gradient within
+   1e-6 relative L2);
 5. the fleet path: solve CR1(1.45) and CR2(0.78) at their default steps
    through the kernels (launch counts reset just before and read just
    after), then with `use_kernel=False`, and compare;
@@ -222,7 +231,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    attention), a profiled step's idle share, and loss and gradients at 2
    + 2 layers through the kernels against the plain versions; no
    checkpoint; every count reset just before and read just after each
-   run;
+   run; 8d, training the SSM, hybrid, MoE and MLA models (no
+   checkpoint): mamba2-780m's loss and gradients at full width and 2
+   layers through the kernels (rmsnorm, ssd_scan and its backward
+   kernel under `SSDScanFn`) against the plain versions, then
+   `make_train_step` at full width and depth (48 layers, batch 2 x
+   4096, remat) for 6 steps, launches a step 4L + 1 rmsnorm, 2L ssd_scan
+   and L backward by counter and by `torch.profiler`, ms a step,
+   tokens/s, peak memory and a profiled step's idle share; then at full
+   width and their cuts (TRAIN_CUTS), loss and gradients kernels
+   against plain (free routing, or on the kernel path's expert ids if
+   free routing misses with an expert set flipped) and 2 steps each:
+   jamba-v0.1-52b (one 8-layer group, 3 experts), qwen3-moe-30b-a3b (4
+   layers) and deepseek-v3-671b (1 layer and its MTP head, 12 experts);
 9. print the kernels' JSON line and, last, the device line.
 
 Imports nothing of the JAX package.
@@ -333,12 +354,23 @@ OPTION_LAYERS, OPTION_BATCH, OPTION_SEQ, KV_QUANT_STEPS = 8, 4, 64, 16
 # deepseek-v3's d 7168 and MLA's kv latent of 512 (its q latent is 1536);
 # phase 6e's jamba at d 4096 and its SSM gated norm over d_in 8192: the
 # serving prefill (8 x 64), the 2 x 1024 prefill, the 1 x 8192 prefill
-# and the decode rows (8).
+# and the decode rows (8); then RMSNORM_TRAIN_ROWS.
+# RMSNORM_TRAIN_ROWS are the rows phase 8d's train steps give the kernel
+# (jamba's 1 x 2048 rows are above): mamba2-780m's 2 x 4096 at d 1536 and
+# its gated norm over d_in 3072; qwen3-moe's 1 x 4096 at d 2048 and its
+# qk-norm over rows of Dh 128 (32 query and 4 kv heads); deepseek-v3's 1
+# x 1024 at d 7168 and its q and kv latents (1536, 512), and the same
+# widths over the MTP head's 1023 positions. Held bit for bit against the
+# plain version (both sum the squares in f64 and round once).
+RMSNORM_TRAIN_ROWS = ((8192, 1536), (8192, 3072), (4096, 2048),
+                      (131_072, 128), (16_384, 128), (1024, 7168),
+                      (1024, 1536), (1024, 512), (1023, 7168),
+                      (1023, 1536), (1023, 512))
 RMSNORM_ROWS = ((960, 2560), (8, 2560), (3072, 1536), (3072, 3072),
                 (8, 1536), (8, 3072), (32_768, 128), (12_000, 1280),
                 (512, 2048), (512, 7168), (512, 512), (512, 4096),
                 (512, 8192), (2048, 4096), (2048, 8192), (8192, 4096),
-                (8192, 8192), (8, 4096), (8, 8192))
+                (8192, 8192), (8, 4096), (8, 8192)) + RMSNORM_TRAIN_ROWS
 # ssd_scan cases (B, NC, H, P, N); the first is mamba2-780m's prefill at
 # max_batch 8 (S 384 in chunks of 256), the second a long prefill (1 x
 # 8192), then jamba's heads (128 of P 64, state 64) at its three
@@ -356,6 +388,15 @@ SSD_CASES = (
     (1, 7, 3, 24, 43),
 )
 SSD_TIMED = 5
+# The ssd_scan backward kernel's cases: the shapes of phase 8d's train
+# steps first, mamba2-780m's (2 x 4096 tokens, 16 chunks of 256) and
+# jamba's (1 x 2048, 8 chunks), both timed, then the forward's cases;
+# each with and without an initial state and with and without a
+# gradient on h_last. dstates and dh0 are held bitwise against autograd
+# through the plain version, the decay gradient (the same f32 products
+# summed in another order) at relative L2 SSD_DECAY_REL_L2.
+SSD_BWD_CASES = ((2, 16, 48, 64, 128), (1, 8, 128, 64, 64)) + SSD_CASES
+SSD_BWD_TIMED, SSD_DECAY_REL_L2 = 2, 1e-6
 # Flash-attention cases (B, Sq, Skv, H, KV, Dh, Dv, causal, q_offset,
 # bfloat16); the first is stablelm-3b's prefill at max_batch 8.
 FA_CASES = (
@@ -381,6 +422,9 @@ FA_CASES = (
     (8, 64, 64, 32, 8, 128, 128, True, 0, True),       # jamba, GQA 4:1
     (2, 1024, 1024, 32, 8, 128, 128, True, 0, True),   # jamba's check
     (1, 8192, 8192, 32, 8, 128, 128, True, 0, True),   # jamba, long
+    (1, 2048, 2048, 32, 8, 128, 128, True, 0, True),   # jamba, train (8d)
+    (1, 4096, 4096, 32, 4, 128, 128, True, 0, True),   # qwen3-moe, train
+    (1, 1023, 1023, 128, 128, 192, 128, True, 0, True),  # MTP layer, train
 )
 FA_LONG = 8                     # timed beside the serving shape
 FA_WHISPER = (9, 10)            # timed: the encoder and cross-attention
@@ -404,6 +448,8 @@ COMMIT_ATOL = 5e-3   # per-tick loop vs day, committed NP (JAX contract)
 REPLAY_TOL = 1e-6    # graph replay vs the eager day, NP
 TRACE_TRIES = 3      # profiler traces of one replay (`device_launches`)
 TRACE_PAD_S = 0.25   # host time in a profiler session around its work
+TRACE_FILL = 256     # spin kernels traced before and after the work
+TRACE_FILL_CYCLES = 100_000   # clock cycles each spin kernel waits
 # CR3 (phase 5d): the kernel path vs the plain path at the default budget,
 # rho relative; a sweep over rho (the JAX package's sweep test grid around
 # the paper's 0.02) at 150 steps, each lane vs its solve() at the JAX
@@ -443,6 +489,36 @@ LOSS_RTOL, GRAD_REL_L2 = 1e-3, 0.05
 # (Whisper's decoder context) over 1500 frames each, three steps.
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 448, 3
 BWD_F32, BWD_BF16 = 1e-5, 2e-2
+# Phase 8d: training the SSM, hybrid, MoE and MLA models (bf16 compute,
+# f32 masters and moments, remat, the train_4k batch where it fits).
+# mamba2-780m at full width and depth (48 layers; 0.78e9 parameters at 18
+# bytes each, f32 master, gradient, m and v and the bf16 copy, 13.1 GiB),
+# batch 2 x 4096, SSM_TRAIN_STEPS steps, and its loss and gradients at
+# GRAD_LAYERS layers through the kernels against the plain versions. The
+# others at full width, each at the cut the card's 80 GB forces
+# (architecture, config changes, batch (B, S), steps, why), loss and
+# gradients of the cut model kernels against plain, then its steps.
+# deepseek-v3 keeps its MTP head (a second MLA + MoE layer outside the
+# remat checkpoints, and a second f32 logits over its 129,280 tokens).
+SSM_TRAIN_STEPS = 6
+TRAIN_CUTS = (
+    ("jamba-v0.1-52b", {"num_layers": 8, "experts": 3}, (1, 2048), 2,
+     "one 8-layer block group of 32 layers (every layer kind; a group is "
+     "one remat checkpoint) and 3 of 16 experts, top-2 kept (so routing "
+     "still chooses; at 2 every token would meet every expert): one group "
+     "holds 13.27e9 parameters with 16 experts (222.5 GiB of training "
+     "state), 4.81e9 with 4 (80.7 GiB), 4.11e9 with 3 (68.9 GiB)"),
+    ("qwen3-moe-30b-a3b", {"num_layers": 4}, (1, 4096), 2,
+     "4 of 48 layers (3.11e9 parameters, 52.2 GiB of training state; 48 "
+     "layers hold 30.5e9, 511.8 GiB)"),
+    ("deepseek-v3-671b", {"num_layers": 1, "experts": 12}, (1, 1024), 2,
+     "1 of 61 layers and the MTP layer, 12 of 256 routed experts, top-8 "
+     "and the shared one kept (3.48e9 parameters, 58.3 GiB of training "
+     "state; one full layer holds 11.6e9; at 16 experts, 3.83e9 and 64.2 "
+     "GiB, the train step ran out of the card's memory, 70.10 GiB held "
+     "and 3.45 GiB asked, on an H100 80GB; 8 would route every token to "
+     "every expert)"),
+)
 
 
 def log(*a):
@@ -595,34 +671,62 @@ def _padded_trace(torch, activities):
         time.sleep(TRACE_PAD_S)
 
 
+def _fill_device(torch):
+    """TRACE_FILL spin kernels of TRACE_FILL_CYCLES each, then a sync."""
+    for _ in range(TRACE_FILL):
+        torch.cuda._sleep(TRACE_FILL_CYCLES)
+    torch.cuda.synchronize()
+
+
 def _traced_launches(torch, fn, names):
-    """(launches of each kernel in `names`, device records) of one run of
-    `fn()` under `torch.profiler`, a CUDA graph's kernels included, in a
-    padded window (`_padded_trace`). The trace records the device only:
-    with the CPU's operators recorded too, traces of the 32-layer train
-    step lost ~50 device records, an rmsnorm launch among them, in four
-    of five tries over two runs, while traces of the device alone, taken
-    between them, held every launch. Logs where the device records lie in
-    the trace against where the host ran `fn`, both from the trace's
-    start: a gap between the two that grows over a run is the clock
-    offset that the pads absorb."""
+    """(launches of each kernel in `names`, device records of the work) of
+    one run of `fn()` under `torch.profiler`, a CUDA graph's kernels
+    included, in a padded window (`_padded_trace`). The trace records the
+    device only: with the CPU's operators recorded too, traces of the
+    32-layer train step lost ~50 device records, an rmsnorm launch among
+    them, in four of five tries over two runs, while traces of the device
+    alone, taken between them, held every launch. Late in a whole run,
+    traces of the device alone lost the head instead: the first 51
+    records of the 48-layer mamba2 step (its first ~7.7 ms, the first
+    rmsnorm among them) in two of three retakes, and in three of three in
+    another run. So TRACE_FILL spin kernels run inside the window before
+    `fn` and again after it, and a loss at either end takes them; the
+    spin kernels at each end are counted apart from the work's records.
+    Logs where the work's records lie in the trace against where the host
+    ran `fn`, both from the trace's start (a gap between the two that
+    grows over a run is the clock offset that the pads absorb), and how
+    many spin kernels each end kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     with _padded_trace(torch, [ProfilerActivity.CUDA]) as prof:
+        t_in = time.perf_counter()
+        _fill_device(torch)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if events:
-        first = min(e.time_range.start for e in events) * 1e-3
-        last = max(e.time_range.end for e in events) * 1e-3
-        log(f"[profiler] device records from {first:.3f} to {last:.3f} ms "
-            f"of the trace; the host ran the work from about "
-            f"{TRACE_PAD_S * 1e3:.0f} to {(TRACE_PAD_S + wall) * 1e3:.3f} "
-            f"ms")
-    return ({n: sum(f"{n}_kernel" in e.name for e in events) for n in names},
-            len(events))
+        _fill_device(torch)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    lead = 0
+    while lead < len(events) and "spin_kernel" in events[lead].name:
+        lead += 1
+    tail = len(events)
+    while tail > lead and "spin_kernel" in events[tail - 1].name:
+        tail -= 1
+    work = events[lead:tail]
+    if work:
+        first = work[0].time_range.start * 1e-3
+        last = max(e.time_range.end for e in work) * 1e-3
+        start = (TRACE_PAD_S + t0 - t_in) * 1e3
+        log(f"[profiler] device records of the work from {first:.3f} to "
+            f"{last:.3f} ms of the trace; the host ran it from about "
+            f"{start:.3f} to {start + wall * 1e3:.3f} ms; spin kernels kept "
+            f"{lead} of {TRACE_FILL} before it, {len(events) - tail} of "
+            f"{TRACE_FILL} after it")
+    return ({n: sum(f"{n}_kernel" in e.name for e in work) for n in names},
+            len(work))
 
 
 def device_launches(torch, what, fn, want,
@@ -2189,8 +2293,12 @@ def phase_rmsnorm(torch):
         # One bf16 ulp of the output, as the JAX package's tests hold the
         # oracle (kernel and plain version sum in f64 and round once, so
         # they agree but for rare rows).
-        errs.append(check_close(torch, got, rmsnorm_ref(x, scale), 2.0 ** -7,
-                                1e-6, f"rmsnorm ({N}, {d})"))
+        want = rmsnorm_ref(x, scale)
+        errs.append(check_close(torch, got, want, 2.0 ** -7, 1e-6,
+                                f"rmsnorm ({N}, {d})"))
+        if (N, d) in RMSNORM_TRAIN_ROWS:
+            require(torch.equal(got, want),
+                    f"rmsnorm ({N}, {d}): not bit for bit the plain version")
         if (N, d) != RMSNORM_ROWS[0]:
             ms = kernel_ms(torch, lambda: rmsnorm_cuda(x, scale), reps=100)
             w = scale.bfloat16()
@@ -2213,7 +2321,8 @@ def phase_rmsnorm(torch):
     rec["max_abs_err"] = max(errs)
     N, d = RMSNORM_ROWS[0]
     log(f"[check] rmsnorm: max abs err {rec['max_abs_err']:.3e} (rtol 2^-7, "
-        f"one bf16 ulp) at {RMSNORM_ROWS} bf16; at ({N}, {d}): kernel "
+        f"one bf16 ulp; bit for bit at {RMSNORM_TRAIN_ROWS}) at "
+        f"{RMSNORM_ROWS} bf16; at ({N}, {d}): kernel "
         f"{rec['ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} us, "
         f"F.rms_norm {rec['library_ms'] * 1e3:.2f} us, bound "
         f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
@@ -2315,6 +2424,98 @@ def phase_ssd_scan(torch):
     rec["max_abs_err"] = max(errs)
     log(f"[check] ssd_scan: {len(SSD_CASES)} cases, max abs err "
         f"{rec['max_abs_err']:.3e} (rtol = atol = 1e-5); " + "; ".join(timed))
+    return rec
+
+
+def plain_scan_grads(torch, states, dec, h0, g_prev, g_last):
+    """(h_prev, [dstates, ddecay(, dh0)]) of the plain forward and
+    autograd through it, for the gradients g_prev and g_last (None: not
+    passed). An output that no input reaches (h_prev of one chunk from
+    zeros) passes nothing; an input no gradient reaches gets zeros."""
+    inputs = [t.clone().requires_grad_(True) for t in
+              ((states, dec) if h0 is None else (states, dec, h0))]
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    outs = [(o, g) for o, g in zip(ssd_scan_ref(*inputs), (g_prev, g_last))
+            if g is not None and o.requires_grad]
+    want = torch.autograd.grad([o for o, _ in outs], inputs,
+                               [g for _, g in outs], allow_unused=True) \
+        if outs else [None] * len(inputs)
+    h_prev, _ = ssd_scan_ref(states, dec, h0)
+    return h_prev, [torch.zeros_like(x) if w is None else w
+                    for w, x in zip(want, inputs)]
+
+
+def phase_ssd_scan_bwd(torch):
+    """The backward kernel against autograd through the plain forward, at
+    SSD_BWD_CASES; the first SSD_BWD_TIMED timed beside the plain
+    backward (`ssd_scan_bwd_ref`) with h0 None and g_last None, as
+    `ssm_apply` calls it."""
+    from repro_torch.kernels.ssd_scan.kernel import (bwd_blocks,
+                                                     ssd_scan_bwd_cuda,
+                                                     ssd_scan_cuda)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs, rec, timed, n_checks = [0.0], {}, [], 0
+    for n, dims in enumerate(SSD_BWD_CASES):
+        B, NC, H, P, N = dims
+        states = torch.randn(dims, generator=gen, device=dev)
+        dec = torch.rand(dims[:3], generator=gen, device=dev)
+        h0 = torch.randn((B, H, P, N), generator=gen, device=dev)
+        g_prev = torch.randn(dims, generator=gen, device=dev)
+        g_last = torch.randn((B, H, P, N), generator=gen, device=dev)
+        for with_h0 in (False, True):
+            for last in (False, True):
+                h_prev, want = plain_scan_grads(
+                    torch, states, dec, h0 if with_h0 else None, g_prev,
+                    g_last if last else None)
+                hp, _ = ssd_scan_cuda(states, dec, h0 if with_h0 else None)
+                require(torch.equal(hp, h_prev),
+                        f"ssd_scan {dims}: the forward's h_prev")
+                got = ssd_scan_bwd_cuda(g_prev, g_last if last else None,
+                                        dec, hp, with_h0)
+                torch.cuda.synchronize()
+                what = (f"ssd_scan_bwd {dims} h0 {with_h0} g_last "
+                        f"{'given' if last else 'None'}")
+                require(torch.equal(got[0], want[0]),
+                        f"{what}: dstates not bitwise autograd's")
+                if with_h0:
+                    require(torch.equal(got[2], want[2]),
+                            f"{what}: dh0 not bitwise autograd's")
+                else:
+                    require(got[2] is None, f"{what}: a dh0 without h0")
+                rel = _rel_l2(torch, got[1], want[1])
+                require(rel < SSD_DECAY_REL_L2,
+                        f"{what}: ddecay relative L2 {rel:.3e}")
+                errs.append(float((got[1] - want[1]).abs().max()))
+                n_checks += 1
+        if n >= SSD_BWD_TIMED:
+            continue
+        hp, _ = ssd_scan_cuda(states, dec)
+        # What the function must move: read g_prev, h_prev and the decays
+        # once, write dstates and the decay gradient once (the kernel's
+        # per-block partial sums are its own design's cost, not counted).
+        # A multiply and an add for the carry, a multiply and an add for
+        # the decay gradient, per element and chunk.
+        nblk = bwd_blocks(P * N, True)
+        nbytes = 4 * (3 * states.numel() + 2 * dec.numel())
+        b_ms, b_by = bound(nbytes, 4 * states.numel(), H100_F32_OPS_PER_S)
+        ms = kernel_ms(torch, lambda: ssd_scan_bwd_cuda(g_prev, None, dec,
+                                                        hp, False), reps=100)
+        pms = plain_ms(torch, lambda: ssd_scan_bwd_ref(g_prev, None, dec,
+                                                       hp, False))
+        timed.append(f"{dims}: kernel {ms * 1e3:.2f} us, plain "
+                     f"{pms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+                     f"({b_by}, {nbytes / 1e6:.1f} MB, {nblk} blocks "
+                     f"along P·N)")
+        if n == 0:
+            rec.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)      # no PyTorch call computes it
+    rec["max_abs_err"] = max(errs)
+    log(f"[check] ssd_scan_bwd: {n_checks} checks at {len(SSD_BWD_CASES)} "
+        f"shapes against autograd through the plain version: dstates and "
+        f"dh0 bitwise, ddecay within relative L2 {SSD_DECAY_REL_L2:g} (max "
+        f"abs err {rec['max_abs_err']:.3e}); " + "; ".join(timed))
     return rec
 
 
@@ -2804,15 +3005,19 @@ def _agreement(torch, got, want):
             float((got.argmax(-1) == want.argmax(-1)).float().mean()))
 
 
-def _counter(torch, totals):
-    """`counted(fn)` -> (fn(), launches of rmsnorm and flash attention in
-    it, host ms to a sync): each count reset just before and read just
-    after, and added to `totals`."""
+def _counter(torch, totals, names=("rmsnorm", "flash_attention")):
+    """`counted(fn)` -> (fn(), launches of each kernel of `names` in it,
+    host ms to a sync): each count reset just before and read just after,
+    and added to `totals`."""
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd_cuda,
+                                                     ssd_scan_cuda)
     kernels = {"rmsnorm": rmsnorm_cuda,
-               "flash_attention": flash_attention_cuda}
+               "flash_attention": flash_attention_cuda,
+               "ssd_scan": ssd_scan_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda}
+    kernels = {n: kernels[n] for n in names}
 
     def counted(fn):
         torch.cuda.synchronize()
@@ -3859,6 +4064,225 @@ def phase_train_whisper(np, torch):
     return totals
 
 
+def expected_train_launches(cfg):
+    """Launches of each kernel in one remat train step of a decoder: its
+    layers' norms (ln1; ln2 with an FFN; the gated norm of a Mamba-2
+    mixer; q- and k-norm, or MLA's q and kv latents' norms) twice, in the
+    forward and the recompute, and ln_f; the MTP head's ln_h, ln_e and its
+    layer's norms once (it runs outside the checkpoints); flash attention
+    per attention layer twice and once in the MTP layer (its backward is
+    torch ops); ssd_scan per Mamba-2 layer twice, its backward once."""
+    def norms(i):
+        mixer, ffn = cfg.layer_kind(i)
+        return (1 + (ffn != "none") + (mixer == "ssm")
+                + 2 * (mixer == "mla" or (mixer == "attn" and cfg.qk_norm)))
+
+    def attn(i):
+        return cfg.layer_kind(i)[0] in ("attn", "mla")
+
+    L = range(cfg.num_layers)
+    n_ssm = sum(cfg.layer_kind(i)[0] == "ssm" for i in L)
+    mtp = cfg.num_layers - 1 if cfg.mtp_depth else None
+    return {"rmsnorm": 2 * sum(norms(i) for i in L) + 1
+            + (2 + norms(mtp) if mtp is not None else 0),
+            "flash_attention": 2 * sum(attn(i) for i in L)
+            + (attn(mtp) if mtp is not None else 0),
+            "ssd_scan": 2 * n_ssm, "ssd_scan_bwd": n_ssm}
+
+
+def _grads_kernel_vs_plain(np, torch, cfg, masters, batch, counted, tag):
+    """`loss_fn` and every gradient leaf of `masters` through the kernels
+    against the plain versions, at 8a's bounds (loss LOSS_RTOL relative,
+    each leaf GRAD_REL_L2 relative L2). An MoE model is held with free
+    routing first; if that misses and some (token, layer) expert set
+    differs between the paths, the plain path runs again on the kernel
+    path's expert ids (`_route`, its forward and its recompute alike),
+    and that run is required. Logs the flip share. Returns the kernel
+    pass's launches."""
+    from repro_torch.launch.steps import make_loss_fn, value_and_grad
+    from repro_torch.optim.adamw import tree_items
+
+    def run(kern, replay=None):
+        records = []
+        undo = (_route(torch, records, replay) if cfg.moe is not None
+                else lambda: None)
+        try:
+            (loss, grads), got, _ = counted(lambda: value_and_grad(
+                make_loss_fn(cfg, use_kernel=None if kern else False),
+                masters, batch))
+        finally:
+            undo()
+        return float(loss), dict(tree_items(grads)), records, got
+
+    def compare(kern, plain, what):
+        rel = abs(kern[0] - plain[0]) / abs(plain[0])
+        errs = {k: _rel_l2(torch, kern[1][k], plain[1][k]) for k in plain[1]}
+        worst = max(errs, key=errs.get)
+        log(f"{tag} {cfg.name} loss and gradients, kernels vs plain ({what})"
+            f": loss {kern[0]:.6f} vs {plain[0]:.6f}, relative {rel:.3e} "
+            f"(bound {LOSS_RTOL:g}); {len(errs)} gradient leaves, relative "
+            f"L2 worst {errs[worst]:.3e} at {worst} (bound {GRAD_REL_L2:g}),"
+            f" median {statistics.median(errs.values()):.3e}")
+        return (np.isfinite(kern[0]) and rel < LOSS_RTOL
+                and errs[worst] < GRAD_REL_L2)
+
+    kern = run(True)
+    plain = run(False)
+    ok = compare(kern, plain, "free routing")
+    if cfg.moe is not None:
+        k = cfg.moe.top_k
+        sets = sum(ids.numel() // k for ids in kern[2])
+        same = sum(int((a.sort(-1).values == b.sort(-1).values).all(-1)
+                       .sum()) for a, b in zip(kern[2], plain[2]))
+        log(f"{tag} {cfg.name}: expert sets that agree {same} of {sets} "
+            f"(token, routing call) pairs, flip share "
+            f"{1 - same / sets:.6f} ({len(kern[2])} routing calls: the "
+            f"forward's and the recompute's)")
+        if not ok:
+            require(same < sets, f"{cfg.name}: kernel gradients too far "
+                    f"from plain with every expert set agreeing")
+            plain = None
+            torch.cuda.empty_cache()
+            ok = compare(kern, run(False, replay=kern[2]),
+                         "the plain path on the kernel path's expert ids, "
+                         "required: free routing missed")
+    require(ok, f"{cfg.name}: loss or gradients through the kernels too far "
+            f"from the plain path")
+    launches = kern[3]
+    kern = plain = None
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_ssm(np, torch):
+    """8d: training mamba2-780m at full width and depth, and jamba,
+    qwen3-moe and deepseek-v3 (with its MTP loss) at full width and their
+    TRAIN_CUTS; every kernel count reset just before and read just after
+    each run. Writes nothing to disk (the steps, not `train()`). Returns
+    the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_items
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    totals = {}
+    counted = _counter(torch, totals, names=(
+        "rmsnorm", "flash_attention", "ssd_scan", "ssd_scan_bwd"))
+
+    def state_gib(masters):
+        return sum(t.numel() for _, t in tree_items(masters)) * 18 / 2**30
+
+    def steps(cfg, masters, shape, n, tag):
+        """n `make_train_step` steps, launches held to the design."""
+        want = expected_train_launches(cfg)
+        opt_cfg = AdamWConfig(total_steps=2 * n)
+        opt = adamw_init(masters, opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for i in range(n):
+            batch = synthetic_batch(cfg, shape, i)
+            (masters, opt, loss), got, ms = counted(
+                lambda: step(masters, opt, batch))
+            losses.append(loss)
+            walls.append(ms)
+            require(got == want, f"{cfg.name} step {i}: launches {got} != "
+                    f"{want}")
+        peak = torch.cuda.max_memory_allocated()
+        require(all(np.isfinite(x) for x in losses), f"{cfg.name} losses")
+        tokens = shape.seq_len * shape.global_batch
+        ms = statistics.median(walls[1:] if n > 2 else walls[-1:])
+        log(f"{tag} {cfg.name} {cfg.num_layers} layers, batch "
+            f"{shape.global_batch} x {shape.seq_len}, remat, {n} steps: "
+            f"losses {[round(x, 4) for x in losses]}, {ms:.1f} ms a step "
+            f"({'median of steps 2-' + str(n) if n > 2 else 'the last'}, "
+            f"host clock to the loss read and the update), "
+            f"{tokens / ms * 1e3:.0f} tokens/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, launches a step {got} by counter "
+            f"(expected {want}); step walls {[round(w, 1) for w in walls]} "
+            f"ms")
+        return masters, opt, step
+
+    # mamba2-780m: loss and gradients at GRAD_LAYERS layers, then the full
+    # depth for SSM_TRAIN_STEPS steps, one more profiled.
+    full = get_config("mamba2-780m")
+    shape = ShapeCell("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cfg = dataclasses.replace(full, num_layers=GRAD_LAYERS)
+    masters = tf.init_params(cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cfg, shape, 0).items()}
+    got = _grads_kernel_vs_plain(np, torch, cfg, masters, batch, counted,
+                                 "[train 8d]")
+    require(got == expected_train_launches(cfg),
+            f"mamba2 {GRAD_LAYERS} layers: launches {got}")
+    del masters, batch
+    torch.cuda.empty_cache()
+    masters = tf.init_params(full, seed=0, device=dev)
+    log(f"[train 8d] mamba2-780m at full width and depth: {full.num_layers} "
+        f"layers, d {full.d_model}, "
+        f"{full.ssm.expand * full.d_model // full.ssm.head_dim}"
+        f" SSM heads of ({full.ssm.head_dim}, {full.ssm.d_state}), chunk "
+        f"{full.ssm.chunk}; "
+        f"{full.param_count()} parameters, {state_gib(masters):.2f} GiB of "
+        f"training state at 18 bytes a parameter; no cut")
+    masters, opt, step = steps(full, masters, shape, SSM_TRAIN_STEPS,
+                               "[train 8d]")
+    prof_batch = synthetic_batch(full, shape, SSM_TRAIN_STEPS)
+
+    def one_step():
+        nonlocal masters, opt
+        masters, opt, _ = step(masters, opt, prof_batch)
+        torch.cuda.synchronize()
+
+    want = expected_train_launches(full)
+    dl = device_launches(torch, f"{full.num_layers}-layer mamba2 train step",
+                         one_step, {n: want[n] for n in
+                                    ("rmsnorm", "ssd_scan", "ssd_scan_bwd")},
+                         names=("rmsnorm", "ssd_scan", "ssd_scan_bwd"))
+    wall, busy, top = _device_breakdown(torch, one_step)
+    log(f"[train 8d] profiled {full.num_layers}-layer mamba2 step: device "
+        f"launches {dl}, wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.4f}; device time "
+        f"by kernel, top {len(top)}: " + "; ".join(
+            f"{n[:60]} {ms:.1f} ms x {c}" for n, ms, c in top))
+    del masters, opt, step
+    torch.cuda.empty_cache()
+
+    # The hybrid, MoE and MLA models at their cuts.
+    for arch, cut, (B, S), n, why in TRAIN_CUTS:
+        full = get_config(arch)
+        change = {k: v for k, v in cut.items() if k != "experts"}
+        moe = dataclasses.replace(full.moe, num_experts=cut["experts"]) \
+            if "experts" in cut else full.moe
+        cfg = dataclasses.replace(full, moe=moe, **change)
+        shape = ShapeCell("train", S, B, "train")
+        mtp = " + the MTP layer" if cfg.mtp_depth else ""
+        shared = f" + {moe.num_shared} shared" if moe.num_shared else ""
+        masters = tf.init_params(cfg, seed=0, device=dev)
+        log(f"[train 8d] {arch} at full width (d {cfg.d_model}), "
+            f"{cfg.num_layers} layers{mtp}, {moe.num_experts} experts "
+            f"top-{moe.top_k}{shared}, batch {B} x {S}: "
+            f"{cfg.param_count()} parameters, {state_gib(masters):.2f} GiB "
+            f"of training state; cut: {why}")
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in synthetic_batch(cfg, shape, 0).items()}
+        got = _grads_kernel_vs_plain(np, torch, cfg, masters, batch, counted,
+                                     "[train 8d]")
+        require(got == expected_train_launches(cfg),
+                f"{arch} loss and gradients: launches {got}")
+        del batch
+        masters, opt, step = steps(cfg, masters, shape, n, "[train 8d]")
+        del masters, opt, step
+        torch.cuda.empty_cache()
+    log(f"[train 8d] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return totals
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3891,7 +4315,8 @@ def _run_phases(np, torch, smi, wall0):
             "al_step_lanes": phase_al_step_lanes(np, torch, fleets[0]),
             "rmsnorm": phase_rmsnorm(torch),
             "flash_attention": phase_flash_attention(torch),
-            "ssd_scan": phase_ssd_scan(torch)}
+            "ssd_scan": phase_ssd_scan(torch),
+            "ssd_scan_bwd": phase_ssd_scan_bwd(torch)}
     log("[check] kernels held against their plain versions on the card: "
         + ", ".join(recs))
     del recs["al_step_lanes"]
@@ -3922,6 +4347,9 @@ def _run_phases(np, torch, smi, wall0):
     for name, n in phase_train_whisper(np, torch).items():
         launches[name] += n
     torch.cuda.empty_cache()
+    for name, n in phase_train_ssm(np, torch).items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
     # 6d and then 6e run last, so that the phases before them run as
     # they did before 6d was added: in one run with 6d between 6c and 7,
     # all three profiler traces of 8b's 32-layer train step read one
@@ -3931,14 +4359,23 @@ def _run_phases(np, torch, smi, wall0):
         for name, n in phase(np, torch).items():
             launches[name] += n
     kernels = []
-    for name, line in (("dr_features", 26), ("al_step", 41), ("rmsnorm", 20),
-                       ("flash_attention", 28), ("ssd_scan", 24)):
+    for name, replaces in (
+            ("dr_features", "src/repro/kernels/dr_features/kernel.py:26"),
+            ("al_step", "src/repro/kernels/al_step/kernel.py:41"),
+            ("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:20"),
+            ("flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:28"),
+            ("ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:24"),
+            # The JAX model differentiates its inline scan.
+            ("ssd_scan_bwd", "src/repro/models/ssm.py:129")):
         rec = recs[name]
-        require(launches[name] > 0, f"{name} never launched on its path")
+        require(launches.get(name, 0) > 0,
+                f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+            "source": "src/repro_torch/csrc/"
+            f"{name.removesuffix('_bwd')}.cu",
+            "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -14,8 +14,9 @@ layer but one of each `attn_layer_period`, at `attn_layer_offset`, which
 is GQA attention, and an MoE FFN in every `moe.layer_period`-th layer,
 the last of each period, a SwiGLU in the others). Any decoder family but
 the hybrid may take DeepSeek's multi-head latent attention (`MLAConfig`)
-in place of GQA. `mtp_depth` is kept so that the training path can name
-what it refuses. `ShapeCell` is the reference's (seq_len, global_batch,
+in place of GQA. `mtp_depth` gives the model DeepSeek-V3's
+multi-token-prediction head, which the training loss reads and serving
+does not. `ShapeCell` is the reference's (seq_len, global_batch,
 kind) cell, which the data pipeline, `train()` and
 `launch/analytics.py` read; `SHAPES` are the reference's four cells.
 """
@@ -83,7 +84,7 @@ class ArchConfig:
     encoder_layers: int = 0              # encoder-decoder
     encoder_seq: int = 1500              # whisper frame positions
     vision_tokens_frac: float = 0.25     # vlm: share of seq that is patches
-    mtp_depth: int = 0                   # DeepSeek MTP (not ported)
+    mtp_depth: int = 0                   # DeepSeek MTP head (training)
     dtype: str = "bfloat16"              # activation/compute dtype
     param_dtype: str = "float32"
     kv_quant: bool = False               # int8 KV cache (serving)
@@ -208,13 +209,22 @@ class ArchConfig:
             n += d + 3 * d * self.d_ff
         return n
 
+    def mtp_param_count(self) -> int:
+        """The MTP head, where the model has one: its projection from 2d
+        to d, its two norms and one layer of the last layer's kind."""
+        if not self.mtp_depth:
+            return 0
+        d = self.d_model
+        return 2 * d * d + 2 * d + self._layer_params(self.num_layers - 1)
+
     def param_count(self) -> int:
         """Parameters of the model, from shapes alone, every leaf of the
         tree counted (norm scales, biases, conv bias and dt bias too): the
         input embedding, the output one unless tied, the final norm(s),
-        and per layer its norms, mixer and FFN, each layer by its kind;
-        for the encoder-decoder the encoder blocks, `enc_ln`, and each
-        decoder block's `lnx` and cross-attention."""
+        per layer its norms, mixer and FFN, each layer by its kind, and
+        the MTP head where the model has one; for the encoder-decoder the
+        encoder blocks, `enc_ln`, and each decoder block's `lnx` and
+        cross-attention."""
         d = self.d_model
         tables = (1 if self.tie_embeddings else 2) * self.vocab_size * d
         if self.family == "encdec":
@@ -224,18 +234,21 @@ class ArchConfig:
             return (tables + self.encoder_layers * enc
                     + self.num_layers * dec + 2 * d)
         return tables + sum(self._layer_params(i)
-                            for i in range(self.num_layers)) + d
+                            for i in range(self.num_layers)) + d \
+            + self.mtp_param_count()
 
     def active_param_count(self) -> int:
-        """Parameters one token meets: all but the num_experts - top_k
-        routed experts it skips in each MoE layer."""
+        """Parameters one token meets in the forward: all but the MTP head
+        (which only the training loss reads; DeepSeek-V3 quotes its active
+        count so) and the num_experts - top_k routed experts it skips in
+        each MoE layer."""
+        n = self.param_count() - self.mtp_param_count()
         if self.moe is None:
-            return self.param_count()
+            return n
         moe_layers = sum(self.layer_kind(i)[1] == "moe"
                          for i in range(self.num_layers))
         skipped = self.moe.num_experts - self.moe.top_k
-        return self.param_count() - moe_layers * skipped \
-            * self._expert_params()
+        return n - moe_layers * skipped * self._expert_params()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,8 +4,9 @@ as the JAX package's `repro/configs/deepseek_v3_671b.py`.
 
 The reference's simplification is kept: all 61 layers are MoE (the
 release keeps the first 3 dense), so the layer stack is homogeneous.
-The serving path reads no MTP parameters; `loss_fn` refuses
-`mtp_depth` (ROADMAP item 12g).
+The MTP head (`mtp_depth=1`: a projection, two norms and one more MoE
+layer) is in the tree and in `param_count()`; the training loss reads it,
+the serving path does not.
 """
 from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig
 

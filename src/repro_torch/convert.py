@@ -78,12 +78,17 @@ def engine_state_from_arrays(x, lam_eq, lam_in, mu,
 # the embeddings are untied, `b` where the model has qkv biases, `q_norm`
 # / `k_norm` with qk-norm; under `moe` the stacked experts are arrays and
 # `shared` only where the model has shared experts; MLA's `q_norm` is
-# over the query latent). `_node` names a group position `l{j}`.
+# over the query latent; `mtp`, DeepSeek-V3's multi-token-prediction
+# head, holds its projection, two norms and one layer with no leading
+# group axis, whose keys are a group position's). `_node` names a group
+# position `l{j}`.
 _PARAM_KEYS = {
-    "": {"embed", "blocks", "ln_f", "unembed",
+    "": {"embed", "blocks", "ln_f", "unembed", "mtp",
          "enc_blocks", "enc_ln", "dec_blocks", "dec_ln"},
+    "mtp": {"proj", "ln_h", "ln_e", "layer"},
     "embed": {"table"}, "unembed": {"table"}, "blocks": {"l{j}"},
-    "l{j}": {"ln1", "attn", "ln2", "ffn", "moe", "ssm"},
+    **{pos: {"ln1", "attn", "ln2", "ffn", "moe", "ssm"}
+       for pos in ("l{j}", "layer")},
     "enc_blocks": {"ln1", "attn", "ln2", "ffn"},
     "dec_blocks": {"ln1", "attn", "lnx", "xattn", "ln2", "ffn"},
     "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm",
@@ -98,14 +103,11 @@ _PARAM_KEYS = {
     "w_gate": {"w"}, "w_up": {"w"}, "w_down": {"w"},
     "ssm": {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
             "out_proj"},
-    "in_proj": {"w"}, "out_proj": {"w"},
+    "in_proj": {"w"}, "out_proj": {"w"}, "proj": {"w"},
     **{norm: {"scale"} for norm in ("ln_f", "ln1", "ln2", "lnx", "enc_ln",
                                     "dec_ln", "norm", "q_norm", "k_norm",
-                                    "kv_norm")},
+                                    "kv_norm", "ln_h", "ln_e")},
 }
-# Leaves of the reference's paths that the port does not have yet, and the
-# ROADMAP item that ports each.
-_UNPORTED_KEYS = {"mtp": "item 12g (MTP)"}
 
 
 def _node(key: str) -> str:
@@ -131,13 +133,6 @@ def transformer_params_from_arrays(tree: dict, device=None) -> dict:
     def walk(node, name):
         extra = {k for k in node if _node(k) not in _PARAM_KEYS.get(name,
                                                                     set())}
-        unported = sorted(k for k in extra if k in _UNPORTED_KEYS)
-        if unported:
-            items = sorted({_UNPORTED_KEYS[k] for k in unported})
-            raise NotImplementedError(
-                f"parameters {unported} under {name or 'the root'!r} belong "
-                f"to a model path the port does not have yet (ROADMAP "
-                f"{', '.join(items)})")
         if extra:
             raise NotImplementedError(
                 f"parameters {sorted(extra)} under {name or 'the root'!r} "

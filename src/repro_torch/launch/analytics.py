@@ -18,7 +18,8 @@ pass (and the optimizer's read and write of parameters and moments when
 training), about c reads and writes of each layer boundary's
 activations, and for decode the whole KV cache (the SSM state in a
 Mamba-2 layer). Parameter bytes come from the port's exact
-`param_count()`, where the reference's is approximate (ROADMAP B6), so
+`param_count()`, where the reference's is approximate (ROADMAP B6), less
+the MTP head outside training (`params_read`), so
 `cell_hbm_bytes`, `analytic_record` and a training cell's
 `cell_ici_bytes` exceed the reference's by the parameters it leaves out.
 """
@@ -126,16 +127,24 @@ def cell_flops(cfg: ArchConfig, shape: ShapeCell) -> float:
     return f
 
 
-def _param_bytes(cfg: ArchConfig) -> float:
+def params_read(cfg: ArchConfig, shape: ShapeCell) -> int:
+    """Parameters a step of the cell reads: every one in training; in
+    prefill and decode all but the MTP head, which only the training loss
+    reads."""
+    n = cfg.param_count()
+    return n if shape.kind == "train" else n - cfg.mtp_param_count()
+
+
+def _param_bytes(cfg: ArchConfig, shape: ShapeCell) -> float:
     bpp = {"float32": 4, "bfloat16": 2}[cfg.param_dtype]
-    return cfg.param_count() * bpp
+    return params_read(cfg, shape) * bpp
 
 
 def cell_hbm_bytes(cfg: ArchConfig, shape: ShapeCell, chips: int) -> float:
     """Per-device HBM traffic a step (approximate)."""
     B, S = shape.global_batch, shape.seq_len
     d = cfg.d_model
-    pbytes = _param_bytes(cfg)
+    pbytes = _param_bytes(cfg, shape)
     act_bpp = 2 if cfg.dtype == "bfloat16" else 4
     if shape.kind == "train":
         # Weights: forward, backward and remat reads and the gradient's
@@ -193,7 +202,7 @@ def cell_ici_bytes(cfg: ArchConfig, shape: ShapeCell, data: int, model: int,
       a cross-pod gradient all-reduce when pods > 1 (data parallel).
     """
     B, S = shape.global_batch, shape.seq_len
-    pbytes = _param_bytes(cfg)
+    pbytes = _param_bytes(cfg, shape)
     act_bpp = 2 if cfg.dtype == "bfloat16" else 4
     ring_d = (data - 1) / data if data > 1 else 0.0
     ring_m = (model - 1) / model if model > 1 else 0.0

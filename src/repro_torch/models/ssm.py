@@ -6,8 +6,14 @@
 computed in chunks: the intra-chunk part as masked matrix products, the
 inter-chunk state recurrence through the hand-written `ssd_scan` kernel
 on the card (`repro_torch.kernels.ssd_scan.ops`), where the JAX model
-runs it inline as a `lax.scan`. Decode is the O(1) recurrence on the
-(H, P, N) state, updated in place in the cache it is given.
+runs it inline as a `lax.scan`. Under autograd the scan runs inside
+`SSDScanFn`, whose backward is the hand-written backward kernel (the
+recurrence in reverse); everything around it is differentiated by
+autograd, as `jax.grad` differentiates the reference: the masked
+exponent's -inf gives exp 0 and a zero gradient, and the bf16 round
+trips pass their gradient through as the reference's `astype` does.
+Decode is the O(1) recurrence on the (H, P, N) state, updated in place
+in the cache it is given.
 
 The numerics follow the JAX model's: where it multiplies a bfloat16
 array by a float32 one (which promotes to float32) or asks an einsum for

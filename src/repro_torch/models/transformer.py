@@ -16,6 +16,9 @@ SSM state and conv tail for Mamba-2 layers. An MoE layer's FFN is
 and reads the logits off the input table. The VLM family is the dense
 stack with vision-patch embeddings ahead of the text and M-RoPE
 positions in every attention layer; its loss scores the text tail only.
+With `cfg.mtp_depth` the tree has DeepSeek-V3's multi-token-prediction
+head `mtp` ({proj, ln_h, ln_e, layer}: one unstacked layer of the last
+layer's kind), which only the loss reads.
 The forward takes each stacked leaf apart with one `unbind`, whose
 backward is one `stack` (indexing layer by layer would scatter every
 layer's gradient into a zeroed copy of the whole stack). With
@@ -30,7 +33,8 @@ Public entry points:
                                                      (batch: tokens[,
                                                      vision_embeds,
                                                      mrope_positions])
-  loss_fn(params, cfg, batch)                     -> scalar loss
+  loss_fn(params, cfg, batch)                     -> scalar loss (with
+                                                     the MTP term)
   init_cache(cfg, batch, max_len, device)         -> decode cache tree
   decode_step(params, cfg, cache, token, length)  -> (logits, cache)
   prefill(params, cfg, tokens)                    -> f32 logits
@@ -145,6 +149,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = common.embedding_init(gen, cfg.vocab_size, d,
                                                   pdtype, dev)
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": common.linear_init(gen, 2 * d, d, pdtype, dev),
+            "ln_h": common.rmsnorm_init(d, pdtype, dev),
+            "ln_e": common.rmsnorm_init(d, pdtype, dev),
+            "layer": _block_init(gen, cfg, cfg.num_layers - 1, pdtype, dev,
+                                 ())}
     return params
 
 
@@ -194,12 +205,10 @@ def _ffn(p: dict, h, cfg: ArchConfig, ffn: str):
             else common.swiglu(p["ffn"], h))
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict,
-            use_kernel: bool | None = None) -> torch.Tensor:
-    """batch: {tokens (B, S)[, vision_embeds (B, Sv, d), mrope_positions
-    (3, B, S_total)]} -> f32 logits (B, S_total, V), the vision positions
-    first. `use_kernel=False` takes the kernels' plain versions on the
-    card."""
+def _hidden_states(params: dict, cfg: ArchConfig, batch: dict,
+                   use_kernel: bool | None = None) -> torch.Tensor:
+    """The forward up to and including the final norm (B, S_total, d),
+    which the MTP head reads (reference `transformer.py:168-183`)."""
     adtype = dtype_of(cfg.dtype)
     x = common.embed(params["embed"], batch["tokens"], adtype)
     if cfg.family == "vlm" and "vision_embeds" in batch:
@@ -210,31 +219,54 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
     x = run_layers(_apply_layer, params["blocks"],
                    cfg.num_layers // cfg.block_group_size(), x, cfg,
                    positions, mrope_positions, use_kernel)
-    x = common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
+    return common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict,
+            use_kernel: bool | None = None) -> torch.Tensor:
+    """batch: {tokens (B, S)[, vision_embeds (B, Sv, d), mrope_positions
+    (3, B, S_total)]} -> f32 logits (B, S_total, V), the vision positions
+    first. `use_kernel=False` takes the kernels' plain versions on the
+    card."""
+    x = _hidden_states(params, cfg, batch, use_kernel)
     return common.lm_head(params.get("unembed", params["embed"]), x)
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
             use_kernel: bool | None = None) -> torch.Tensor:
-    """Next-token cross-entropy of the dense, moe and vlm families, from
-    the f32 masters: they reach the products through `compute_params`' cast,
-    and the gradients flow back through it. batch: {tokens, labels} (B,
-    S), and for the vlm family its vision embeddings and M-RoPE
-    positions; the vision positions carry no loss, the text tail is
-    scored."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported (ROADMAP "
-            "item 12g: its Mamba-2 layers need a gradient through "
-            "ssd_scan)")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            "the MTP auxiliary loss is not ported (ROADMAP item 12g)")
-    logits = forward(compute_params(params, cfg), cfg, batch,
-                     use_kernel=use_kernel)
+    """Next-token cross-entropy of every decoder family, from the f32
+    masters: they reach the products through `compute_params`' cast, and
+    the gradients flow back through it. batch: {tokens, labels} (B, S),
+    and for the vlm family its vision embeddings and M-RoPE positions;
+    the vision positions carry no loss, the text tail is scored. With
+    `cfg.mtp_depth` (not for the vlm family) the loss adds 0.3 times
+    DeepSeek-V3's multi-token-prediction loss, as the reference's
+    (`transformer.py:186-207`): token t + 2 predicted from [ln_h(h_t);
+    ln_e(emb(t + 1))] projected to d and through the MTP layer (as layer
+    0, outside the remat checkpoints) and the shared output table."""
+    cp = compute_params(params, cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    h = _hidden_states(cp, cfg, batch, use_kernel)
     if cfg.family == "vlm" and "vision_embeds" in batch:
-        logits = logits[:, batch["vision_embeds"].shape[1]:]
-    return common.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        h = h[:, batch["vision_embeds"].shape[1]:]
+    table = cp.get("unembed", cp["embed"])
+    loss = common.cross_entropy(common.lm_head(table, h)[:, :-1],
+                                labels[:, 1:])
+    if not cfg.mtp_depth or cfg.family == "vlm":
+        return loss
+    m = cp["mtp"]
+    emb_next = common.embed(cp["embed"], tokens, dtype_of(cfg.dtype))
+    cat = torch.cat([
+        common.rmsnorm(m["ln_h"], h[:, :-1], use_kernel=use_kernel),
+        common.rmsnorm(m["ln_e"], emb_next[:, 1:], use_kernel=use_kernel)],
+        dim=-1)
+    x2 = common.linear(m["proj"], cat)
+    B, S2 = x2.shape[:2]
+    pos = torch.arange(S2, device=x2.device)[None].expand(B, S2)
+    x2 = _apply_layer(m["layer"], x2, cfg, 0, pos, None, use_kernel)
+    mtp_loss = common.cross_entropy(common.lm_head(table, x2)[:, :-1],
+                                    labels[:, 2:])
+    return loss + 0.3 * mtp_loss
 
 
 # ---------------------------------------------------------------------------

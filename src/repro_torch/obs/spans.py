@@ -32,8 +32,11 @@ from repro_torch.obs.events import EventWriter, SpanEvent
 
 __all__ = ["span", "SpanScope", "profile", "compile_count"]
 
-# Host time a CUDA profiling session holds on each side of its block.
+# Host time a CUDA profiling session holds on each side of its block, and
+# the spin kernels it runs before the block (PROFILE_FILL_CYCLES clock
+# cycles each).
 PROFILE_PAD_S = 0.25
+PROFILE_FILL, PROFILE_FILL_CYCLES = 256, 100_000
 
 
 @dataclasses.dataclass
@@ -118,7 +121,10 @@ def profile(logdir, *, name: str = "trace.json"):
     keeps only the device records that lie inside its window on the
     host's clock, and late in a long process the card's timestamps can
     stand late on it, which lost a block's tail of records, or all of a
-    short block's.
+    short block's. Such a trace can also lose its head, up to its first
+    ~50 device records, so the session then runs `PROFILE_FILL` spin
+    kernels (`spin_kernel` in the trace, ~13 ms on an H100) before the
+    block, and a loss there takes them instead of the block's records.
     """
     import torch
     from torch.profiler import ProfilerActivity
@@ -132,6 +138,9 @@ def profile(logdir, *, name: str = "trace.json"):
     with torch.profiler.profile(activities=acts) as prof:
         if cuda:
             time.sleep(PROFILE_PAD_S)
+            for _ in range(PROFILE_FILL):
+                torch.cuda._sleep(PROFILE_FILL_CYCLES)
+            torch.cuda.synchronize()
         yield prof
         if cuda:
             torch.cuda.synchronize()

@@ -6,15 +6,17 @@ decode_32k, long_500k), from shapes alone.
 `forward_flops` and `cell_flops` are equal exactly, and so is
 `cell_ici_bytes` wherever no parameter term enters it (every cell at one
 chip, every tensor-parallel split, every cell but training). The
-parameter terms read `param_count()`, which is exact in the port and
-approximate in the reference (ROADMAP B6): the test computes the gap,
-`cfg.param_count() - jcfg.param_count()` (the port's count being its
-`meta` tree's numel), and holds `cell_hbm_bytes`, `analytic_record` and
-the training cells' `cell_ici_bytes` equal exactly to the reference's
-run on the port's count (the reference's `param_count` replaced by a
-test-local monkeypatch), and their differences from the reference's own
-numbers equal to what the gap's bytes make, to 1e-12 relative (float
-sums in another order). Tolerance: exact, but for that 1e-12.
+parameter terms read `params_read()`: the port's exact `param_count()`,
+less deepseek's MTP head outside training, where the reference's count
+is approximate (ROADMAP B6). The test computes the gap,
+`params_read(cfg, shape) - jcfg.param_count()`, and holds
+`cell_hbm_bytes`, `analytic_record` and the training cells'
+`cell_ici_bytes` equal exactly to the reference's run on the port's
+counts (the reference's `param_count` and `active_param_count` replaced
+by a test-local monkeypatch; the record names the whole count), and
+their differences from the reference's own numbers equal to what the
+gap's bytes make, to 1e-12 relative (float sums in another order).
+Tolerance: exact, but for that 1e-12.
 
 Footprint: the reference is called through `repro.configs` and
 `repro.launch.analytics`, which imports only `repro.configs.base` and
@@ -53,7 +55,9 @@ def test_same_cells_and_configs_as_the_reference():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_count_is_the_meta_tree(arch):
     """The count the byte model reads is exact: the numel of the model's
-    tree on the `meta` device, and never below the reference's."""
+    tree on the `meta` device, and never below the reference's; the
+    active count leaves out the routed experts a token skips and the MTP
+    head (deepseek's), which only the training loss reads."""
     cfg, jcfg = get_config(arch), j_get_config(arch)
     mod = steps.model_module(cfg)
     params = mod.init_params(cfg, device="meta")
@@ -63,9 +67,10 @@ def test_param_count_is_the_meta_tree(arch):
                      for i in range(cfg.num_layers))
     if cfg.moe is not None:
         e = cfg.moe
+        mtp = sum(t.numel() for t in jax.tree.leaves(params.get("mtp", {})))
         assert cfg.param_count() - cfg.active_param_count() == \
             moe_layers * (e.num_experts - e.top_k) * 3 * cfg.d_model \
-            * e.d_expert_ff
+            * e.d_expert_ff + mtp
 
 
 @pytest.mark.parametrize("arch,shape", CELLS)
@@ -101,7 +106,8 @@ def _ici_gap_bytes(cfg, shape, gap, data):
 def test_bytes_and_record_match_jax_up_to_the_count_gap(arch, shape,
                                                         monkeypatch):
     cfg, jcfg, s, js = _pair(arch, shape)
-    gap = cfg.param_count() - jcfg.param_count()
+    n_read = analytics.params_read(cfg, s)
+    gap = n_read - jcfg.param_count()
     assert gap >= 0
     own = {}
     for chips in CHIPS:
@@ -122,13 +128,17 @@ def test_bytes_and_record_match_jax_up_to_the_count_gap(arch, shape,
         ici[data, model] = got
         assert analytics.cell_ici_bytes(cfg, s, data, model,
                                         fsdp_weights=False, pods=2) >= 0
-    # The reference on the port's exact count: equal, every number.
+    # The reference on the port's exact counts: equal, every number (the
+    # record names the whole count, the bytes read the cell's).
     n, n_active = cfg.param_count(), cfg.active_param_count()
-    monkeypatch.setattr(JArchConfig, "param_count", lambda self: n)
+    monkeypatch.setattr(JArchConfig, "param_count", lambda self: n_read)
+    monkeypatch.setattr(JArchConfig, "active_param_count",
+                        lambda self: n_active)
     for chips in CHIPS:
         got, record = own[chips]
         assert got == ja.cell_hbm_bytes(jcfg, js, chips)
-        assert record == ja.analytic_record(jcfg, js, chips)
+        assert record == dict(ja.analytic_record(jcfg, js, chips),
+                              param_count=n)
         assert record["param_count"] == n
         assert record["active_param_count"] == n_active
     for (data, model), got in ici.items():
@@ -137,6 +147,36 @@ def test_bytes_and_record_match_jax_up_to_the_count_gap(arch, shape,
             cfg, s, data, model, fsdp_weights=False, pods=2) == \
             ja.cell_ici_bytes(jcfg, js, data, model, fsdp_weights=False,
                               pods=2)
+
+
+@pytest.mark.parametrize("shape", [s.name for s in SHAPES])
+def test_only_training_reads_the_mtp_head(shape):
+    """deepseek-v3's MTP head (only the training loss reads it) adds its
+    bytes to a training cell's HBM and interconnect bytes and nothing to
+    a prefill or decode cell's."""
+    import dataclasses
+    cfg = get_config("deepseek-v3-671b")
+    bare = dataclasses.replace(cfg, mtp_depth=0)
+    s = {c.name: c for c in SHAPES}[shape]
+    head = cfg.mtp_param_count()
+    assert cfg.mtp_depth and head > 0 and bare.mtp_param_count() == 0
+    assert cfg.param_count() - bare.param_count() == head
+    train = s.kind == "train"
+    assert analytics.params_read(cfg, s) == \
+        bare.param_count() + (head if train else 0)
+    for chips in CHIPS:
+        diff = analytics.cell_hbm_bytes(cfg, s, chips) \
+            - analytics.cell_hbm_bytes(bare, s, chips)
+        if train:
+            assert diff == pytest.approx(_gap_bytes(cfg, s, head) / chips,
+                                         rel=REL)
+        else:
+            assert diff == 0.0
+    for data, model in SPLITS:
+        diff = analytics.cell_ici_bytes(cfg, s, data, model) \
+            - analytics.cell_ici_bytes(bare, s, data, model)
+        assert diff == pytest.approx(_ici_gap_bytes(cfg, s, head, data),
+                                     rel=REL, abs=1e-3)
 
 
 def test_jamba_at_sixteen_layers_by_hand():

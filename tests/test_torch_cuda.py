@@ -30,7 +30,13 @@ reduced qwen3-moe and deepseek-v3 (MLA at its own widths, Dh 192 and Dv
 128) within those bounds, and their decode steps against the forward; a
 reduced jamba (hybrid) within those bounds and its launches, its decode
 over the mixed cache against the forward in float32 (1e-4), and rmsnorm
-and ssd_scan bit for bit their plain versions at jamba's shapes.
+and ssd_scan bit for bit their plain versions at jamba's shapes; the
+ssd_scan backward kernel's dstates and dh0 bit for bit autograd's through
+the plain version and its decay gradient within 1e-6 relative L2 at
+chip_smoke's cases, `SSDScanFn` so through `ssd_chunked`, and mamba2-780m
+at full width and 2 layers: loss within 1e-3 and each gradient leaf
+within 0.05 relative L2 through the kernels of the plain path's, with the
+launches a remat step makes.
 """
 import importlib.util
 import pathlib
@@ -49,8 +55,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd_cuda,
+                                                 ssd_scan_cuda)
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 T = 48
 pytestmark = pytest.mark.cuda
@@ -411,6 +418,22 @@ def test_rmsnorm_kernel_bit_exact_at_jamba_rows(dev, N, d):
     assert float((got.float() - want.float()).abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("row", range(11))
+def test_rmsnorm_kernel_bit_exact_at_train_rows(dev, row):
+    """chip_smoke.py's RMSNORM_TRAIN_ROWS, the rows the SSM, MoE and MLA
+    train steps give the kernel (mamba2's 2 x 4096 at d 1536 and 3072,
+    qwen3-moe's 1 x 4096 and its qk-norm rows of 128, deepseek's latents
+    and its MTP head's 1023 positions): bit for bit the plain version."""
+    rows = _load_chip_smoke().RMSNORM_TRAIN_ROWS
+    assert len(rows) == 11
+    N, d = rows[row]
+    gen = torch.Generator(device=dev).manual_seed(N + d)
+    x = (1.5 * torch.randn((N, d), generator=gen, device=dev)).bfloat16()
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    got, want = rmsnorm_cuda(x, scale), rmsnorm_ref(x, scale)
+    assert torch.equal(got, want)
+
+
 def test_rmsnorm_kernel_refuses_rows_wider_than_it_holds(dev):
     with pytest.raises(ValueError, match="load units"):
         rmsnorm_cuda(torch.zeros((2, 32776), device=dev).bfloat16(),
@@ -433,16 +456,18 @@ def test_rmsnorm_kernel_unaligned_rows_and_bad_operands(dev):
         rmsnorm_cuda(x, scale[:-1])
 
 
-@pytest.mark.parametrize("case", range(22))
+@pytest.mark.parametrize("case", range(25))
 def test_flash_attention_kernel_matches_plain(dev, case):
     """chip_smoke.py's cases: causal and not, GQA and MQA, tails, Dv != Dh,
     q_offset, float32, a head width of no whole 16-byte vector, a
     1024-token prefill, whisper's encoder, cross-attention and decoder,
     granite-20b's MQA and qwen3-32b's GQA at Dh 128, deepseek-v3's MLA
     at Dh 192, Dv 128 (its prefill, 1024 tokens, ragged tails, q_offset,
-    float32), and jamba's prefills (GQA 32:8 at Dh 128: 8 x 64 tokens,
-    2 x 1024 and 1 x 8192)."""
-    assert len(_load_chip_smoke().FA_CASES) == 22
+    float32), jamba's prefills (GQA 32:8 at Dh 128: 8 x 64 tokens,
+    2 x 1024 and 1 x 8192), and the train steps' shapes: jamba's 1 x
+    2048, qwen3-moe's 1 x 4096 (GQA 32:4) and deepseek's MTP layer over
+    1023 positions."""
+    assert len(_load_chip_smoke().FA_CASES) == 25
     c = _load_chip_smoke().FA_CASES[case]
     causal, q_offset, bf16 = c[7], c[8], c[9]
     q, k, v = _load_chip_smoke().fa_inputs(torch, c, seed=case, dev=dev)
@@ -1550,3 +1575,142 @@ def test_full_width_train_step_loss_kernels_vs_plain(dev):
         leaves = (p["embed"]["table"], p["blocks"]["l0"]["ffn"]["w_up"]["w"])
         assert all(torch.isfinite(t).all() for t in leaves)
     assert abs(losses[True] - losses[False]) < 1e-3 * abs(losses[False])
+
+
+# ---------------------------------------------------------------------------
+# The ssd_scan backward kernel and SSM training
+# ---------------------------------------------------------------------------
+def _plain_scan_grads(states, dec, h0, g_prev, g_last):
+    return _load_chip_smoke().plain_scan_grads(torch, states, dec, h0,
+                                               g_prev, g_last)
+
+
+def _decay_close(got, want):
+    """Relative L2 within 1e-6 (zeros where no gradient reaches a
+    decay: one chunk, or the last without a gradient on h_last)."""
+    return float((got - want).norm()) <= 1e-6 * float(want.norm())
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_ssd_scan_bwd_kernel_is_autograd_through_the_plain_version(dev,
+                                                                   case):
+    """chip_smoke.py's SSD_BWD_CASES (phase 8d's train shapes, then the
+    forward's cases, a scalar P·N among them), with and without h0 and a
+    gradient on h_last: dstates and dh0 bitwise, ddecay within 1e-6
+    relative L2, one launch a call."""
+    cases = _load_chip_smoke().SSD_BWD_CASES
+    assert len(cases) == 12
+    dims = cases[case]
+    states, dec = _scan_inputs(dims, 20 + case, dev)
+    g = torch.Generator(device=dev).manual_seed(case)
+    h0 = torch.randn((dims[0],) + dims[2:], generator=g, device=dev)
+    g_prev = torch.randn(dims, generator=g, device=dev)
+    g_last = torch.randn((dims[0],) + dims[2:], generator=g, device=dev)
+    for init in (None, h0):
+        for last in (None, g_last):
+            h_prev, want = _plain_scan_grads(states, dec, init, g_prev, last)
+            before = ssd_scan_bwd_cuda.launches
+            got = ssd_scan_bwd_cuda(g_prev, last, dec, h_prev,
+                                    init is not None)
+            assert ssd_scan_bwd_cuda.launches == before + 1
+            assert torch.equal(got[0], want[0])
+            assert _decay_close(got[1], want[1])
+            if init is None:
+                assert got[2] is None
+            else:
+                assert torch.equal(got[2], want[2])
+            # The plain backward gives the same dstates and dh0.
+            ref = ssd_scan_bwd_ref(g_prev, last, dec, h_prev,
+                                   init is not None)
+            assert torch.equal(ref[0], got[0])
+            assert init is None or torch.equal(ref[2], got[2])
+
+
+def test_ssd_scan_bwd_kernel_without_chunk_gradients_unaligned_and_bad(dev):
+    """g_prev None (read as zeros); a g_prev view 4 bytes off a 16-byte
+    boundary (the scalar kernel); operands the kernel refuses."""
+    dims = (2, 3, 4, 8, 16)
+    states, dec = _scan_inputs(dims, 31, dev)
+    g_last = torch.randn((2, 4, 8, 16), device=dev)
+    h_prev, want = _plain_scan_grads(states, dec, None, torch.zeros_like(
+        states), g_last)
+    got = ssd_scan_bwd_cuda(None, g_last, dec, h_prev, False)
+    assert torch.equal(got[0], want[0]) and _decay_close(got[1], want[1])
+    flat = torch.randn(states.numel() + 1, device=dev)
+    off = flat[1:].view(dims)
+    _, want = _plain_scan_grads(states, dec, None, off, None)
+    got = ssd_scan_bwd_cuda(off, None, dec, h_prev, False)
+    assert torch.equal(got[0], want[0]) and _decay_close(got[1], want[1])
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan_bwd_cuda(off.bfloat16(), None, dec, h_prev, False)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_scan_bwd_cuda(None, g_last[:1].contiguous(), dec, h_prev, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_bwd_cuda(torch.randn((2, 3, 4, 16, 8), device=dev)
+                          .transpose(3, 4), None, dec, h_prev, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_bwd_cuda(None, None, dec.cpu(), h_prev.cpu(), False)
+
+
+def test_ssd_scan_fn_through_ssd_chunked_matches_plain_autograd(dev):
+    """`SSDScanFn` inside `ssd_chunked` at jamba's heads (128 of (64, 64),
+    chunk 256, 3 chunks) and an initial state: every input's gradient
+    within 1e-5 of autograd's through the plain version (the products
+    around the scan are the same torch ops on both paths), one forward
+    and one backward launch."""
+    from repro_torch.models import ssm
+    g = torch.Generator(device=dev).manual_seed(5)
+    Bz, Sz, H, P, N, Q = 1, 768, 128, 64, 64, 256
+    shapes = ((Bz, Sz, H, P), (Bz, Sz, H), (H,), (Bz, Sz, 1, N),
+              (Bz, Sz, 1, N), (Bz, H, P, N))
+    arrays = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    arrays[1] = 0.01 + 0.02 * arrays[1].abs()
+    arrays[2] = -arrays[2].abs().exp()
+    dy = torch.randn(shapes[0], generator=g, device=dev)
+    dh = torch.randn(shapes[5], generator=g, device=dev)
+    grads = []
+    for kern in (None, False):
+        f0, b0 = ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches
+        inputs = [a.clone().requires_grad_(True) for a in arrays]
+        y, h_last = ssm.ssd_chunked(*inputs[:5], Q, h0=inputs[5],
+                                    use_kernel=kern)
+        grads.append(torch.autograd.grad((y, h_last), inputs, (dy, dh)))
+        n = 1 if kern is None else 0
+        assert (ssd_scan_cuda.launches - f0,
+                ssd_scan_bwd_cuda.launches - b0) == (n, n)
+    for name, a, b in zip(("xh", "dt", "A", "Bm", "Cm", "h0"), *grads):
+        assert _rel_l2(a, b) < 1e-5, name
+
+
+def test_full_width_mamba2_gradients_kernels_vs_plain(dev):
+    """mamba2-780m at full width and 2 layers, batch 1 x 1024 (4 chunks),
+    remat on: the loss through the kernels within 1e-3 of the plain
+    path's and each gradient leaf within 0.05 relative L2 (chip_smoke's
+    8a bounds), the launches 4L + 1 rmsnorm, 2L ssd_scan and L backward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.steps import make_loss_fn, value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import tree_items
+    cfg = dataclasses.replace(get_config("mamba2-780m"), num_layers=2)
+    assert cfg.remat
+    masters = tf.init_params(cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
+        cfg, ShapeCell("t", 1024, 1, "train"), 0).items()}
+    out = {}
+    for kern in (None, False):
+        counts = (rmsnorm_cuda, ssd_scan_cuda, ssd_scan_bwd_cuda)
+        before = [f.launches for f in counts]
+        loss, grads = value_and_grad(make_loss_fn(cfg, use_kernel=kern),
+                                     masters, batch)
+        got = tuple(f.launches - b for f, b in zip(counts, before))
+        assert got == ((9, 4, 2) if kern is None else (0, 0, 0))
+        out[kern] = (float(loss), dict(tree_items(grads)))
+    (lk, gk), (lp, gp) = out[None], out[False]
+    assert np.isfinite(lk) and abs(lk - lp) < 1e-3 * abs(lp)
+    for key in gp:
+        assert _rel_l2(gk[key], gp[key]) < 0.05, key
+

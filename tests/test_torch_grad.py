@@ -230,15 +230,3 @@ def test_remat_recomputes_each_layer_in_the_backward(model, monkeypatch):
                              dataclasses.replace(cfg, remat=remat),
                              model["batch"])
         assert len(calls) == want, remat
-
-
-@pytest.mark.parametrize("change", [dict(mtp_depth=1), dict(family="ssm")])
-def test_loss_fn_refuses_what_is_not_ported(model, change):
-    cfg = model["cfg"]
-    if change.get("family") == "ssm":
-        cfg = reduced(get_config("mamba2-780m"))
-    else:
-        cfg = dataclasses.replace(cfg, **change)
-    tb = {k: torch.as_tensor(v) for k, v in model["batch"].items()}
-    with pytest.raises(NotImplementedError, match="12g"):
-        tf.loss_fn(model["params"], cfg, tb)

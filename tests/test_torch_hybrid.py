@@ -7,8 +7,8 @@ the odd positions) and at 16 (two groups), against
 `repro.models.transformer` and `repro.launch.serve`: the tree, the
 counts, the conversion, `forward`, every decode step's logits and cache
 leaves, decode against the teacher-forced forward, greedy tokens, a
-prompt that is no multiple of the chunk, the kernels a path calls, and
-`loss_fn`'s refusal. Then the Mamba-2 block and the MoE FFN at Jamba's
+prompt that is no multiple of the chunk and the kernels a path calls
+(its training: `test_torch_hybrid_train.py`). Then the Mamba-2 block and the MoE FFN at Jamba's
 own head shapes (128 heads of 64, state 64, chunk 256; 16 experts
 top-2). Parameters are the same numpy draws in both packages, carried
 over by `repro_torch.convert`.
@@ -516,13 +516,6 @@ def test_remat_checkpoints_a_group_and_changes_nothing():
     torch.testing.assert_close(grads[0][0], grads[1][0], rtol=0, atol=0)
     for a, b in zip(grads[0][1], grads[1][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-
-
-def test_loss_fn_refuses_the_hybrid_family_by_name(model):
-    batch = {"tokens": _tok(model["tokens"]),
-             "labels": _tok(model["tokens"])}
-    with pytest.raises(NotImplementedError, match="'hybrid'.*12g"):
-        tf.loss_fn(model["params"], model["cfg"], batch)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ against the JAX package's, on the CPU: `mla_attend` and the absorbed
 `mla_decode` over the latent cache against `repro.models.attention`, and
 the reduced deepseek-v3-671b (2 layers, d_model 64, 4 heads, MLA ranks
 32 / 16 with heads of 16 + 8 and values of 16, 4 experts top-2 and one
-shared expert, vocab 256, float32, no MTP head) against
+shared expert, vocab 256, float32, no MTP head: its head is
+`test_torch_mtp.py`'s) against
 `repro.models.transformer`: forward, decode steps, the cache, and
 `loss_fn` with every gradient leaf. The flash-attention kernel's plain
 version at MLA's full widths (Dh 192, Dv 128) is held against the JAX
@@ -326,16 +327,3 @@ def test_loss_and_gradients_match_jax(model):
     for key in want:
         np.testing.assert_allclose(got[key], want[key], **TOL, err_msg=key)
     assert float(np.abs(got["blocks.l0.attn.kv_norm.scale"]).max()) > 0
-
-
-def test_mtp_stays_refused(model):
-    """The MTP head waits for ROADMAP item 12g: the loss of a config with
-    one refuses it by name, and so does the conversion of its leaves."""
-    cfg = dataclasses.replace(model["cfg"], mtp_depth=1)
-    toks = _tok(_tokens(1))
-    with pytest.raises(NotImplementedError, match="12g"):
-        tf.loss_fn(model["params"], cfg, {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="'mtp'.*12g"):
-        transformer_params_from_arrays(
-            {"mtp": {"proj": {"w": np.zeros((8, 4), np.float32)}}},
-            device="cpu")

@@ -158,14 +158,15 @@ def test_configs_match_jax_field_for_field(arch):
 @pytest.mark.parametrize("arch", [ARCH, "deepseek-v3-671b"])
 def test_full_width_parameter_count_from_shapes(arch):
     """The full-width tree on the `meta` device against `jax.eval_shape`
-    (deepseek's MTP head aside: the serving path has none), and the exact
-    count: the reference's `param_count()` plus the leaves it leaves out
-    (norm scales: ln1, ln2, ln_f, qk-norm, MLA's q_norm and kv_norm)."""
+    (deepseek's MTP head included: the training loss reads it), and the
+    exact count: the reference's `param_count()` plus the leaves it
+    leaves out (norm scales: ln1, ln2, ln_f, qk-norm, MLA's q_norm and
+    kv_norm; the MTP head)."""
     cfg, jcfg = get_config(arch), j_get_config(arch)
     params = tf.init_params(cfg, device="meta")
     shapes = jax.eval_shape(
         lambda: j_tf.init_params(jcfg, jax.random.PRNGKey(0)))
-    shapes.pop("mtp", None)
+    assert ("mtp" in shapes) == ("mtp" in params) == bool(cfg.mtp_depth)
     assert jax.tree.map(lambda t: tuple(t.shape), params) == \
         jax.tree.map(lambda s: tuple(s.shape), shapes)
     n = sum(t.numel() for t in jax.tree.leaves(params))
@@ -173,8 +174,10 @@ def test_full_width_parameter_count_from_shapes(arch):
     extra = (2 * L + 1) * d + (L * 2 * cfg.dh if cfg.qk_norm else 0)
     if cfg.mla is not None:
         extra += L * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank)
+    if cfg.mtp_depth:
+        extra += sum(t.numel() for t in jax.tree.leaves(params["mtp"]))
     assert n == cfg.param_count() == jcfg.param_count() + extra
-    assert round(n / 1e9, 1) == {ARCH: 30.5, "deepseek-v3-671b": 703.8}[arch]
+    assert round(n / 1e9, 1) == {ARCH: 30.5, "deepseek-v3-671b": 715.4}[arch]
 
 
 def test_conversion_and_param_count_of_the_reduced_tree(model):

@@ -125,10 +125,10 @@ def test_full_width_parameter_count_from_shapes():
 
 
 def test_convert_refuses_parameters_of_unported_paths():
-    """The MTP head (deepseek) has no place in the port yet: the
-    conversion names the ROADMAP item that ports it instead of dropping
-    it, and refuses a leaf no model has. ROADMAP item 12d ported the MoE
-    router and MLA's down-projection: those leaves convert."""
+    """The conversion refuses a leaf no model has. ROADMAP item 12d ported
+    the MoE router and MLA's down-projection, and 12g the MTP head
+    (deepseek): those leaves convert, the head's layer without a group
+    axis."""
     w = np.zeros((1, 8, 8), np.float32)
     tree = {"blocks": {"l0": {"moe": {"router": {"w": w}}}}}
     got = transformer_params_from_arrays(tree, device="cpu")
@@ -140,8 +140,14 @@ def test_convert_refuses_parameters_of_unported_paths():
     assert tuple(got["blocks"]["l0"]["attn"]["wdq"]["w"].shape) == (1, 8, 8)
     assert tuple(got["blocks"]["l0"]["attn"]["q_norm"]["scale"].shape) == \
         (1, 8)
-    with pytest.raises(NotImplementedError, match="'mtp'.*12g"):
-        transformer_params_from_arrays({"mtp": {}}, device="cpu")
+    tree = {"mtp": {"proj": {"w": w[0]}, "ln_h": {"scale": w[0, 0]},
+                    "layer": {"ln1": {"scale": w[0, 0]},
+                              "moe": {"router": {"w": w[0]}}}}}
+    got = transformer_params_from_arrays(tree, device="cpu")["mtp"]
+    assert tuple(got["layer"]["moe"]["router"]["w"].shape) == (8, 8)
+    with pytest.raises(NotImplementedError, match="'blocks'.*'mtp'"):
+        transformer_params_from_arrays({"mtp": {"blocks": {}}},
+                                       device="cpu")
     tree = {"blocks": {"l0": {"attn": {"wo": {"w": w, "b": w[:, 0]}}}}}
     with pytest.raises(NotImplementedError, match="'b'"):
         transformer_params_from_arrays(tree, device="cpu")

@@ -126,6 +126,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    groups of one stream per region, 24 ticks, two groups against solo
    controllers; the CR1 sweep of 5e refined warm from `stack_states`
    (150 steps), each lane bitwise its warm `solve()`;
+5g. fleet row sharding on `torch.distributed`: CR1(1.45), CR2(0.78) and
+   CR3 (40 steps, on both sides) on phase 3's fleet and CR1 and CR2 on
+   phase 5e's (without its topology) solved unsharded, then through
+   `SolveContext(mesh=make_fleet_mesh())` in a world-1 NCCL group in
+   this process and on 3 gloo processes on the one card, spawned before
+   phase 5e so that their start-up runs beside 5e and 5f (W = 10,000
+   pads to 10,002; the regional fleet on a (3, 1) (region, fleet)
+   mesh), each rank's launch counts reset just before and read
+   just after every solve and held equal to the unsharded solve's, its
+   carbon and penalty within 0.01 pp of it, CR3's rounds and balance
+   equal and rho within 1e-4 (one round) or 2 %, pad rows of the state
+   0, the ranks' plans bitwise equal; max |dD|, bitwise or not, each
+   rank's walls and the phase's wall logged;
 6. the serving paths, each at full width (random weights from a seeded
    generator on the card), through `serve_requests` at max_batch 8, then
    4 (launch counts reset just before and read just after each path),
@@ -470,6 +483,16 @@ CR3_REGION_STEPS = 150
 # (S = 16 without a topology; S = 4 with it, each post-stage ~2 s).
 REGION_STREAM_SIGMA, REGION_STREAM_SEED = 0.03, 7
 REGION_ENSEMBLE_S, REGION_CREDIT_S = 16, 4
+# Fleet sharding (phase 5g): a world-1 NCCL group in this process and
+# SHARD_RANKS gloo processes on the one card (W = 10,000 pads to 10,002),
+# each held to the unsharded solve within the JAX package's sharded bound
+# (tests/test_fleet_sharding.py:84-97); CR3 at SHARD_CR3_STEPS on both
+# sides (its generic engine is host-bound: ~4.5 ms a step at this W).
+SHARD_RANKS = 3
+SHARD_PP = 0.01
+SHARD_CR3_STEPS = 40
+SHARD_RHO_MULTI = 0.02          # tests/test_torch_cr3.py: RHO_MULTI
+SHARD_WAIT_S = 600              # a rank's wait for each signal
 # Training (phase 8): stablelm-3b at full width, batch 2 x 4096 (the JAX
 # package's train_4k sequence), 6 steps under CR1(1.45)'s throttle. 8a
 # holds loss_fn and its gradient through the kernels against the plain
@@ -2275,6 +2298,256 @@ def phase_region_lanes(np, torch, p_single, p):
     log(f"[regions 5f] refinement: lanes bitwise equal to their warm "
         f"solve(); batched {ref_wall:.4f} s, loop {ww:.4f} s")
     log(f"[regions 5f] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return totals
+
+
+def _shard_cases(p, p_regions):
+    """Phase 5g's solves: (name, fleet, policy class name, policy kwargs,
+    SolveContext kwargs, mesh regions). The regional fleet without its
+    topology: the migration post-stage is the gathered plan's, the same
+    on every rank, and the CPU tests hold it."""
+    bare = dataclasses.replace(p_regions, topology=None)
+    return (("cr1", p, "CR1", {"lam": 1.45}, {}, None),
+            ("cr2", p, "CR2", {"cap_frac": 0.78}, {}, None),
+            ("cr3", p, "CR3", {}, {"steps": SHARD_CR3_STEPS}, None),
+            ("regions cr1", bare, "CR1", {"lam": 1.45}, {}, 3),
+            ("regions cr2", bare, "CR2", {"cap_frac": 0.78}, {}, 3))
+
+
+def _shard_summary(np, r, W):
+    """What a rank reports of a sharded result."""
+    import hashlib
+    st = r.state
+    pads = [float(a[W:].abs().max()) if a.dim() and a.shape[0] > W else 0.0
+            for a in (st.x, st.lam_eq, st.lam_in)]
+    return {"carbon": r.carbon_reduction_pct,
+            "penalty": r.total_penalty_pct, "iters": r.iters,
+            "extras": {k: r.extras[k] for k in ("rho", "balanced")
+                       if k in r.extras},
+            "D_shape": r.D.shape, "x_shape": tuple(st.x.shape),
+            "pad_max": max(pads),
+            "digest": hashlib.sha256(np.ascontiguousarray(r.D)).hexdigest()}
+
+
+def _shard_solves(np, torch, cases, mesh, keep_D):
+    """Every case through `solve` on `mesh`, each with the launch counts
+    reset just before and read just after: name -> summary (`keep_D`:
+    the plan too), launches, wall s."""
+    from repro_torch.core import api
+    from repro_torch.core.daygraph import COUNTED
+    out = {}
+    for name, fleet, pol, pkw, ckw, regions in cases:
+        ctx = api.SolveContext(mesh=mesh[regions], **ckw)
+        policy = getattr(api, pol)(**pkw)
+        for f in COUNTED.values():
+            f.launches = 0
+        r, wall = _timed(torch, lambda: api.solve(fleet, policy, ctx=ctx))
+        summary = _shard_summary(np, r, fleet.W)
+        if keep_D:
+            summary["D"] = r.D
+        out[name] = (summary, {n: f.launches for n, f in COUNTED.items()},
+                     wall)
+    return out
+
+
+def _shard_wait(tmp, name):
+    """Wait for the parent's signal file `tmp`/`name`."""
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(tmp, name)):
+        if time.perf_counter() - t0 > SHARD_WAIT_S:
+            raise TimeoutError(f"phase 5g: no {name} signal")
+        time.sleep(0.02)
+
+
+def _shard_rank(rank, world, tmp):
+    """One gloo rank of phase 5g on the card (spawned before phase 5e, so
+    that its start-up runs beside 5e and 5f): the cases from
+    `tmp`/cases.pkl (a file, so that starting the rank sends no fleet
+    through its pipe); once `tmp`/warm exists (phase 5g has begun), a
+    warm-up solve; once `tmp`/go exists, every case; its results to
+    `tmp`/rank<r>.pkl."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "gloo"), world), rank=rank, world_size=world)
+    try:
+        from repro_torch.core import api
+        from repro_torch.launch.mesh import make_fleet_mesh
+        with open(os.path.join(tmp, "cases.pkl"), "rb") as f:
+            cases = pickle.load(f)
+        mesh = {None: make_fleet_mesh(), 3: make_fleet_mesh(regions=3)}
+        _shard_wait(tmp, "warm")
+        for pol in (api.CR1(), api.CR2()):           # warm-up, not counted
+            api.solve(cases[0][1], pol, ctx=api.SolveContext(
+                steps=8, mesh=mesh[None]))
+        torch.cuda.synchronize()
+        _shard_wait(tmp, "go")
+        dist.barrier()
+        res = _shard_solves(np, torch, cases, mesh, keep_D=rank == 0)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_check(np, tag, name, got, solo, solo_launches, W, W_pad):
+    """A sharded rank's result against the unsharded solve: carbon and
+    penalty within SHARD_PP; CR3's rounds and balance equal and rho
+    within A6's bounds; shapes; pad rows 0; launches equal."""
+    summary, launches, _ = got
+    dc = abs(summary["carbon"] - solo.carbon_reduction_pct)
+    dp = abs(summary["penalty"] - solo.total_penalty_pct)
+    require(dc < SHARD_PP and dp < SHARD_PP,
+            f"{tag} {name}: {dc:.3e} pp carbon, {dp:.3e} pp penalty from "
+            f"the unsharded solve (limit {SHARD_PP})")
+    require(summary["D_shape"] == (W, solo.D.shape[1])
+            and summary["x_shape"] == (W_pad, solo.D.shape[1]),
+            f"{tag} {name}: D {summary['D_shape']}, state.x "
+            f"{summary['x_shape']}")
+    require(summary["pad_max"] == 0.0,
+            f"{tag} {name}: pad rows of the state {summary['pad_max']}")
+    require(summary["iters"] == solo.iters,
+            f"{tag} {name}: {summary['iters']} iterations, unsharded "
+            f"{solo.iters}")
+    if "rho" in solo.extras:
+        rho, want = summary["extras"]["rho"], solo.extras["rho"]
+        drho = abs(rho - want) / want
+        one = solo.iters == SHARD_CR3_STEPS * 3
+        require(summary["extras"]["balanced"] == solo.extras["balanced"]
+                and drho < (CR3_RHO_RTOL if one else SHARD_RHO_MULTI),
+                f"{tag} {name}: rho {rho} vs {want}, balanced "
+                f"{summary['extras']['balanced']}")
+    require(launches == solo_launches,
+            f"{tag} {name}: launches {launches} != unsharded "
+            f"{solo_launches}")
+
+
+def _shard_spawn(p, p_regions):
+    """Start phase 5g's SHARD_RANKS gloo ranks (`_shard_rank`) on the one
+    card, with its cases in a fresh temporary directory. -> (procs, tmp,
+    cases); `_shard_stop` ends them."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    cases = _shard_cases(p, p_regions)
+    tmp = tempfile.mkdtemp(prefix="fleet_mesh_")
+    with open(os.path.join(tmp, "cases.pkl"), "wb") as f:
+        pickle.dump(cases, f)
+    procs = mp.start_processes(_shard_rank, args=(SHARD_RANKS, tmp),
+                               nprocs=SHARD_RANKS, join=False,
+                               start_method="spawn")
+    return procs, tmp, cases
+
+
+def _shard_stop(ranks):
+    """Kill any of phase 5g's ranks still alive (none is left behind on a
+    failure) and remove their directory."""
+    procs, tmp, _ = ranks
+    for proc in procs.processes:
+        if proc.is_alive():
+            proc.kill()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_fleet_sharding(np, torch, p, p_regions, shard_ranks):
+    """Phase 5g: fleet row sharding on `torch.distributed`. CR1(1.45),
+    CR2(0.78) and CR3 (SHARD_CR3_STEPS) on the main fleet, CR1 and CR2 on
+    the three-region fleet over a (3, 1) (region, fleet) mesh: unsharded
+    in this process, then in a world-1 NCCL group here, and on the
+    SHARD_RANKS gloo processes `_shard_spawn` started on the one card (W
+    pads to a multiple of 3), each held to the unsharded solve
+    (`_shard_check`), the ranks to each other bitwise. Returns this
+    process's launches."""
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch.core import api
+    from repro_torch.launch.mesh import make_fleet_mesh
+    t_phase = time.perf_counter()
+    procs, tmp, cases = shard_ranks
+    # The ranks started up beside phases 5e and 5f; they warm up now,
+    # beside the unsharded and the NCCL solves.
+    pathlib.Path(tmp, "warm").touch()
+    totals = {"al_step": 0, "dr_features": 0}
+    solo, solo_launches = {}, {}
+    for name, fleet, pol, pkw, ckw, _ in cases:
+        policy = getattr(api, pol)(**pkw)
+        ctx = api.SolveContext(**ckw)
+        counts = dict.fromkeys(totals, 0)
+        solo[name], wall = count_launches(
+            torch, counts, "shard 5g", name,
+            lambda: api.solve(fleet, policy, ctx=ctx))
+        solo_launches[name] = counts
+        for k in totals:
+            totals[k] += counts[k]
+        r = solo[name]
+        rounds = f", rounds {_cr3_rounds(r, SHARD_CR3_STEPS, 3)}, rho " \
+            f"{r.extras['rho']:.6g}" if "rho" in r.extras else ""
+        log(f"[shard 5g] {name} unsharded: carbon "
+            f"{r.carbon_reduction_pct:.4f} %, penalty "
+            f"{r.total_penalty_pct:.4f} %, wall {wall:.4f} s, launches "
+            f"{counts}{rounds}")
+    pair = {k: solo_launches["cr1"][k] + solo_launches["cr2"][k]
+            for k in totals}
+    want_pair = {"al_step": 600 // 8 + 6 * (400 // 8),
+                 "dr_features": 1 + (1 + 6 + 1)}
+    require(pair == want_pair,
+            f"shard 5g: unsharded CR1 + CR2 launches {pair} != "
+            f"{want_pair}")
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "nccl"), 1), rank=0, world_size=1)
+    try:
+        # One rank: the regional cases take the 1-D mesh too.
+        mesh = {None: make_fleet_mesh(), 3: make_fleet_mesh()}
+        nccl = _shard_solves(np, torch, cases, mesh, keep_D=True)
+    finally:
+        dist.destroy_process_group()
+    for name, fleet, *_ in cases:
+        got = nccl[name]
+        for k in totals:
+            totals[k] += got[1][k]
+        _shard_check(np, "shard 5g nccl x1", name, got, solo[name],
+                     solo_launches[name], fleet.W, fleet.W)
+        dD = float(np.abs(got[0]["D"] - solo[name].D).max())
+        log(f"[shard 5g] {name} NCCL world 1: max |dD| {dD:.3e} NP, "
+            f"bitwise {np.array_equal(got[0]['D'], solo[name].D)}, "
+            f"wall {got[2]:.4f} s, launches {got[1]}")
+
+    pathlib.Path(tmp, "go").touch()
+    t_gloo = time.perf_counter()
+    while not procs.join(timeout=1.0):
+        pass
+    gloo_wall = time.perf_counter() - t_gloo
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    for name, fleet, *_ in cases:
+        W_pad = -(-fleet.W // SHARD_RANKS) * SHARD_RANKS
+        for r, res in enumerate(ranks):
+            _shard_check(np, f"shard 5g gloo rank {r}", name, res[name],
+                         solo[name], solo_launches[name], fleet.W, W_pad)
+            require(res[name][0]["digest"] == ranks[0][name][0]["digest"],
+                    f"shard 5g {name}: rank {r}'s plan differs from rank 0's")
+        D = ranks[0][name][0]["D"]
+        dD = float(np.abs(D - solo[name].D).max())
+        log(f"[shard 5g] {name} gloo x{SHARD_RANKS} on one card (W "
+            f"{fleet.W} -> {W_pad}): max |dD| {dD:.3e} NP, bitwise "
+            f"{np.array_equal(D, solo[name].D)}, carbon "
+            f"{ranks[0][name][0]['carbon']:.4f} %, walls "
+            + ", ".join(f"{res[name][2]:.4f}" for res in ranks)
+            + f" s, launches a rank {ranks[0][name][1]}")
+    log(f"[shard 5g] gloo ranks' solves {gloo_wall:.2f} s after the go "
+        f"signal; CR3 at {SHARD_CR3_STEPS} steps; phase wall "
+        f"{time.perf_counter() - t_phase:.2f} s")
     return totals
 
 
@@ -4328,9 +4601,16 @@ def _run_phases(np, torch, smi, wall0):
     for name, n in phase_policies(np, torch, fleets[0]).items():
         launches[name] += n
     p_regions = phase_region_fleet()
-    for phase in (phase_regions, phase_region_lanes):
-        for name, n in phase(np, torch, fleets[0], p_regions).items():
+    shard_ranks = _shard_spawn(fleets[0], p_regions)
+    try:
+        for phase in (phase_regions, phase_region_lanes):
+            for name, n in phase(np, torch, fleets[0], p_regions).items():
+                launches[name] += n
+        for name, n in phase_fleet_sharding(np, torch, fleets[0], p_regions,
+                                            shard_ranks).items():
             launches[name] += n
+    finally:
+        _shard_stop(shard_ranks)
     for path in SERVE_PATHS[:MOE_SERVE] + SERVE_PATHS[MOE_SERVE + 1:]:
         for name, n in phase_serve(np, torch, *path).items():
             launches[name] = launches.get(name, 0) + n

@@ -26,7 +26,8 @@ port keeps the ones that mean something in PyTorch:
 Rules with no meaning in the port are left out: ``donation-twin``
 (no jit twins; `SolveContext.donate` aliases a graph's buffers),
 ``check-rep-justification`` and ``adhoc-partition-spec`` (no
-shard_map or PartitionSpec; the mesh is ROADMAP item 11), and the
+shard_map or PartitionSpec: a fleet mesh is a `torch.distributed`
+``DeviceMesh``), and the
 JAX-specific halves of ``jit-host-leak`` and ``np-on-traced`` (a Python
 branch on a tensor is legal eager code; where a capture reaches it,
 the ``bool()`` it implies is what fires).

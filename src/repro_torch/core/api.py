@@ -65,7 +65,17 @@ once at the call boundary (`repro_torch.analysis.sanitize`), and the
 generic engine samples a convergence trace into device buffers
 (`repro_torch.obs.telemetry`); both leave the plan bitwise as it is.
 
-Not ported: meshes (ROADMAP queue 1, item 11).
+Fleet meshes (`SolveContext.mesh`, a `DeviceMesh` from
+`launch.mesh.make_fleet_mesh`): CR1, CR2 and CR3 `solve` shard the fleet's
+rows over the processes of a `torch.distributed` group, SPMD. Every
+process calls `solve` with the whole fleet, pads it to a multiple of the
+mesh size with inert rows (`fleet_solver.pad_fleet`), solves its own row
+block through the same engine and kernels as a solo solve, with the
+normalizers of the whole unpadded fleet, and all-gathers the blocks
+(`engine.al_minimize_sharded`): each returns the same result, `D` with
+the fleet's W rows and `state` padded, so that a warm re-solve chains
+without padding again. B1 and B3 ignore the mesh. Sweeps, `solve_day`,
+the ensembles and streaming refuse one (ROADMAP item 11a-ii).
 """
 from __future__ import annotations
 
@@ -79,19 +89,22 @@ import torch
 
 from repro_torch.analysis.sanitize import Sanitizer, checked, throw_code
 from repro_torch.core.daygraph import DAY_GRAPHS
-from repro_torch.core.engine import EngineConfig, EngineState, al_minimize
+from repro_torch.core.engine import (EngineConfig, EngineState, al_minimize,
+                                     al_minimize_sharded, gather_rows)
 from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, CR3_MU0,
                                            FleetProblem,
                                            FleetSolveResult, RegionIndex,
                                            _bounds,
                                            _enter_tick, _mean_projection,
-                                           _projection, _report,
+                                           _pad_state, _projection, _report,
                                            cr2_cap_plan, cr2_reference_fleet,
                                            cr2_reference_tensor, device_view,
-                                           fleet_penalties,
-                                           single_region_view)
-from repro_torch.core.regional import (cr1_norms, cr2_norms, cr3_reg_scale,
-                                       region_totals, segment_sum)
+                                           fleet_penalties, pad_fleet,
+                                           row_block, single_region_view)
+from repro_torch.core.regional import (CR1_NORM_FILLS, CR2_NORM_FILLS,
+                                       cr1_norms, cr2_norms, cr3_reg_scale,
+                                       pad_row_norms, region_totals,
+                                       segment_sum)
 from repro_torch.kernels.dispatch import resolve_device, resolve_use_kernel
 from repro_torch.obs.telemetry import ConvergenceTrace, TelemetryConfig
 
@@ -130,8 +143,11 @@ class SolveContext:
         output buffers, which the graph's next replay overwrites; without
         `donate` the state is cloned. `solve` returns fresh tensors
         either way.
-      mesh: the JAX package's device mesh; not ported yet (ROADMAP
-        queue 1, item 11), every entry point refuses it.
+      mesh: a fleet mesh (`launch.mesh.make_fleet_mesh`, a
+        `torch.distributed` `DeviceMesh` on this device's type): CR1, CR2
+        and CR3 `solve` shard the fleet's rows over its processes (see
+        the module docstring); B1 and B3 ignore it. Sweeps, `solve_day`,
+        the ensembles and streaming refuse it (ROADMAP item 11a-ii).
       coupled_migration: move cross-region migration into the solve.
         After the base (per-region) solve, curtailment and interconnect
         flows refine jointly under the same engine (per-link caps in the
@@ -295,10 +311,99 @@ def _trace_extras(out, telemetry_every: int) -> dict | None:
 
 
 def refuse_mesh(ctx: SolveContext | None) -> None:
+    """The entry points that do not shard over a fleet mesh yet."""
     if ctx is not None and ctx.mesh is not None:
         raise NotImplementedError(
-            "SolveContext.mesh is not ported yet (ROADMAP queue 1, item 11: "
-            "multi-GPU row sharding)")
+            "SolveContext.mesh is not ported yet for sweeps, solve_day, "
+            "ensembles and streaming (ROADMAP item 11a-ii); solve() shards "
+            "CR1, CR2 and CR3")
+
+
+def _fleet_mesh(ctx: SolveContext, device: torch.device):
+    """`ctx.mesh` checked against the solve's device
+    (`launch.mesh.check_fleet_mesh`); None without one."""
+    if ctx.mesh is None:
+        return None
+    from repro_torch.launch.mesh import check_fleet_mesh
+    check_fleet_mesh(ctx.mesh, device)
+    return ctx.mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """One problem split over a fleet mesh, as this process sees it."""
+    mesh: Any
+    W: int                 #: the fleet's rows
+    W_pad: int             #: padded to a multiple of the mesh size
+    rows: slice            #: this process's block of the padded rows
+    view: FleetProblem     #: the device view of that block
+    region: np.ndarray | None   #: the padded fleet's host region ids
+
+    def block_norms(self, norms, fills):
+        """The whole fleet's norms on this block: per-row twins padded
+        (`pad_row_norms`) and cut; single-region scalars as they are."""
+        if self.region is None:
+            return norms
+        return tuple(a[self.rows] for a in pad_row_norms(norms, self.W_pad,
+                                                         fills))
+
+    def block_rows(self, a: Tensor, fill: float = 0.0) -> Tensor:
+        """This block's rows of a (W, ...) tensor of the fleet, the pad
+        rows filled with `fill`."""
+        pad = torch.full((self.W_pad - self.W,) + tuple(a.shape[1:]), fill,
+                         dtype=a.dtype, device=a.device)
+        return torch.cat([a, pad])[self.rows]
+
+    def warm(self, warm: EngineState | None, T: int, device, *,
+             eq: bool = False, ineq: bool = False,
+             mu0: float = EngineConfig.mu0) -> EngineState:
+        """The padded global start: `warm` padded, or a cold state with a
+        multiplier a row for the equalities (`eq`) or inequalities
+        (`ineq`)."""
+        if warm is not None:
+            return _pad_state(warm, self.W_pad)
+        return EngineState.cold(
+            torch.zeros((self.W_pad, T), dtype=f32, device=device),
+            n_eq=self.W_pad if eq else 0, n_in=self.W_pad if ineq else 0,
+            mu0=mu0)
+
+
+def _shard(p: FleetProblem, mesh, device: torch.device) -> _Shard:
+    """Pad `p` for `mesh` and take this process's row block."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import fleet_ranks
+    ranks = fleet_ranks(mesh)
+    pp, W = pad_fleet(p, len(ranks))
+    i, n = ranks.index(dist.get_rank()), pp.W // len(ranks)
+    return _Shard(mesh, W, pp.W, slice(i * n, (i + 1) * n),
+                  device_view(row_block(pp, i, len(ranks)), device),
+                  None if pp.region is None else np.asarray(pp.region))
+
+
+def _al_run(shard: _Shard | None, objective, project, state0: EngineState,
+            **pieces):
+    """A solve's engine run: `al_minimize` on the whole view, or, over a
+    fleet mesh, `al_minimize_sharded` on this process's block."""
+    if shard is None:
+        return al_minimize(objective, project, state0.x, init=state0,
+                           **pieces)
+    return al_minimize_sharded(objective, project, state0, mesh=shard.mesh,
+                               rows=shard.rows, true_rows=shard.W, **pieces)
+
+
+def _impl_out(p: FleetProblem, shard: _Shard | None, D: Tensor, aux: dict,
+              use_kernel: bool, telemetry_every: int = 0):
+    """(D, penalties, state) of an engine run, and the telemetry dict 4th
+    with `telemetry_every`; over a fleet mesh the block's penalties (one
+    `fleet_penalties` call on the block view `p`) are gathered."""
+    with torch.no_grad():
+        if shard is None:
+            pens = fleet_penalties(p, D, use_kernel)
+        else:
+            pens = gather_rows(shard.mesh, fleet_penalties(
+                p, D[shard.rows], use_kernel))
+    out = (D, pens, aux["state"])
+    return out + (aux["telemetry"],) if telemetry_every else out
 
 
 def solve(problem: FleetProblem, policy, *,
@@ -311,7 +416,6 @@ def solve(problem: FleetProblem, policy, *,
     policy = resolve_policy(policy)
     if ctx.sanitize:
         _require_sanitizable(policy, ctx)
-    refuse_mesh(ctx)
     problem = single_region_view(problem)
     return _migrate(problem, policy, policy.solve(problem, ctx), ctx)
 
@@ -613,24 +717,26 @@ def _cr1_cfg(steps: int, moment_dtype: str = "float32",
 def _cr1_impl(p: FleetProblem, lam, state0: EngineState, steps: int,
               use_kernel: bool, shift: int, reset_mu: bool,
               moment_dtype: str, sanitizer: Sanitizer | None = None,
-              telemetry_every: int = 0):
+              telemetry_every: int = 0, *, norms=None,
+              shard: _Shard | None = None):
     """One CR1 solve on the device view `p` -> (D, penalties, state), and
     the engine's telemetry dict 4th with `telemetry_every`. `lam` is a
     float or a 0-d float32 tensor (a day's static buffer); `sanitizer`
-    records the engine's checks."""
+    records the engine's checks. Over a fleet mesh (`shard`), `p` is this
+    process's block view, `norms` the whole fleet's cut to the block
+    (`_Shard.block_norms`), `state0` the padded global state, and the
+    outputs are global; without one the norms are `p`'s own."""
     state0 = _enter_tick(state0, shift, reset_mu, CR1_MU0)
-    norms = cr1_norms(p)
+    norms = cr1_norms(p) if norms is None else norms
     objective, project, step_scale = _cr1_pieces(p, use_kernel, norms)
     cfg = _cr1_cfg(steps, moment_dtype, telemetry_every)
     fused = _al_fused_inner(p, "cr1", cfg, car_norm=norms[1],
                             step_scale=step_scale,
                             coef0=lam * norms[0]) if use_kernel else None
-    D, aux = al_minimize(objective, project, state0.x, hyper=lam,
-                         step_scale=step_scale, init=state0, cfg=cfg,
-                         fused_inner=fused, sanitizer=sanitizer)
-    with torch.no_grad():
-        out = (D, fleet_penalties(p, D, use_kernel), aux["state"])
-    return out + (aux["telemetry"],) if telemetry_every else out
+    D, aux = _al_run(shard, objective, project, state0, hyper=lam,
+                     step_scale=step_scale, cfg=cfg, fused_inner=fused,
+                     sanitizer=sanitizer)
+    return _impl_out(p, shard, D, aux, use_kernel, telemetry_every)
 
 
 @_register
@@ -653,14 +759,25 @@ class CR1:
         _require_telemetry_ok(ctx, use_kernel)
         steps = ctx.resolved_steps(self)
         tel = _tel_every(ctx)
-        warm = ctx.warm or EngineState.cold(_cold_x(p, device))
-        out = _solve_sanitized(
-            _cr1_impl, device_view(p, device), self.lam, warm, steps,
-            use_kernel, ctx.shift, ctx.reset_mu, ctx.moment_dtype,
-            sanitize=ctx.sanitize, telemetry_every=tel)
+        mesh = _fleet_mesh(ctx, device)
+        if mesh is None:
+            warm = ctx.warm or EngineState.cold(_cold_x(p, device))
+            out = _solve_sanitized(
+                _cr1_impl, device_view(p, device), self.lam, warm, steps,
+                use_kernel, ctx.shift, ctx.reset_mu, ctx.moment_dtype,
+                sanitize=ctx.sanitize, telemetry_every=tel)
+        else:
+            sh = _shard(p, mesh, device)
+            norms = sh.block_norms(cr1_norms(device_view(p, device)),
+                                   CR1_NORM_FILLS)
+            out = _cr1_impl(
+                sh.view, self.lam, sh.warm(ctx.warm, p.T, device), steps,
+                use_kernel, ctx.shift, ctx.reset_mu, ctx.moment_dtype,
+                telemetry_every=tel, norms=norms, shard=sh)
         D, pens, state = out[:3]
-        return _report(p, D.cpu().numpy(), pens.cpu().numpy(), iters=steps,
-                       state=state, extras=_trace_extras(out, tel))
+        return _report(p, D[:p.W].cpu().numpy(), pens[:p.W].cpu().numpy(),
+                       iters=steps, state=state,
+                       extras=_trace_extras(out, tel))
 
     # -- the batched sweep lane ---------------------------------------------
     @classmethod
@@ -714,23 +831,25 @@ def _cr2_cfg(steps: int, outer: int, moment_dtype: str = "float32",
 def _cr2_impl(p: FleetProblem, refs: Tensor, state0: EngineState,
               steps: int, outer: int, use_kernel: bool, shift: int,
               reset_mu: bool, moment_dtype: str,
-              sanitizer: Sanitizer | None = None, telemetry_every: int = 0):
+              sanitizer: Sanitizer | None = None, telemetry_every: int = 0,
+              *, norms=None, shard: _Shard | None = None):
     """One CR2 solve on the device view `p` -> (D, penalties, state), and
-    the telemetry dict 4th with `telemetry_every` (as `_cr1_impl`)."""
+    the telemetry dict 4th with `telemetry_every` (as `_cr1_impl`, mesh
+    included). Over a fleet mesh `refs` are the block's fairness targets
+    of the whole fleet (0 on pad rows, whose residuals are then
+    identically 0)."""
     state0 = _enter_tick(state0, shift, reset_mu, CR2_MU0)
-    norms = cr2_norms(p, refs)
+    norms = cr2_norms(p, refs) if norms is None else norms
     objective, eq, project, step_scale = _cr2_pieces(p, refs, use_kernel,
                                                      norms)
     cfg = _cr2_cfg(steps, outer, moment_dtype, telemetry_every)
     fused = _al_fused_inner(p, "cr2", cfg, car_norm=norms[0],
                             step_scale=step_scale, scale=norms[1],
                             refs=refs) if use_kernel else None
-    D, aux = al_minimize(objective, project, state0.x, eq_residual=eq,
-                         step_scale=step_scale, init=state0, cfg=cfg,
-                         fused_inner=fused, sanitizer=sanitizer)
-    with torch.no_grad():
-        out = (D, fleet_penalties(p, D, use_kernel), aux["state"])
-    return out + (aux["telemetry"],) if telemetry_every else out
+    D, aux = _al_run(shard, objective, project, state0, eq_residual=eq,
+                     step_scale=step_scale, cfg=cfg, fused_inner=fused,
+                     sanitizer=sanitizer)
+    return _impl_out(p, shard, D, aux, use_kernel, telemetry_every)
 
 
 @_register
@@ -758,14 +877,27 @@ class CR2:
         # whatever `use_kernel` says, as the JAX package's auto dispatch.
         refs = torch.as_tensor(cr2_reference_fleet(p, self.cap_frac, device),
                                device=device)
-        warm = ctx.warm or EngineState.cold(_cold_x(p, device), n_eq=p.W,
-                                            mu0=CR2_MU0)
-        out = _solve_sanitized(
-            _cr2_impl, device_view(p, device), refs, warm, steps, self.outer,
-            use_kernel, ctx.shift, ctx.reset_mu, ctx.moment_dtype,
-            sanitize=ctx.sanitize, telemetry_every=tel)
+        mesh = _fleet_mesh(ctx, device)
+        if mesh is None:
+            warm = ctx.warm or EngineState.cold(_cold_x(p, device), n_eq=p.W,
+                                                mu0=CR2_MU0)
+            out = _solve_sanitized(
+                _cr2_impl, device_view(p, device), refs, warm, steps,
+                self.outer, use_kernel, ctx.shift, ctx.reset_mu,
+                ctx.moment_dtype, sanitize=ctx.sanitize, telemetry_every=tel)
+        else:
+            # The whole fleet's norms and targets, cut to this block.
+            sh = _shard(p, mesh, device)
+            norms = sh.block_norms(cr2_norms(device_view(p, device), refs),
+                                   CR2_NORM_FILLS)
+            out = _cr2_impl(
+                sh.view, sh.block_rows(refs),
+                sh.warm(ctx.warm, p.T, device, eq=True, mu0=CR2_MU0), steps,
+                self.outer, use_kernel, ctx.shift, ctx.reset_mu,
+                ctx.moment_dtype, telemetry_every=tel, norms=norms,
+                shard=sh)
         D, pens, state = out[:3]
-        return _report(p, D.cpu().numpy(), pens.cpu().numpy(),
+        return _report(p, D[:p.W].cpu().numpy(), pens[:p.W].cpu().numpy(),
                        iters=steps * self.outer, state=state,
                        extras=_trace_extras(out, tel))
 
@@ -875,7 +1007,8 @@ def _cr3_cfg(steps: int, outer: int) -> EngineConfig:
 
 def _cr3_impl(p: FleetProblem, rho, tax_frac, reg_scale: float,
               state0: EngineState, steps: int, outer: int, use_kernel: bool,
-              shift: int = 0, reset_mu: bool = False):
+              shift: int = 0, reset_mu: bool = False, *,
+              shard: _Shard | None = None):
     """All W selfish problems in one AL solve on the device view `p`.
     Each workload i minimizes its own penalty s.t. the peak-allowance
     inequality (Eq. 5/8)
@@ -884,16 +1017,20 @@ def _cr3_impl(p: FleetProblem, rho, tax_frac, reg_scale: float,
 
     (a smooth max, as `policies.cr3_workload_spec`). Objective, residual
     and projection are row-separable, so this one engine run is the W
-    best responses. -> (D, penalties, state)."""
+    best responses. -> (D, penalties, state). Over a fleet mesh
+    (`shard`), `p` is this process's block view: the allowance
+    inequality, its multipliers and the step scale live with their rows;
+    rho, the tax and a single-region `reg_scale` are replicated, a
+    multi-region one is the block's rows; the outputs are global, and the
+    Eq.-6 fiscal sums stay in `CR3.solve`, on the gathered plan."""
     state0 = _enter_tick(state0, shift, reset_mu, CR3_MU0)
     objective, ineq, project, step_scale, day_tangent = _cr3_pieces(
         p, use_kernel, reg_scale)
-    D, aux = al_minimize(objective, project, state0.x,
-                         hyper=(rho, tax_frac), ineq_residual=ineq,
-                         step_scale=step_scale, grad_transform=day_tangent,
-                         init=state0, cfg=_cr3_cfg(steps, outer))
-    with torch.no_grad():
-        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+    D, aux = _al_run(shard, objective, project, state0,
+                     hyper=(rho, tax_frac), ineq_residual=ineq,
+                     step_scale=step_scale, grad_transform=day_tangent,
+                     cfg=_cr3_cfg(steps, outer))
+    return _impl_out(p, shard, D, aux, use_kernel)
 
 
 def _cr3_unbalanced_warn(clearing_iters: int, deficit: float, rho: float,
@@ -952,16 +1089,23 @@ class CR3:
         mci = np.asarray(p.mci)
         collected = self.tax_frac * float(np.asarray(p.entitlement).sum())
         rho_cur = float(self.rho)
-        pv = device_view(p, device)
-        state = ctx.warm or EngineState.cold(_cold_x(p, device), n_in=p.W,
-                                             mu0=CR3_MU0)
+        # The regularizer's normalizer takes the fleet's W, padded or not.
         reg_scale = 1e-3 / (p.W * p.T)
+        mesh = _fleet_mesh(ctx, device)
+        if mesh is None:
+            pv = device_view(p, device)
+            state = ctx.warm or EngineState.cold(_cold_x(p, device),
+                                                 n_in=p.W, mu0=CR3_MU0)
+            impl = functools.partial(_cr3_impl, pv)
+        else:
+            sh = _shard(p, mesh, device)
+            state = sh.warm(ctx.warm, p.T, device, ineq=True, mu0=CR3_MU0)
+            impl = functools.partial(_cr3_impl, sh.view, shard=sh)
 
         def best_response(st, shift_, reset_):
-            D, pens, st = _cr3_impl(pv, rho_cur, self.tax_frac, reg_scale,
-                                    st, steps, self.outer, use_kernel,
-                                    shift_, reset_)
-            return D.cpu().numpy(), pens, st
+            D, pens, st = impl(rho_cur, self.tax_frac, reg_scale, st, steps,
+                               self.outer, use_kernel, shift_, reset_)
+            return D[:p.W].cpu().numpy(), pens[:p.W], st
 
         D, pens, state = best_response(state, ctx.shift, ctx.reset_mu)
         rounds = 1
@@ -1002,15 +1146,25 @@ class CR3:
         rho_cur = np.full(R, float(self.rho))
         pv = device_view(p, device)
         reg_scale = cr3_reg_scale(pv)
-        state = ctx.warm or EngineState.cold(_cold_x(p, device), n_in=p.W,
-                                             mu0=CR3_MU0)
+        mesh = _fleet_mesh(ctx, device)
+        if mesh is None:
+            state = ctx.warm or EngineState.cold(_cold_x(p, device),
+                                                 n_in=p.W, mu0=CR3_MU0)
+            impl, region_state = functools.partial(_cr3_impl, pv), region
+        else:
+            # The whole fleet's per-region scale, cut to this block (pad
+            # rows 1); the state's pad rows sit in region 0 (PAD_FILLS).
+            sh = _shard(p, mesh, device)
+            reg_scale = sh.block_rows(reg_scale, 1.0)
+            state = sh.warm(ctx.warm, p.T, device, ineq=True, mu0=CR3_MU0)
+            impl, region_state = (functools.partial(_cr3_impl, sh.view,
+                                                    shard=sh), sh.region)
 
         def best_response(st, shift_, reset_):
             rho_t = torch.tensor(rho_cur, dtype=f32, device=device)
-            D, pens, st = _cr3_impl(pv, rho_t, self.tax_frac, reg_scale, st,
-                                    steps, self.outer, use_kernel, shift_,
-                                    reset_)
-            return D.cpu().numpy(), pens.cpu().numpy(), st
+            D, pens, st = impl(rho_t, self.tax_frac, reg_scale, st, steps,
+                               self.outer, use_kernel, shift_, reset_)
+            return D[:p.W].cpu().numpy(), pens[:p.W].cpu().numpy(), st
 
         def paid_of(D):
             return rho_cur * region_totals(region, (D * wmci).sum(1), R)
@@ -1030,7 +1184,7 @@ class CR3:
             pens = np.where(row, pens_n, pens)
             # mu restarts every round; CR3 has no equality multipliers, so
             # only x and the allowance multipliers freeze per row.
-            mask = torch.as_tensor(row, device=device)
+            mask = torch.as_tensor(active[region_state], device=device)
             state = EngineState(
                 x=torch.where(mask[:, None], new.x, state.x),
                 lam_eq=new.lam_eq,

@@ -29,6 +29,15 @@ on the multipliers after each round, on the sanitizer's device flag
 writes its scalars into preallocated device buffers (`aux["telemetry"]`).
 Neither reads a device value on the host, and neither changes the
 iterates: with both on, the solve is bitwise the solve with both off.
+
+Fleet meshes (`al_minimize_sharded`): every process of a
+`torch.distributed` group runs `al_minimize` on its own row block of a
+row-separable problem and the blocks are all-gathered afterwards.
+Nothing collective enters the objective: each process differentiates
+its partial sum, which for row-separable problems is exactly the
+global gradient on its rows; global normalizers are the caller's,
+computed on the whole fleet before it is split. Only the telemetry is
+all-reduced, after the loop.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis.sanitize import Sanitizer, check_all_finite
 
@@ -287,3 +297,117 @@ def al_minimize(objective: Objective, project: Callable[[Tensor], Tensor],
             "objective": tel[0], "grad_sq": tel[1], "violation": tel[2],
             "dx": tel[3], "mu": tel[4], "step_scale": ss}
     return x, aux
+
+
+# How each telemetry row combines over the fleet's row blocks: the
+# objective and the squared gradient norm are partial sums (row-separable
+# problems), the worst violation a max. The mean |dx| and a per-row
+# step_scale are means over the fleet's true rows (`_telemetry_allreduce`).
+# `step`, `mu` and a replicated step_scale are the same on every process
+# and pass through.
+_TEL_REDUCE = {"objective": "sum", "grad_sq": "sum", "violation": "max",
+               "dx": "sum"}
+
+
+def gather_rows(mesh, t: Tensor) -> Tensor:
+    """All-gather every process's equal row block of `t` into the padded
+    global tensor, blocks in the mesh's order (`launch.mesh.fleet_ranks`),
+    on `t`'s device; every process gets the same tensor. The list form
+    of `all_gather`, which gloo takes for CPU and CUDA tensors alike."""
+    from repro_torch.launch.mesh import fleet_ranks
+    ranks = fleet_ranks(mesh)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in ranks]
+    dist.all_gather(parts, t)
+    return torch.cat([parts[r] for r in ranks])
+
+
+def _all_reduce(t: Tensor, how: str) -> Tensor:
+    buf = t.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX if how == "max"
+                    else dist.ReduceOp.SUM)
+    return buf
+
+
+def _telemetry_allreduce(tel: dict, keep: Tensor, true_rows: int,
+                         step_scale) -> dict:
+    """Merge the blocks' telemetry into the fleet's traces. A block's
+    mean |dx| is over its n rows, pad rows included, which never move
+    (box [0, 0]): its sum over the blocks times n / true_rows is the
+    mean over the fleet's true rows. A per-row `step_scale` ((n, ...))
+    is averaged over the true rows (`keep`, (n, 1)); a replicated one
+    passes through."""
+    out = {k: _all_reduce(v, _TEL_REDUCE[k]) if k in _TEL_REDUCE else v
+           for k, v in tel.items()}
+    n = keep.shape[0]
+    out["dx"] = out["dx"] * (n / true_rows)
+    if isinstance(step_scale, Tensor) and step_scale.dim() \
+            and step_scale.shape[0] == n:
+        ss = step_scale.to(out["step_scale"].dtype).reshape(n, -1)
+        out["step_scale"] = _all_reduce(
+            torch.where(keep, ss, 0.0).mean(1).sum(), "sum") / true_rows
+    return out
+
+
+def al_minimize_sharded(objective: Objective,
+                        project: Callable[[Tensor], Tensor],
+                        init: EngineState, *, mesh, rows: slice,
+                        true_rows: int | None = None,
+                        cfg: EngineConfig = EngineConfig(),
+                        **pieces) -> tuple[Tensor, dict[str, Any]]:
+    """`al_minimize` over a fleet mesh, SPMD: every process of the mesh
+    calls it with the same global `init` and its own block's pieces.
+
+    Args:
+      objective, project, pieces: `al_minimize`'s pieces (`hyper`,
+        `eq_residual`, `ineq_residual`, `step_scale`, `grad_transform`,
+        `fused_inner`) built on this process's row block
+        (`fleet_solver.row_block`) with the whole fleet's normalizers.
+      init: the padded global state, the same on every process: x and
+        the multipliers with one entry a row are cut to the block, mu is
+        replicated.
+      rows: this process's block of the padded rows, one of equal blocks
+        in the mesh's order (`launch.mesh.fleet_ranks`).
+      true_rows: the fleet's W before padding (default: no pad rows).
+        With telemetry on, the pad rows' gradient is masked to zero, so
+        that the trace's grad_sq is the true fleet's (their box is
+        [0, 0]: the iterates do not move), and the trace's means are over
+        the true rows.
+
+    Returns (x, aux) as `al_minimize`, with x, the row multipliers and
+    `aux["state"]` all-gathered to padded global tensors and the
+    telemetry all-reduced (`_telemetry_allreduce`): the same on every
+    process. Over the true rows, the trace is the unsharded solve's.
+    """
+    W_pad = init.x.shape[0]
+    n = rows.stop - rows.start
+    true_rows = W_pad if true_rows is None else true_rows
+
+    def block(a: Tensor) -> Tensor:
+        return a[rows] if a.dim() and a.shape[0] == W_pad else a
+
+    local = EngineState(x=init.x[rows], lam_eq=block(init.lam_eq),
+                        lam_in=block(init.lam_in), mu=init.mu)
+    if cfg.telemetry_every:
+        keep = (torch.arange(rows.start, rows.stop, device=init.x.device)
+                < true_rows)[:, None]
+    if cfg.telemetry_every and rows.stop > true_rows:
+        zero = torch.zeros((), dtype=init.x.dtype, device=init.x.device)
+        inner = pieces.get("grad_transform")
+        pieces["grad_transform"] = lambda g: torch.where(
+            keep, g if inner is None else inner(g), zero)
+    x, aux = al_minimize(objective, project, local.x, init=local, cfg=cfg,
+                         **pieces)
+
+    def gather(a: Tensor) -> Tensor:
+        return gather_rows(mesh, a) if a.dim() and a.shape[0] == n else a
+
+    x, lam_eq, lam_in = (gather(a) for a in (x, aux["lam_eq"],
+                                             aux["lam_in"]))
+    out = {"lam_eq": lam_eq, "lam_in": lam_in, "mu": aux["mu"],
+           "state": EngineState(x=x, lam_eq=lam_eq, lam_in=lam_in,
+                                mu=aux["mu"])}
+    if cfg.telemetry_every:
+        out["telemetry"] = _telemetry_allreduce(
+            aux["telemetry"], keep, true_rows, pieces.get("step_scale"))
+    return x, out

@@ -36,8 +36,8 @@ loop lane's `solve()` does (`_apply_migration_credit`).
 Parity contract (the JAX package's): the batched lane matches the loop
 of `api.solve` within 0.01 pp on every scenario.
 
-Not ported yet: the device-mesh lanes (ROADMAP queue 1, item 11),
-refused by name.
+Not ported yet: the fleet-mesh lanes (ROADMAP item 11a-ii), refused by
+name; `api.solve` shards one solve.
 """
 from __future__ import annotations
 

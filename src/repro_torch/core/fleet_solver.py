@@ -233,6 +233,93 @@ def device_view(p: FleetProblem, device: torch.device) -> FleetProblem:
         **{n: conv(n, getattr(p, n)) for n in DATA_FIELDS})
 
 
+#: Inert-row fill value per FleetProblem field (`pad_fleet`), the JAX
+#: package's values; see `pad_fleet` for why usage is 0.01.
+PAD_FILLS: dict[str, float] = {
+    "usage": 0.01, "entitlement": 1.0, "k": 0.0, "rts_coeffs": 0.0,
+    "betas": 0.0, "x2_kind": 0.0, "jobs": 1.0, "is_batch": False,
+    "upper": 0.0, "region": 0,
+}
+
+#: The per-workload fields: a row block takes these rows (`row_block`).
+ROW_FIELDS = tuple(f for f in DATA_FIELDS if f != "mci")
+
+
+def pad_fleet(p: FleetProblem, multiple: int) -> tuple[FleetProblem, int]:
+    """Pad W up to a multiple of `multiple` with inert workloads (host
+    numpy fields in, host numpy fields out).
+
+    Pad rows get usage 0.01 NP, entitlement 1, k 0 and an operational cap
+    (`upper`) of 0: their box is [0, 0], so the projection pins them at
+    zero curtailment, their penalties and penalty gradients are exactly
+    zero (k = 0 with finite features), and every division the policies
+    make (by entitlement, by usage, by tau = 0.02·E) stays finite. The
+    tiny usage keeps CR3's smooth peak (tau·logsumexp(usage/tau) ≈ 0.09·E
+    at D = 0) well inside the pad rows' allowance for any tax_frac below
+    ~0.9, so their allowance multipliers stay exactly zero, across
+    chained warm re-solves too. `upper` is materialized (+inf where the
+    fleet had none); `names` and `topology` are dropped. Returns (padded
+    problem, true W): reports and fiscal sums take rows [:W]."""
+    pad = (-p.W) % multiple
+    upper = np.asarray(p.upper, float) if p.upper is not None \
+        else np.full(np.shape(p.usage), np.inf)
+    if pad == 0:
+        return dataclasses.replace(p, upper=upper, names=None,
+                                   topology=None, region_index=None), p.W
+
+    def rows(field, a=None):
+        a = np.asarray(getattr(p, field) if a is None else a)
+        return np.concatenate(
+            [a, np.full((pad,) + a.shape[1:], PAD_FILLS[field],
+                        dtype=a.dtype)])
+
+    return dataclasses.replace(
+        p, usage=rows("usage"), entitlement=rows("entitlement"),
+        k=rows("k"), rts_coeffs=rows("rts_coeffs"), betas=rows("betas"),
+        x2_kind=rows("x2_kind"), jobs=rows("jobs"),
+        is_batch=rows("is_batch"), upper=rows("upper", upper),
+        region=None if p.region is None else rows("region"),
+        names=None, topology=None, region_index=None), p.W
+
+
+def _pad_state(state: EngineState, W_pad: int) -> EngineState:
+    """Zero-pad a warm start's per-workload leaves (x, and the multipliers
+    with one entry a row) to the padded W; the state itself when it is
+    already padded, so a sharded result's state chains as it is."""
+    W = state.x.shape[0]
+    if W == W_pad:
+        return state
+
+    def pad(a: Tensor) -> Tensor:
+        if a.dim() and a.shape[0] == W:
+            tail = torch.zeros((W_pad - W,) + tuple(a.shape[1:]),
+                               dtype=a.dtype, device=a.device)
+            return torch.cat([a, tail])
+        return a
+
+    return EngineState(x=pad(state.x), lam_eq=pad(state.lam_eq),
+                       lam_in=pad(state.lam_in), mu=state.mu)
+
+
+def row_block(p: FleetProblem, rank: int, world: int) -> FleetProblem:
+    """Block `rank` of `world` equal contiguous row blocks of a padded
+    problem (host or device view): every per-workload field's rows, the
+    carbon trace replicated. A multi-region device view's block gets the
+    `RegionIndex` of its own rows."""
+    if p.W % world:
+        raise ValueError(f"row_block needs W ({p.W}) divisible by the "
+                         f"block count {world}: pad_fleet first")
+    n = p.W // world
+    sl = slice(rank * n, (rank + 1) * n)
+    out = dataclasses.replace(p, names=None, **{
+        f: None if getattr(p, f) is None else getattr(p, f)[sl]
+        for f in ROW_FIELDS})
+    if p.region_index is not None:
+        out = dataclasses.replace(out, region_index=region_index(
+            out.region.cpu().numpy(), p.R, out.region.device))
+    return out
+
+
 def single_region_view(p: FleetProblem) -> FleetProblem:
     """Canonicalize the degenerate R = 1 problem to the single-region form
     (mci (T,), no region or topology), so that it takes the single-region

@@ -21,8 +21,11 @@ independent single-region solves:
   * on the host, exact float64 numpy: `region_totals`, CR3's Eq.-6
     fiscal sums and the migration aggregates.
 
-The JAX package's `pad_row_norms` and `norm_specs` are mesh plumbing and
-wait for the multi-GPU port (ROADMAP queue 1, item 11).
+Under a fleet mesh the norms are the whole fleet's: computed once on
+the unpadded fleet, then `pad_row_norms` pads the per-row twins to the
+padded W with inert fills (`CR1_NORM_FILLS`, `CR2_NORM_FILLS`) and each
+process takes its row block. The JAX package's `norm_specs` has no
+counterpart: there are no PartitionSpecs.
 """
 from __future__ import annotations
 
@@ -36,6 +39,12 @@ from repro_torch.core.fleet_solver import (FleetProblem, RegionIndex,
 
 Tensor = torch.Tensor
 f32 = torch.float32
+
+#: Pad fills for `pad_row_norms` keeping pad rows inert: weights 0 (pad
+#: rows contribute nothing), step and scale divisors 1 (nothing blows
+#: up). Order as the norms tuples.
+CR1_NORM_FILLS = (0.0, 0.0, 1.0)   # (pen_norm, car_norm, step_scale)
+CR2_NORM_FILLS = (0.0, 1.0, 1.0)   # (car_norm, scale, step_scale)
 
 
 class RegionReductions(NamedTuple):
@@ -153,3 +162,15 @@ def cr3_reg_scale(p: FleetProblem) -> Tensor:
     counts = np.bincount(region, minlength=p.R)
     return torch.as_tensor((1e-3 / (counts * p.T))[region][:, None],
                            dtype=f32, device=p.region.device)
+
+
+def pad_row_norms(norms, W_pad: int, fills) -> tuple[Tensor, ...]:
+    """Pad a multi-region fleet's per-row norm tensors ((W,) or (W, 1))
+    to the padded W with `fills` (`CR1_NORM_FILLS`, `CR2_NORM_FILLS`)."""
+    out = []
+    for a, f in zip(norms, fills):
+        pad = W_pad - a.shape[0]
+        out.append(a if pad == 0 else torch.cat(
+            [a, torch.full((pad,) + tuple(a.shape[1:]), f, dtype=a.dtype,
+                           device=a.device)]))
+    return tuple(out)

@@ -44,7 +44,7 @@ seen under `analysis.recompile_guard(0)`: no graph capture, no kernel
 build.
 
 A port of the JAX package's `repro.core.streaming` on one device; a mesh
-raises `NotImplementedError` (ROADMAP queue 1, item 11). CR3, B1 and B3
+raises `NotImplementedError` (ROADMAP item 11a-ii). CR3, B1 and B3
 run tick by tick (`step`/`run`); `run_scanned` takes CR1/CR2 only, as
 `api.solve_day`.
 """
@@ -171,8 +171,8 @@ class RollingHorizonSolver:
         `warm_steps // 4`).
       revision_ref: relative revision magnitude that earns the full
         `warm_steps` (default 0.05).
-      mesh: the JAX package's device mesh; not ported yet (ROADMAP
-        queue 1, item 11), it raises `NotImplementedError`.
+      mesh: a fleet mesh; not ported yet for streaming (ROADMAP item
+        11a-ii), it raises `NotImplementedError`.
       guard_recompiles: enforce the warm-path claim at runtime. The
         first solve of each static configuration (a (steps, warm) tick,
         or a day of n ticks, cold or warm) may capture a graph or build
@@ -219,8 +219,9 @@ class RollingHorizonSolver:
                  telemetry: TelemetryConfig | None = None):
         if mesh is not None:
             raise NotImplementedError(
-                "RollingHorizonSolver: a device mesh is not ported yet "
-                "(ROADMAP queue 1, item 11: multi-GPU row sharding)")
+                "RollingHorizonSolver: a fleet mesh is not ported yet for "
+                "streaming (ROADMAP item 11a-ii); api.solve shards one "
+                "solve")
         streams = (tuple(stream) if isinstance(stream, (list, tuple))
                    else (stream,))
         # R = 1 canonicalizes up front: the whole streaming path, the

@@ -9,7 +9,7 @@ step updates params and opt_state in place (`adamw_step_`), the memory
 of the reference's jit with `donate_argnums=(0, 1)`: 32-layer
 stablelm-3b with f32 masters does not fit on one card twice.
 `make_step_bundle` and `lower_cell` lower a step over a device mesh for
-XLA and wait for the multi-device slice (ROADMAP item 11).
+XLA and wait for the model mesh (ROADMAP item 11b).
 """
 from __future__ import annotations
 

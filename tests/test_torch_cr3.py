@@ -380,8 +380,9 @@ def test_multiregion_cr3_still_refused(fleet16):
     (`tests/test_torch_multiregion_cr3.py` holds it against the JAX
     package) and through the rolling-horizon controller with a stream per
     region, whose `last_rho` is then (R,)
-    (`tests/test_torch_multiregion_streaming.py`); what stays refused is
-    the mesh (ROADMAP queue 1, item 11)."""
+    (`tests/test_torch_multiregion_streaming.py`). A mesh shards it
+    (`tests/test_torch_sharding.py`); what `solve` refuses is a mesh that
+    is not a `DeviceMesh`."""
     from repro_torch.core.carbon import ForecastStream
     from repro_torch.core.streaming import RollingHorizonSolver
     _, tp = fleet16
@@ -400,7 +401,7 @@ def test_multiregion_cr3_still_refused(fleet16):
     assert rep.ticks[-1].committed_by_region.shape == (2,)
     with pytest.raises(ValueError, match="need 2 forecast stream"):
         RollingHorizonSolver(two, stream, policy="cr3", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tapi.solve(tp, tapi.CR3(), ctx=_ctx(mesh=object()))
 
 

@@ -36,7 +36,8 @@ the plain version and its decay gradient within 1e-6 relative L2 at
 chip_smoke's cases, `SSDScanFn` so through `ssd_chunked`, and mamba2-780m
 at full width and 2 layers: loss within 1e-3 and each gradient leaf
 within 0.05 relative L2 through the kernels of the plain path's, with the
-launches a remat step makes.
+launches a remat step makes; a fleet solve over a world-1 NCCL mesh
+within 0.01 pp of the unsharded solve at the same launches.
 """
 import importlib.util
 import pathlib
@@ -1714,3 +1715,59 @@ def test_full_width_mamba2_gradients_kernels_vs_plain(dev):
     for key in gp:
         assert _rel_l2(gk[key], gp[key]) < 0.05, key
 
+
+
+# ---------------------------------------------------------------------------
+# Fleet row sharding on torch.distributed (a world-1 NCCL group)
+# ---------------------------------------------------------------------------
+@pytest.fixture()
+def nccl_world1(dev, tmp_path):
+    """A one-process NCCL group on the card (rendezvous through a
+    `FileStore`), destroyed after the test."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("policy", ["cr1", "cr2"])
+def test_sharded_world1_nccl_matches_unsharded(nccl_world1, fleets, policy):
+    """CR1(1.45) and CR2(0.78) at W = 10,001 over a world-1 NCCL mesh
+    through the kernels: within 0.01 pp of the unsharded solve (the JAX
+    package's sharded bound), the same al_step and dr_features launches
+    (75 and 1; 300 and 8), D of (W, T) and the state of (W, T)."""
+    from repro_torch.core.api import CR1, CR2, SolveContext, solve
+    from repro_torch.core.daygraph import COUNTED
+    from repro_torch.core.fleet_solver import synthetic_fleet
+    from repro_torch.launch.mesh import make_fleet_mesh
+    p = synthetic_fleet(10_001, hours=T, seed=3,
+                        templates=fleets["templates"])
+    pol = CR1(lam=1.45) if policy == "cr1" else CR2(cap_frac=0.78)
+    want_launches = ({"al_step": 75, "dr_features": 1} if policy == "cr1"
+                     else {"al_step": 300, "dr_features": 8})
+    out = {}
+    for mesh in (None, make_fleet_mesh()):
+        for f in COUNTED.values():
+            f.launches = 0
+        out[mesh is None] = solve(p, pol, ctx=SolveContext(mesh=mesh))
+        assert {n: f.launches for n, f in COUNTED.items()} == want_launches
+    got, want = out[False], out[True]
+    assert got.D.shape == (10_001, T) and tuple(got.state.x.shape) == (
+        10_001, T)
+    assert abs(got.carbon_reduction_pct - want.carbon_reduction_pct) < 0.01
+    assert abs(got.total_penalty_pct - want.total_penalty_pct) < 0.01
+    assert got.preservation_violation < 1e-3
+
+
+def test_sharded_solve_refuses_a_mesh_on_another_device_type(nccl_world1,
+                                                              fleets):
+    """A mesh made for the CPU does not run a solve on the card."""
+    from repro_torch.core.api import CR1, SolveContext, solve
+    from repro_torch.launch.mesh import make_fleet_mesh
+    mesh = make_fleet_mesh(device_type="cpu")
+    with pytest.raises(ValueError, match="'cpu' devices but the solve"):
+        solve(fleets[130], CR1(), ctx=SolveContext(mesh=mesh, steps=8))

@@ -312,7 +312,7 @@ def test_streaming_ensemble_cr2_and_validation(fleet16):
 
 
 REFUSALS = {
-    "mesh": ("item 11", lambda tp: tens.evaluate_ensemble(
+    "mesh": ("item 11a-ii", lambda tp: tens.evaluate_ensemble(
         tp, "cr1", "duck_perturb", ctx=tapi.SolveContext(
             device="cpu", mesh=object()))),
 }

@@ -331,7 +331,7 @@ def test_policy_knobs_and_defaults(fleet16):
 
 
 REFUSALS = {
-    "mesh": (dict(mesh=object()), "item 11"),
+    "mesh": (dict(mesh=object()), "item 11a-ii"),
 }
 # Options the port refused by name until the tick ledger, in-solve
 # telemetry and the recompile guard were ported: each now runs 2 ticks

@@ -182,7 +182,7 @@ def test_unported_refused_by_name(fleet16, what):
     `test_torch_cr3.py`)."""
     p, tp = fleet16
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="item 11a-ii"):
             tapi.sweep(tp, [tapi.CR1()], ctx=tapi.SolveContext(
                 device="cpu", mesh=object()))
         return

@@ -137,7 +137,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
    just after every solve and held equal to the unsharded solve's, its
    carbon and penalty within 0.01 pp of it, CR3's rounds and balance
    equal and rho within 1e-4 (one round) or 2 %, pad rows of the state
-   0, the ranks' plans bitwise equal; max |dD|, bitwise or not, each
+   0, the ranks' plans bitwise equal; then, on the same fleets and
+   groups, sweeps, days, ensembles and streaming over the mesh: a CR1
+   sweep at lam (1.0, 1.45, 2.2) and a CR2 sweep at cap_frac (0.74,
+   0.78), outer 2, each at 40 steps; a 24-tick CR1 day and CR2 day
+   (outer 2) at cold 40 / warm 10 steps over `ForecastStream.caiso(
+   n_ticks=24, horizon=48, seed=7)` and a 24-tick CR1 day on the
+   regional fleet with one stream per region (as 5f), each run twice (a
+   capture, then a replay); `evaluate_ensemble` of CR1(1.45) and
+   CR2(0.78, outer 2) over DuckPerturb(4), FleetJitter(2) and
+   FlexMixShift(2) (S = 8) at 40 steps; `RollingHorizonSolver(mesh=...)`
+   of CR1(1.45) over 3 ticks (cold 40 / warm 10) through `run()` and
+   through `run_scanned()`; in the NCCL group every lane, scenario, day
+   (committed, D, state) and tick bitwise the unsharded call's, on the
+   gloo ranks the ranks bitwise to each other, within 0.01 pp in carbon
+   and penalty of the unsharded call, a day's committed hours within
+   5e-3 NP of it and the replay within 1e-6 NP of the capture day, each
+   rank's launches the unsharded call's and its state (W_pad, T); max
+   |dD|, bitwise or not, each
    rank's walls and the phase's wall logged;
 6. the serving paths, each at full width (random weights from a seeded
    generator on the card), through `serve_requests` at max_batch 8, then
@@ -493,6 +510,15 @@ SHARD_PP = 0.01
 SHARD_CR3_STEPS = 40
 SHARD_RHO_MULTI = 0.02          # tests/test_torch_cr3.py: RHO_MULTI
 SHARD_WAIT_S = 600              # a rank's wait for each signal
+# Sweeps, days, ensembles and streams over the same meshes: 40 steps (a
+# day's cold tick; its warm ticks 10), the lam and cap_frac grids, 3
+# streaming ticks; a day's committed hours within the JAX package's
+# loop-vs-day contract (tests/test_streaming.py:320-323) of the unsharded
+# day's, and its replay within SHARD_REPLAY_NP of its capture day.
+SHARD_STEPS, SHARD_WARM_STEPS = 40, 10
+SHARD_LAMS, SHARD_CAPS = (1.0, 1.45, 2.2), (0.74, 0.78)
+SHARD_STREAM_TICKS = 3
+SHARD_DAY_NP, SHARD_REPLAY_NP = 5e-3, 1e-6
 # Training (phase 8): stablelm-3b at full width, batch 2 x 4096 (the JAX
 # package's train_4k sequence), 6 steps under CR1(1.45)'s throttle. 8a
 # holds loss_fn and its gradient through the kernels against the plain
@@ -2379,7 +2405,7 @@ def _shard_rank(rank, world, tmp):
         from repro_torch.core import api
         from repro_torch.launch.mesh import make_fleet_mesh
         with open(os.path.join(tmp, "cases.pkl"), "rb") as f:
-            cases = pickle.load(f)
+            cases, jobs = pickle.load(f)
         mesh = {None: make_fleet_mesh(), 3: make_fleet_mesh(regions=3)}
         _shard_wait(tmp, "warm")
         for pol in (api.CR1(), api.CR2()):           # warm-up, not counted
@@ -2389,6 +2415,9 @@ def _shard_rank(rank, world, tmp):
         _shard_wait(tmp, "go")
         dist.barrier()
         res = _shard_solves(np, torch, cases, mesh, keep_D=rank == 0)
+        for job in jobs:
+            for label, *got in _shard_job(np, torch, job, mesh[job[-1]]):
+                res[label] = tuple(got)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -2427,28 +2456,202 @@ def _shard_check(np, tag, name, got, solo, solo_launches, W, W_pad):
             f"{solo_launches}")
 
 
+def _shard_jobs(np, p, p_regions):
+    """Phase 5g's sweeps, days, ensembles and streams: (name, kind, fleet,
+    spec, mesh regions), each run by `_shard_job`."""
+    from repro_torch.core import api
+    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.scenario import (DuckPerturb, FleetJitter,
+                                           FlexMixShift)
+    bare = dataclasses.replace(p_regions, topology=None)
+    stream = ForecastStream.caiso(n_ticks=DAY_TICKS, horizon=T_MAIN,
+                                  seed=DAY_SEED)
+    stack = np.stack([stream.forecast(t) for t in range(DAY_TICKS)])
+    streams = ForecastStream.regional(
+        np.tile(np.asarray(bare.mci), (1, 2)), horizon=T_MAIN,
+        revision_sigma=REGION_STREAM_SIGMA, seed=REGION_STREAM_SEED)
+    rstack = np.stack([np.stack([st.forecast(t) for st in streams])
+                       for t in range(DAY_TICKS)])
+    cr1, cr2 = api.CR1(lam=1.45), api.CR2(cap_frac=0.78, outer=2)
+    scen = (DuckPerturb(4, seed=0), FleetJitter(2, seed=1),
+            FlexMixShift(2, seed=2))
+
+    def day(fleet, pol, stack_):
+        return (dataclasses.replace(fleet, mci=stack_[0]),
+                dict(policy=pol, stack=stack_))
+
+    def ticks(scanned):
+        return dict(scanned=scanned, stream=ForecastStream.caiso(
+            n_ticks=SHARD_STREAM_TICKS, horizon=T_MAIN, seed=DAY_SEED))
+
+    return (
+        ("sweep cr1", "sweep", p, dict(policies=[
+            api.CR1(lam=x) for x in SHARD_LAMS]), None),
+        ("sweep cr2", "sweep", p, dict(policies=[
+            api.CR2(cap_frac=c, outer=2) for c in SHARD_CAPS]), None),
+        ("day cr1", "day", *day(p, cr1, stack), None),
+        ("day cr2", "day", *day(p, cr2, stack), None),
+        ("regions day cr1", "day", *day(bare, cr1, rstack), 3),
+        ("ensemble cr1", "ensemble", p, dict(policy=cr1, scenarios=scen),
+         None),
+        ("ensemble cr2", "ensemble", p, dict(policy=cr2, scenarios=scen),
+         None),
+        ("stream run", "stream", p, ticks(False), None),
+        ("stream scanned", "stream", p, ticks(True), None))
+
+
+def _digest(np, *arrays):
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()
+
+
+def _job_summary(np, kind, r, W):
+    """What a process reports of one of `_shard_job`'s results: carbon
+    and penalty (per lane or scenario), digests of the plans (and of the
+    state's true rows), a day's or a stream's committed hours, the
+    state's shape and its pad rows' largest magnitude."""
+    if kind == "sweep":
+        return {"carbon": np.asarray([x.carbon_reduction_pct for x in r]),
+                "penalty": np.asarray([x.total_penalty_pct for x in r]),
+                "digest": _digest(np, *(x.D for x in r)),
+                "stateless": all(x.state is None for x in r)}
+    if kind == "ensemble":
+        return {"carbon": r.carbon_reduction_pct,
+                "penalty": r.total_penalty_pct,
+                "digest": _digest(np, r.D, r.penalties),
+                "batched": r.batched}
+    if kind == "day":
+        carbon, penalty = (r.last.carbon_reduction_pct,
+                           r.last.total_penalty_pct)
+        committed, D, steps, st = (r.committed, r.last.D, r.inner_steps,
+                                   r.last.state)
+    else:
+        rep, st = r
+        plan = rep.ticks[-1].plan
+        carbon, penalty = rep.realized_reduction_pct, plan.total_penalty_pct
+        committed, D, steps = rep.committed, plan.D, rep.total_inner_steps
+    leaves = [t.cpu().numpy() for t in (st.x, st.lam_eq, st.lam_in, st.mu)]
+    true = [a[:W] if a.ndim and a.shape[0] > W else a for a in leaves]
+    return {"carbon": np.asarray([carbon]), "penalty": np.asarray([penalty]),
+            "digest": _digest(np, committed, D, *true),
+            "committed": committed, "inner_steps": steps,
+            "x_shape": tuple(st.x.shape),
+            "pad_max": max(float(np.abs(a[W:]).max()) if a.ndim
+                           and a.shape[0] > W else 0.0 for a in leaves[:3])}
+
+
+def _shard_job(np, torch, job, mesh):
+    """One of `_shard_jobs` on `mesh` (None: unsharded), each call with
+    the launch counts reset just before and read just after: [(label,
+    summary, launches, wall s)], a day twice (its capture, then
+    "<name> replay")."""
+    from repro_torch.core import api
+    from repro_torch.core.daygraph import COUNTED
+    from repro_torch.core.ensemble import evaluate_ensemble
+    from repro_torch.core.streaming import RollingHorizonSolver
+    name, kind, fleet, spec, _ = job
+    ctx = api.SolveContext(mesh=mesh, steps=SHARD_STEPS)
+    budget = dict(cold_steps=SHARD_STEPS, warm_steps=SHARD_WARM_STEPS)
+    if kind == "sweep":
+        calls = [(name, lambda: api.sweep(fleet, spec["policies"], ctx=ctx))]
+    elif kind == "ensemble":
+        calls = [(name, lambda: evaluate_ensemble(
+            fleet, spec["policy"], list(spec["scenarios"]), ctx=ctx))]
+    elif kind == "day":
+        def call():
+            return api.solve_day(fleet, spec["policy"], spec["stack"],
+                                 ctx=api.SolveContext(mesh=mesh), **budget)
+        calls = [(name, call), (name + " replay", call)]
+    else:
+        def call():
+            solver = RollingHorizonSolver(fleet, spec["stream"],
+                                          policy=api.CR1(lam=1.45),
+                                          mesh=mesh, **budget)
+            run = solver.run_scanned if spec["scanned"] else solver.run
+            return run(SHARD_STREAM_TICKS), solver._state
+        calls = [(name, call)]
+    out = []
+    for label, call in calls:
+        for f in COUNTED.values():
+            f.launches = 0
+        r, wall = _timed(torch, call)
+        out.append((label, _job_summary(np, kind, r, fleet.W),
+                    {n: f.launches for n, f in COUNTED.items()}, wall))
+    return out
+
+
+def _job_check(np, tag, label, kind, got, solo, W_pad, bitwise):
+    """A sharded job's result against the unsharded call's: launches
+    equal; carbon and penalty within SHARD_PP; bitwise in a world-1
+    group; sweeps stateless, ensembles batched; a day's or a stream's
+    committed hours within SHARD_DAY_NP, the same inner steps, the state
+    (W_pad, T) with pad rows 0."""
+    (summary, launches, _), (want, want_launches, _) = got, solo
+    require(launches == want_launches,
+            f"{tag} {label}: launches {launches} != unsharded "
+            f"{want_launches}")
+    dc = float(np.abs(summary["carbon"] - want["carbon"]).max())
+    dp = float(np.abs(summary["penalty"] - want["penalty"]).max())
+    require(dc < SHARD_PP and dp < SHARD_PP,
+            f"{tag} {label}: {dc:.3e} pp carbon, {dp:.3e} pp penalty from "
+            f"the unsharded call (limit {SHARD_PP})")
+    require(not bitwise or summary["digest"] == want["digest"],
+            f"{tag} {label}: not bitwise the unsharded call")
+    if kind == "sweep":
+        require(summary["stateless"], f"{tag} {label}: a lane has a state")
+    elif kind == "ensemble":
+        require(summary["batched"], f"{tag} {label}: not the batched lane")
+    else:
+        dD = float(np.abs(summary["committed"] - want["committed"]).max())
+        require(dD <= SHARD_DAY_NP,
+                f"{tag} {label}: committed {dD:.3e} NP from the unsharded "
+                f"call (limit {SHARD_DAY_NP})")
+        require(summary["inner_steps"] == want["inner_steps"]
+                and summary["x_shape"] == (W_pad, T_MAIN)
+                and summary["pad_max"] == 0.0,
+                f"{tag} {label}: inner steps {summary['inner_steps']}, "
+                f"state {summary['x_shape']}, pad rows "
+                f"{summary['pad_max']}")
+
+
+def _job_log(np, tag, label, got, solo):
+    summary, launches, wall = got
+    dc = float(np.abs(summary["carbon"] - solo[0]["carbon"]).max())
+    extra = ""
+    if "committed" in summary:
+        dD = float(np.abs(summary["committed"] - solo[0]["committed"]).max())
+        extra = f", committed max |dD| {dD:.3e} NP"
+    log(f"[shard 5g] {label} {tag}: bitwise "
+        f"{summary['digest'] == solo[0]['digest']}, max |d carbon| "
+        f"{dc:.3e} pp{extra}, wall {wall:.4f} s, launches {launches}")
+
+
 def _shard_spawn(p, p_regions):
     """Start phase 5g's SHARD_RANKS gloo ranks (`_shard_rank`) on the one
     card, with its cases in a fresh temporary directory. -> (procs, tmp,
-    cases); `_shard_stop` ends them."""
+    cases, jobs); `_shard_stop` ends them."""
     import pickle
     import tempfile
 
     import torch.multiprocessing as mp
-    cases = _shard_cases(p, p_regions)
+    import numpy as np
+    cases, jobs = _shard_cases(p, p_regions), _shard_jobs(np, p, p_regions)
     tmp = tempfile.mkdtemp(prefix="fleet_mesh_")
     with open(os.path.join(tmp, "cases.pkl"), "wb") as f:
-        pickle.dump(cases, f)
+        pickle.dump((cases, jobs), f)
     procs = mp.start_processes(_shard_rank, args=(SHARD_RANKS, tmp),
                                nprocs=SHARD_RANKS, join=False,
                                start_method="spawn")
-    return procs, tmp, cases
+    return procs, tmp, cases, jobs
 
 
 def _shard_stop(ranks):
     """Kill any of phase 5g's ranks still alive (none is left behind on a
     failure) and remove their directory."""
-    procs, tmp, _ = ranks
+    procs, tmp = ranks[:2]
     for proc in procs.processes:
         if proc.is_alive():
             proc.kill()
@@ -2462,15 +2665,18 @@ def phase_fleet_sharding(np, torch, p, p_regions, shard_ranks):
     in this process, then in a world-1 NCCL group here, and on the
     SHARD_RANKS gloo processes `_shard_spawn` started on the one card (W
     pads to a multiple of 3), each held to the unsharded solve
-    (`_shard_check`), the ranks to each other bitwise. Returns this
-    process's launches."""
+    (`_shard_check`), the ranks to each other bitwise. Then the same for
+    `_shard_jobs`' sweeps, days, ensembles and streams (`_job_check`):
+    bitwise in the world-1 group, a rank's replay against its capture
+    day. Returns this process's launches."""
     import pickle
 
     import torch.distributed as dist
     from repro_torch.core import api
+    from repro_torch.core.daygraph import DAY_GRAPHS
     from repro_torch.launch.mesh import make_fleet_mesh
     t_phase = time.perf_counter()
-    procs, tmp, cases = shard_ranks
+    procs, tmp, cases, jobs = shard_ranks
     # The ranks started up beside phases 5e and 5f; they warm up now,
     # beside the unsharded and the NCCL solves.
     pathlib.Path(tmp, "warm").touch()
@@ -2500,6 +2706,19 @@ def phase_fleet_sharding(np, torch, p, p_regions, shard_ranks):
     require(pair == want_pair,
             f"shard 5g: unsharded CR1 + CR2 launches {pair} != "
             f"{want_pair}")
+    solo_jobs = {}
+    for job in jobs:
+        n0 = DAY_GRAPHS.captures
+        for label, *got in _shard_job(np, torch, job, None):
+            solo_jobs[label] = tuple(got)
+            for k in totals:
+                totals[k] += got[1][k]
+            log(f"[shard 5g] {label} unsharded: carbon "
+                f"{got[0]['carbon'].round(4).tolist()} %, wall "
+                f"{got[2]:.4f} s, launches {got[1]}")
+        # A day's first call captures, as each rank's does.
+        require(job[1] != "day" or DAY_GRAPHS.captures == n0 + 1,
+                f"shard 5g {job[0]}: the unsharded day did not capture")
 
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", store=dist.FileStore(
@@ -2508,8 +2727,17 @@ def phase_fleet_sharding(np, torch, p, p_regions, shard_ranks):
         # One rank: the regional cases take the 1-D mesh too.
         mesh = {None: make_fleet_mesh(), 3: make_fleet_mesh()}
         nccl = _shard_solves(np, torch, cases, mesh, keep_D=True)
+        nccl_jobs = [(job[1], label, tuple(got)) for job in jobs
+                     for label, *got in _shard_job(np, torch, job,
+                                                   mesh[job[-1]])]
     finally:
         dist.destroy_process_group()
+    for kind, label, got in nccl_jobs:
+        for k in totals:
+            totals[k] += got[1][k]
+        _job_check(np, "shard 5g nccl x1", label, kind, got,
+                   solo_jobs[label], W_MAIN, bitwise=True)
+        _job_log(np, "NCCL world 1", label, got, solo_jobs[label])
     for name, fleet, *_ in cases:
         got = nccl[name]
         for k in totals:
@@ -2545,6 +2773,23 @@ def phase_fleet_sharding(np, torch, p, p_regions, shard_ranks):
             f"{ranks[0][name][0]['carbon']:.4f} %, walls "
             + ", ".join(f"{res[name][2]:.4f}" for res in ranks)
             + f" s, launches a rank {ranks[0][name][1]}")
+    W_pad = -(-W_MAIN // SHARD_RANKS) * SHARD_RANKS
+    for kind, label, _ in nccl_jobs:
+        for r, res in enumerate(ranks):
+            _job_check(np, f"shard 5g gloo rank {r}", label, kind,
+                       res[label], solo_jobs[label], W_pad, bitwise=False)
+            require(res[label][0]["digest"] == ranks[0][label][0]["digest"],
+                    f"shard 5g {label}: rank {r} differs from rank 0")
+            if label.endswith(" replay"):
+                capture = res[label.removesuffix(" replay")][0]
+                dD = float(np.abs(res[label][0]["committed"]
+                                  - capture["committed"]).max())
+                require(dD <= SHARD_REPLAY_NP,
+                        f"shard 5g {label}: rank {r}'s replay {dD:.3e} NP "
+                        f"from its capture day")
+        _job_log(np, f"gloo x{SHARD_RANKS} (walls "
+                 + ", ".join(f"{res[label][2]:.4f}" for res in ranks)
+                 + " s)", label, ranks[0][label], solo_jobs[label])
     log(f"[shard 5g] gloo ranks' solves {gloo_wall:.2f} s after the go "
         f"signal; CR3 at {SHARD_CR3_STEPS} steps; phase wall "
         f"{time.perf_counter() - t_phase:.2f} s")

@@ -66,16 +66,22 @@ generic engine samples a convergence trace into device buffers
 (`repro_torch.obs.telemetry`); both leave the plan bitwise as it is.
 
 Fleet meshes (`SolveContext.mesh`, a `DeviceMesh` from
-`launch.mesh.make_fleet_mesh`): CR1, CR2 and CR3 `solve` shard the fleet's
-rows over the processes of a `torch.distributed` group, SPMD. Every
-process calls `solve` with the whole fleet, pads it to a multiple of the
-mesh size with inert rows (`fleet_solver.pad_fleet`), solves its own row
-block through the same engine and kernels as a solo solve, with the
-normalizers of the whole unpadded fleet, and all-gathers the blocks
-(`engine.al_minimize_sharded`): each returns the same result, `D` with
-the fleet's W rows and `state` padded, so that a warm re-solve chains
-without padding again. B1 and B3 ignore the mesh. Sweeps, `solve_day`,
-the ensembles and streaming refuse one (ROADMAP item 11a-ii).
+`launch.mesh.make_fleet_mesh`): every fleet entry point shards the
+fleet's rows over the processes of a `torch.distributed` group, SPMD.
+Every process calls it with the whole fleet, pads it to a multiple of the
+mesh size with inert rows (`fleet_solver.pad_fleet`), runs the engine
+and the kernels on its own row block only, with the normalizers of the
+whole unpadded fleet, and all-gathers the rows once, after the engine
+run: each process returns the same result, `D` with the fleet's W rows
+and `state` padded, so that a warm re-solve chains without padding
+again. CR1, CR2 and CR3 `solve` gather in `engine.al_minimize_sharded`;
+the CR1/CR2 sweep and ensemble lanes run their N lanes on the block
+(rows on dim 1) and gather the lanes; CR3 sweeps and a stacked warm
+state take the loop of sharded `solve`s. A sharded `solve_day` runs the
+whole day on the block, each tick normalized on the whole fleet's rolled
+window, and gathers the committed hours, the last plan and the state
+after the day (on the card after the replay: the graph holds no
+collective). B1 and B3 ignore the mesh.
 """
 from __future__ import annotations
 
@@ -144,10 +150,11 @@ class SolveContext:
         `donate` the state is cloned. `solve` returns fresh tensors
         either way.
       mesh: a fleet mesh (`launch.mesh.make_fleet_mesh`, a
-        `torch.distributed` `DeviceMesh` on this device's type): CR1, CR2
-        and CR3 `solve` shard the fleet's rows over its processes (see
-        the module docstring); B1 and B3 ignore it. Sweeps, `solve_day`,
-        the ensembles and streaming refuse it (ROADMAP item 11a-ii).
+        `torch.distributed` `DeviceMesh` on this device's type): `solve`,
+        `sweep`, `solve_day` and the ensembles shard the fleet's rows
+        over its processes (see the module docstring); B1 and B3 ignore
+        it. A sharded sweep's lanes carry no state (as the JAX
+        package's); a sharded day refuses `sanitize` and `telemetry`.
       coupled_migration: move cross-region migration into the solve.
         After the base (per-region) solve, curtailment and interconnect
         flows refine jointly under the same engine (per-link caps in the
@@ -310,15 +317,6 @@ def _trace_extras(out, telemetry_every: int) -> dict | None:
     return {"telemetry": ConvergenceTrace.from_aux(out[3])}
 
 
-def refuse_mesh(ctx: SolveContext | None) -> None:
-    """The entry points that do not shard over a fleet mesh yet."""
-    if ctx is not None and ctx.mesh is not None:
-        raise NotImplementedError(
-            "SolveContext.mesh is not ported yet for sweeps, solve_day, "
-            "ensembles and streaming (ROADMAP item 11a-ii); solve() shards "
-            "CR1, CR2 and CR3")
-
-
 def _fleet_mesh(ctx: SolveContext, device: torch.device):
     """`ctx.mesh` checked against the solve's device
     (`launch.mesh.check_fleet_mesh`); None without one."""
@@ -339,14 +337,6 @@ class _Shard:
     view: FleetProblem     #: the device view of that block
     region: np.ndarray | None   #: the padded fleet's host region ids
 
-    def block_norms(self, norms, fills):
-        """The whole fleet's norms on this block: per-row twins padded
-        (`pad_row_norms`) and cut; single-region scalars as they are."""
-        if self.region is None:
-            return norms
-        return tuple(a[self.rows] for a in pad_row_norms(norms, self.W_pad,
-                                                         fills))
-
     def block_rows(self, a: Tensor, fill: float = 0.0) -> Tensor:
         """This block's rows of a (W, ...) tensor of the fleet, the pad
         rows filled with `fill`."""
@@ -366,6 +356,16 @@ class _Shard:
             torch.zeros((self.W_pad, T), dtype=f32, device=device),
             n_eq=self.W_pad if eq else 0, n_in=self.W_pad if ineq else 0,
             mu0=mu0)
+
+
+def block_norms(norms, W_pad: int, rows: slice, fills):
+    """The whole fleet's norms on the block `rows` of the padded fleet:
+    a multi-region fleet's per-row twins ((W,) or (W, 1)) padded with
+    `fills` (`pad_row_norms`) and cut; single-region scalars as they
+    are. Tensor ops only, so a captured day holds it."""
+    if norms[0].dim() == 0:
+        return norms
+    return tuple(a[rows] for a in pad_row_norms(norms, W_pad, fills))
 
 
 def _shard(p: FleetProblem, mesh, device: torch.device) -> _Shard:
@@ -395,13 +395,16 @@ def _impl_out(p: FleetProblem, shard: _Shard | None, D: Tensor, aux: dict,
               use_kernel: bool, telemetry_every: int = 0):
     """(D, penalties, state) of an engine run, and the telemetry dict 4th
     with `telemetry_every`; over a fleet mesh the block's penalties (one
-    `fleet_penalties` call on the block view `p`) are gathered."""
+    `fleet_penalties` call on the block view `p`) are gathered, along
+    the rows' dim (1 with lanes)."""
     with torch.no_grad():
         if shard is None:
             pens = fleet_penalties(p, D, use_kernel)
         else:
-            pens = gather_rows(shard.mesh, fleet_penalties(
-                p, D[shard.rows], use_kernel))
+            dim = D.dim() - 2
+            blk = D[(slice(None),) * dim + (shard.rows,)]
+            pens = gather_rows(shard.mesh,
+                               fleet_penalties(p, blk, use_kernel), dim)
     out = (D, pens, aux["state"])
     return out + (aux["telemetry"],) if telemetry_every else out
 
@@ -438,7 +441,11 @@ def sweep(problem: FleetProblem, policies: Sequence, *,
     Pareto front at a fraction of the cold budget, single- or
     multi-region. A topology's migration stage follows each solve, as in
     `solve`. `ctx.telemetry` takes the loop lane (each solve carries its
-    own trace); `ctx.sanitize` raises (sanitize solves one at a time)."""
+    own trace); `ctx.sanitize` raises (sanitize solves one at a time).
+    Over a fleet mesh (`ctx.mesh`) the CR1/CR2 lanes run on this
+    process's row block and are gathered (their results carry no state,
+    as the JAX package's); CR3 grids and a stacked warm state take the
+    loop of sharded `solve`s."""
     ctx = ctx or SolveContext()
     if ctx.sanitize:
         raise NotImplementedError(
@@ -446,7 +453,6 @@ def sweep(problem: FleetProblem, policies: Sequence, *,
             "batched sweep lanes have no checked twins (and a silent "
             "fallback would skip the guards you asked for); sanitize "
             "policies one at a time through solve()")
-    refuse_mesh(ctx)
     problem = single_region_view(problem)
     pols = [resolve_policy(pl) for pl in policies]
     return [_migrate(problem, pl, r, ctx)
@@ -460,7 +466,8 @@ def _sweep(problem: FleetProblem, pols: list,
         return []
     fam = type(pols[0])
     stacked = _stacked_warm(ctx.warm, len(pols))
-    warm_ok = ctx.warm is None or (stacked and fam in (CR1, CR2))
+    warm_ok = ctx.warm is None or (stacked and ctx.mesh is None
+                                   and fam in (CR1, CR2))
     batched = (all(type(pl) is fam for pl in pols)
                and fam in (CR1, CR2, CR3) and fam._sweep_uniform(pols)
                and warm_ok and not ctx.donate
@@ -522,11 +529,12 @@ def _cold_x(p: FleetProblem, device: torch.device) -> Tensor:
     return torch.zeros(p.usage.shape, dtype=f32, device=device)
 
 
-def cold_lanes(n: int, p: FleetProblem, device: torch.device, n_eq: int,
+def cold_lanes(n: int, W: int, T: int, device: torch.device, n_eq: int,
                mu0: float) -> EngineState:
-    """n lane-stacked cold states of fleet `p` (`EngineState.cold` each)."""
+    """n lane-stacked cold states of a (W, T) fleet (`EngineState.cold`
+    each)."""
     kw = dict(dtype=f32, device=device)
-    return EngineState(x=torch.zeros((n,) + tuple(p.usage.shape[-2:]), **kw),
+    return EngineState(x=torch.zeros((n, W, T), **kw),
                        lam_eq=torch.zeros((n, n_eq), **kw),
                        lam_in=torch.zeros((n, 0), **kw),
                        mu=torch.full((n,), mu0, **kw))
@@ -535,15 +543,20 @@ def cold_lanes(n: int, p: FleetProblem, device: torch.device, n_eq: int,
 # ---------------------------------------------------------------------------
 # Lanes: N solves as one engine run (sweeps, ensembles)
 # ---------------------------------------------------------------------------
-def lane_norms(norms_of, lanes) -> tuple[Tensor, ...]:
+def lane_norms(norms_of, lanes, shard: _Shard | None = None,
+               fills=None) -> tuple[Tensor, ...]:
     """`norms_of(*args)` for each lane's args, as `solve()` computes it
     (once per distinct args, by identity: a sweep's lanes share their
-    problem), stacked to (N,) tensors."""
+    problem), stacked to (N,) tensors. Over a fleet mesh the args are
+    the whole fleet's and each lane's norms are cut to the block
+    (`block_norms` with `fills`)."""
     memo, rows = {}, []
     for args in lanes:
         key = tuple(map(id, args))
         if key not in memo:
-            memo[key] = norms_of(*args)
+            nm = norms_of(*args)
+            memo[key] = nm if shard is None else block_norms(
+                nm, shard.W_pad, shard.rows, fills)
         rows.append(memo[key])
     return tuple(torch.stack(col) for col in zip(*rows))
 
@@ -562,14 +575,17 @@ def _plan_carbon(D: Tensor, mci: Tensor) -> Tensor:
 
 def _cr1_lanes(p: FleetProblem, views, lams: Tensor, state0: EngineState,
                steps: int, use_kernel: bool, shift: int, reset_mu: bool,
-               moment_dtype: str):
+               moment_dtype: str, *, shard: _Shard | None = None):
     """N CR1 solves as one engine run -> (D (N, W, T), penalties (N, W),
     stacked state). `p` is a device view whose fields may lead with the
     lane axis; `views` are its one-lane problems (the normalizers are
-    each lane's own); `lams` (N,) and `state0` is lane-stacked."""
+    each lane's own); `lams` (N,) and `state0` is lane-stacked. Over a
+    fleet mesh (`shard`), `p` is this process's block of the padded
+    lanes, `views` the whole fleet's (their norms cut to the block),
+    `state0` the padded global state, and the outputs are gathered."""
     state0 = _enter_tick(state0, shift, reset_mu, CR1_MU0)
-    pen_norm, car_norm, step_scale = lane_norms(cr1_norms,
-                                                [(v,) for v in views])
+    pen_norm, car_norm, step_scale = lane_norms(
+        cr1_norms, [(v,) for v in views], shard, CR1_NORM_FILLS)
     lo, hi = _bounds(p)
     cfg = _cr1_cfg(steps, moment_dtype)
     if p.region is not None:
@@ -590,22 +606,23 @@ def _cr1_lanes(p: FleetProblem, views, lams: Tensor, state0: EngineState,
     fused = _al_fused_inner(p, "cr1", cfg, car_norm=car_norm,
                             step_scale=step_scale,
                             coef0=coef0) if use_kernel else None
-    D, aux = al_minimize(objective, _projection(p, lo, hi), state0.x,
-                         step_scale=step, init=state0, cfg=cfg,
-                         fused_inner=fused)
-    with torch.no_grad():
-        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+    D, aux = _al_run(shard, objective, _projection(p, lo, hi), state0,
+                     step_scale=step, cfg=cfg, fused_inner=fused)
+    return _impl_out(p, shard, D, aux, use_kernel)
 
 
 def _cr2_lanes(p: FleetProblem, views, refs: Sequence[Tensor],
                state0: EngineState, steps: int, outer: int, use_kernel: bool,
-               shift: int, reset_mu: bool, moment_dtype: str):
-    """N CR2 solves as one engine run, as `_cr1_lanes`; `refs` holds each
-    lane's (W,) fairness targets."""
+               shift: int, reset_mu: bool, moment_dtype: str, *,
+               shard: _Shard | None = None):
+    """N CR2 solves as one engine run, as `_cr1_lanes` (mesh included);
+    `refs` holds each lane's (W,) fairness targets of the whole fleet,
+    padded with 0 and cut to the block over a fleet mesh."""
     state0 = _enter_tick(state0, shift, reset_mu, CR2_MU0)
-    car_norm, scale, step_scale = lane_norms(cr2_norms,
-                                             list(zip(views, refs)))
-    R = torch.stack(list(refs))
+    car_norm, scale, step_scale = lane_norms(
+        cr2_norms, list(zip(views, refs)), shard, CR2_NORM_FILLS)
+    R = torch.stack([r if shard is None else shard.block_rows(r)
+                     for r in refs])
     lo, hi = _bounds(p)
     cfg = _cr2_cfg(steps, outer, moment_dtype)
     if p.region is not None:
@@ -627,19 +644,21 @@ def _cr2_lanes(p: FleetProblem, views, refs: Sequence[Tensor],
     fused = _al_fused_inner(p, "cr2", cfg, car_norm=car_norm,
                             step_scale=step_scale, scale=scale,
                             refs=R) if use_kernel else None
-    D, aux = al_minimize(objective, _projection(p, lo, hi), state0.x,
-                         eq_residual=eq, step_scale=step, init=state0,
-                         cfg=cfg, fused_inner=fused)
-    with torch.no_grad():
-        return D, fleet_penalties(p, D, use_kernel), aux["state"]
+    D, aux = _al_run(shard, objective, _projection(p, lo, hi), state0,
+                     eq_residual=eq, step_scale=step, cfg=cfg,
+                     fused_inner=fused)
+    return _impl_out(p, shard, D, aux, use_kernel)
 
 
-def _lane_results(p: FleetProblem, out, iters: int) -> list[FleetSolveResult]:
+def _lane_results(p: FleetProblem, out, iters: int,
+                  sharded: bool = False) -> list[FleetSolveResult]:
     """One `FleetSolveResult` per lane of a lanes run's (D, pens, state),
-    each with its lane of the state."""
+    each with its lane of the state; a sharded run's padded rows cut to
+    the fleet's W, its lanes without a state (as the JAX package's)."""
     D, pens, state = out
-    D, pens = D.cpu().numpy(), pens.cpu().numpy()
-    return [_report(p, D[i], pens[i], iters=iters, state=state.lane(i))
+    D, pens = D[:, :p.W].cpu().numpy(), pens[:, :p.W].cpu().numpy()
+    return [_report(p, D[i], pens[i], iters=iters,
+                    state=None if sharded else state.lane(i))
             for i in range(D.shape[0])]
 
 
@@ -724,7 +743,7 @@ def _cr1_impl(p: FleetProblem, lam, state0: EngineState, steps: int,
     float or a 0-d float32 tensor (a day's static buffer); `sanitizer`
     records the engine's checks. Over a fleet mesh (`shard`), `p` is this
     process's block view, `norms` the whole fleet's cut to the block
-    (`_Shard.block_norms`), `state0` the padded global state, and the
+    (`block_norms`), `state0` the padded global state, and the
     outputs are global; without one the norms are `p`'s own."""
     state0 = _enter_tick(state0, shift, reset_mu, CR1_MU0)
     norms = cr1_norms(p) if norms is None else norms
@@ -768,8 +787,8 @@ class CR1:
                 sanitize=ctx.sanitize, telemetry_every=tel)
         else:
             sh = _shard(p, mesh, device)
-            norms = sh.block_norms(cr1_norms(device_view(p, device)),
-                                   CR1_NORM_FILLS)
+            norms = block_norms(cr1_norms(device_view(p, device)),
+                                sh.W_pad, sh.rows, CR1_NORM_FILLS)
             out = _cr1_impl(
                 sh.view, self.lam, sh.warm(ctx.warm, p.T, device), steps,
                 use_kernel, ctx.shift, ctx.reset_mu, ctx.moment_dtype,
@@ -793,11 +812,19 @@ class CR1:
         n = len(policies)
         lams = torch.tensor([pl.lam for pl in policies], dtype=f32,
                             device=device)
-        init = ctx.warm or cold_lanes(n, p, device, 0, CR1_MU0)
         pv = device_view(p, device)
+        mesh = _fleet_mesh(ctx, device)
+        if mesh is None:
+            init = ctx.warm or cold_lanes(n, p.W, p.T, device, 0, CR1_MU0)
+            return _lane_results(p, _cr1_lanes(
+                pv, [pv] * n, lams, init, steps, use_kernel, 0, False,
+                ctx.moment_dtype), steps)
+        sh = _shard(p, mesh, device)
         return _lane_results(p, _cr1_lanes(
-            pv, [pv] * n, lams, init, steps, use_kernel, 0, False,
-            ctx.moment_dtype), steps)
+            sh.view, [pv] * n, lams,
+            cold_lanes(n, sh.W_pad, p.T, device, 0, CR1_MU0), steps,
+            use_kernel, 0, False, ctx.moment_dtype, shard=sh), steps,
+            sharded=True)
 
 
 # ---------------------------------------------------------------------------
@@ -888,8 +915,8 @@ class CR2:
         else:
             # The whole fleet's norms and targets, cut to this block.
             sh = _shard(p, mesh, device)
-            norms = sh.block_norms(cr2_norms(device_view(p, device), refs),
-                                   CR2_NORM_FILLS)
+            norms = block_norms(cr2_norms(device_view(p, device), refs),
+                                sh.W_pad, sh.rows, CR2_NORM_FILLS)
             out = _cr2_impl(
                 sh.view, sh.block_rows(refs),
                 sh.warm(ctx.warm, p.T, device, eq=True, mu0=CR2_MU0), steps,
@@ -918,11 +945,21 @@ class CR2:
         # Each lane's targets as `solve()` computes them.
         refs = [torch.as_tensor(cr2_reference_fleet(p, pl.cap_frac, device),
                                 device=device) for pl in policies]
-        init = ctx.warm or cold_lanes(n, p, device, p.W, CR2_MU0)
         pv = device_view(p, device)
+        mesh = _fleet_mesh(ctx, device)
+        if mesh is None:
+            init = ctx.warm or cold_lanes(n, p.W, p.T, device, p.W, CR2_MU0)
+            return _lane_results(p, _cr2_lanes(
+                pv, [pv] * n, refs, init, steps, outer, use_kernel, 0,
+                False, ctx.moment_dtype), steps * outer)
+        # Per-lane norms of the whole fleet; targets padded with 0 (pad
+        # residuals are identically 0) and cut, in `_cr2_lanes`.
+        sh = _shard(p, mesh, device)
         return _lane_results(p, _cr2_lanes(
-            pv, [pv] * n, refs, init, steps, outer, use_kernel, 0, False,
-            ctx.moment_dtype), steps * outer)
+            sh.view, [pv] * n, refs,
+            cold_lanes(n, sh.W_pad, p.T, device, sh.W_pad, CR2_MU0), steps,
+            outer, use_kernel, 0, False, ctx.moment_dtype, shard=sh),
+            steps * outer, sharded=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1215,9 +1252,10 @@ class CR3:
     @classmethod
     def _sweep_family(cls, p: FleetProblem, policies: Sequence["CR3"],
                       ctx: SolveContext) -> list[FleetSolveResult]:
-        if p.is_multiregion:
-            # Multi-region clearing tracks an (R,) price per lane: solve
-            # per policy, as the JAX package does.
+        if p.is_multiregion or ctx.mesh is not None:
+            # Multi-region clearing tracks an (R,) price per lane, and a
+            # fleet mesh shards one solve: solve per policy, as the JAX
+            # package does.
             return [pl.solve(p, ctx) for pl in policies]
         device = resolve_device(ctx.device)
         use_kernel = resolve_use_kernel(ctx.use_kernel, device)
@@ -1228,7 +1266,7 @@ class CR3:
         pv = device_view(p, device)
         reg_scale = 1e-3 / (p.W * p.T)
         states = dataclasses.replace(
-            cold_lanes(n, p, device, 0, CR3_MU0),
+            cold_lanes(n, p.W, p.T, device, 0, CR3_MU0),
             lam_in=torch.zeros((n, p.W), dtype=f32, device=device))
         rho_cur = np.asarray([pl.rho for pl in policies], float)
         taxes = np.asarray([pl.tax_frac for pl in policies], float)
@@ -1571,6 +1609,15 @@ class _Day:
     # sanitizer's flag. Telemetry days run eagerly (no kernels).
     sanitize: bool = False
     telemetry_every: int = 0
+    # Over a fleet mesh: this process's block of the padded rows
+    # (start, stop) and the padded W; () and 0 without one. A sharded
+    # day is a graph of its own.
+    rows: tuple[int, ...] = ()
+    W_pad: int = 0
+
+    @property
+    def block(self) -> slice:
+        return slice(*self.rows)
 
 
 _FLEET_BUFFERS = ("usage", "entitlement", "k", "rts_coeffs", "betas",
@@ -1585,13 +1632,15 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
     (n_ticks, T) or (n_ticks, R, T) stack, the static `_Day` and the
     day's tensors on its device (the fleet's fields with a multi-region
     fleet's region ids and region-sorted rows, the stack, CR1's lam or
-    CR2's float64 cap plan in float32, and a warm state, cloned)."""
+    CR2's float64 cap plan in float32, and a warm state, cloned). Over a
+    fleet mesh (checked here) the inputs also hold this process's block
+    of the padded fleet ("blk_" fields) and the warm state is padded and
+    cut to the block."""
     if ctx.sanitize:
         _require_sanitizable(policy, ctx)
     if not isinstance(problem, FleetProblem):
         raise TypeError(f"solve_day() takes a FleetProblem; got "
                         f"{type(problem).__name__}")
-    refuse_mesh(ctx)
     problem = single_region_view(problem)
     stack = np.asarray(mci_stack, np.float32)
     if (not problem.is_multiregion and stack.ndim == 3
@@ -1611,6 +1660,12 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
     device = resolve_device(ctx.device)
     use_kernel = resolve_use_kernel(ctx.use_kernel, device)
     _require_telemetry_ok(ctx, use_kernel)
+    mesh = _fleet_mesh(ctx, device)
+    if mesh is not None and ctx.telemetry is not None:
+        raise NotImplementedError(
+            "SolveContext(telemetry=...) on solve_day is a solo-lane "
+            "feature: the sharded day has no telemetry plumbing; drop the "
+            "mesh (or the telemetry) for this day")
     if cold_steps is None:
         cold_steps = ctx.resolved_steps(policy)
     if warm_steps is None:
@@ -1618,6 +1673,9 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
     warm = ctx.warm is not None
     view = device_view(problem, device)
     index = view.region_index
+    sh = None if mesh is None else _shard(problem, mesh, device)
+    shard_kw = {} if sh is None else dict(
+        rows=(sh.rows.start, sh.rows.stop), W_pad=sh.W_pad)
     day = _Day(policy=policy.name,
                outer=policy.outer if isinstance(policy, CR2) else 1,
                W=problem.W, T=problem.T, R=problem.R,
@@ -1631,9 +1689,13 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
                max_curtail_frac=float(problem.max_curtail_frac),
                has_upper=problem.upper is not None, use_kernel=use_kernel,
                device=str(device), sanitize=ctx.sanitize,
-               telemetry_every=_tel_every(ctx))
+               telemetry_every=_tel_every(ctx), **shard_kw)
     inputs = {n: getattr(view, n) for n in _FLEET_BUFFERS
               if getattr(view, n) is not None}
+    if sh is not None:
+        inputs.update({"blk_" + n: getattr(sh.view, n)
+                       for n in _FLEET_BUFFERS
+                       if getattr(sh.view, n) is not None})
     if index is not None:
         inputs["region_order"] = index.order
     inputs["mci"] = torch.as_tensor(stack, device=device)
@@ -1643,14 +1705,22 @@ def _day_setup(problem: FleetProblem, policy, mci_stack,
         inputs["cap_plan"] = torch.as_tensor(
             cr2_cap_plan(problem, policy.cap_frac), dtype=f32, device=device)
     if warm:
-        shapes = {"x": (day.W, day.T), "lam_in": (0,), "mu": (),
-                  "lam_eq": (day.W,) if isinstance(policy, CR2) else (0,)}
+        W_st, st = day.W, ctx.warm
+        if sh is not None:
+            # The padded state of a sharded result, or a state padded here.
+            W_st = sh.W_pad
+            if st.x.dim() == 2 and st.x.shape[0] == day.W:
+                st = _pad_state(st, W_st)
+        shapes = {"x": (W_st, day.T), "lam_in": (0,), "mu": (),
+                  "lam_eq": (W_st,) if isinstance(policy, CR2) else (0,)}
         for name, shape in shapes.items():
-            t = getattr(ctx.warm, name)
+            t = getattr(st, name)
             if tuple(t.shape) != shape:
                 raise ValueError(f"ctx.warm.{name} has shape "
                                  f"{tuple(t.shape)}; a {policy.name} day at "
-                                 f"W = {day.W}, T = {day.T} takes {shape}")
+                                 f"W = {W_st}, T = {day.T} takes {shape}")
+            if sh is not None and t.dim() and t.shape[0] == W_st:
+                t = t[sh.rows]
             inputs[name] = t.detach().to(device, f32).clone()
     return problem, stack, day, inputs
 
@@ -1667,47 +1737,78 @@ def _day_impl(day: _Day, inputs: dict[str, Tensor]):
     Returns (committed (n_ticks, W), D, penalties, x, lam_eq, lam_in, mu)
     of the last tick; then, for a sanitized day, the sanitizer's flag
     (zeroed here, so every replay starts clean), and with telemetry the
-    list of each tick's telemetry dict."""
+    list of each tick's telemetry dict.
+
+    A sharded day (`day.rows`) rolls the whole fleet's window beside its
+    block's and normalizes each tick on the whole fleet (its norms and
+    CR2's targets by the same functions as the unsharded day, cut to the
+    block), but solves the block only: its outputs are the block's rows
+    (committed (n_ticks, rows)), and nothing here is collective."""
     index = (RegionIndex(inputs["region_order"], day.region_counts)
              if day.region_counts else None)
-    p = FleetProblem(**{n: inputs.get(n) for n in _FLEET_BUFFERS},
-                     mci=inputs["mci"][0], day_hours=day.day_hours,
-                     max_curtail_frac=day.max_curtail_frac,
-                     region_index=index)
+
+    def fleet(prefix, region_index=None):
+        return FleetProblem(
+            **{n: inputs.get(prefix + n) for n in _FLEET_BUFFERS},
+            mci=inputs["mci"][0], day_hours=day.day_hours,
+            max_curtail_frac=day.max_curtail_frac, region_index=region_index)
+
+    p = fleet("", index)
+    blk = fleet("blk_") if day.rows else None
+    n = day.W if blk is None else blk.W
     if day.warm:
         state = EngineState(x=inputs["x"], lam_eq=inputs["lam_eq"],
                             lam_in=inputs["lam_in"], mu=inputs["mu"])
     else:
-        x0 = torch.zeros((day.W, day.T), dtype=f32, device=p.usage.device)
+        x0 = torch.zeros((n, day.T), dtype=f32, device=p.usage.device)
         state = (EngineState.cold(x0) if day.policy == "cr1" else
-                 EngineState.cold(x0, n_eq=day.W, mu0=CR2_MU0))
+                 EngineState.cold(x0, n_eq=n, mu0=CR2_MU0))
     san = Sanitizer(p.usage.device) if day.sanitize else None
     tels = []
 
-    def tick_solve(p_t, cap, st, steps, shift, reset_mu):
+    def tick_solve(p_t, b_t, cap, st, steps, shift, reset_mu):
         if day.policy == "cr1":
+            if b_t is None:
+                kw = {}
+            else:
+                p_t, kw = b_t, dict(norms=block_norms(
+                    cr1_norms(p_t), day.W_pad, day.block, CR1_NORM_FILLS))
             out = _cr1_impl(p_t, inputs["lam"], st, steps, day.use_kernel,
                             shift, reset_mu, day.moment_dtype, san,
-                            day.telemetry_every)
+                            day.telemetry_every, **kw)
         else:
-            out = _cr2_impl(p_t, cr2_reference_tensor(p_t, cap), st, steps,
-                            day.outer, day.use_kernel, shift, reset_mu,
-                            day.moment_dtype, san, day.telemetry_every)
+            refs, kw = cr2_reference_tensor(p_t, cap), {}
+            if b_t is not None:
+                kw = dict(norms=block_norms(cr2_norms(p_t, refs), day.W_pad,
+                                            day.block, CR2_NORM_FILLS))
+                pad = torch.zeros(day.W_pad - day.W, dtype=refs.dtype,
+                                  device=refs.device)
+                p_t, refs = b_t, torch.cat([refs, pad])[day.block]
+            out = _cr2_impl(p_t, refs, st, steps, day.outer, day.use_kernel,
+                            shift, reset_mu, day.moment_dtype, san,
+                            day.telemetry_every, **kw)
         tels.extend(out[3:])
         return out[:3]
 
     def roll(a):
         return None if a is None else torch.roll(a, -1, dims=1)
 
+    def slide(q, tick):
+        if q is None:
+            return None
+        return dataclasses.replace(q, usage=roll(q.usage), jobs=roll(q.jobs),
+                                   upper=roll(q.upper),
+                                   mci=inputs["mci"][tick])
+
     cap = inputs.get("cap_plan")
-    D, pens, state = tick_solve(p, cap, state, day.first_steps,
+    D, pens, state = tick_solve(p, blk, cap, state, day.first_steps,
                                 day.first_shift, day.first_reset)
     committed = [D[:, 0]]
     for tick in range(1, day.n_ticks):
-        p = dataclasses.replace(p, usage=roll(p.usage), jobs=roll(p.jobs),
-                                upper=roll(p.upper), mci=inputs["mci"][tick])
+        p, blk = slide(p, tick), slide(blk, tick)
         cap = roll(cap)
-        D, pens, state = tick_solve(p, cap, state, day.warm_steps, 1, True)
+        D, pens, state = tick_solve(p, blk, cap, state, day.warm_steps, 1,
+                                    True)
         committed.append(D[:, 0])
     out = (torch.stack(committed), D, pens, state.x, state.lam_eq,
            state.lam_in, state.mu)
@@ -1750,6 +1851,14 @@ def solve_day(problem: FleetProblem, policy, mci_stack, *,
     Elsewhere, and with `use_kernel=False`, the tick loop runs eagerly.
     CR1/CR2 only. Returns `DayResult`; `result.last.state` warm-starts
     the next day.
+
+    Over a fleet mesh (`ctx.mesh`) every process runs the whole day on
+    its own row block (its graph keyed on the block as well), each tick
+    normalized on the whole fleet's window, and the committed hours, the
+    last plan, its penalties and the state are all-gathered once after
+    the day: every process returns the same result, the state padded
+    (as a sharded `solve`'s, so that the next day chains). `sanitize`
+    and `telemetry` are refused there, as in the JAX package.
     """
     ctx = ctx or SolveContext()
     policy = resolve_policy(policy)
@@ -1763,7 +1872,17 @@ def solve_day(problem: FleetProblem, policy, mci_stack, *,
             out = _day_impl(day, inputs)
     if day.sanitize:
         throw_code(out[7])
-    if graph and not ctx.donate:
+    if day.rows:
+        # The blocks gathered outside the day (fresh tensors, so nothing
+        # aliases the graph): committed along its rows, the rest by row.
+        mesh = ctx.mesh
+        committed, *rest = out[:7]
+        n = committed.shape[1]
+        out = (gather_rows(mesh, committed, 1),) + tuple(
+            gather_rows(mesh, t) if t.dim() and t.shape[0] == n else t
+            for t in rest)
+        out = (out[0][:, :day.W], out[1][:day.W], out[2][:day.W]) + out[3:]
+    elif graph and not ctx.donate:
         out = out[:3] + tuple(t.clone() for t in out[3:7]) + out[7:]
     committed, D, pens = (t.cpu().numpy() for t in out[:3])
     state = EngineState(*out[3:7])

@@ -37,7 +37,8 @@ Nothing collective enters the objective: each process differentiates
 its partial sum, which for row-separable problems is exactly the
 global gradient on its rows; global normalizers are the caller's,
 computed on the whole fleet before it is split. Only the telemetry is
-all-reduced, after the loop.
+all-reduced, after the loop. A lane-stacked state shards the same way,
+its rows on dim 1 (a sweep's or an ensemble's lanes on one block).
 """
 from __future__ import annotations
 
@@ -309,17 +310,18 @@ _TEL_REDUCE = {"objective": "sum", "grad_sq": "sum", "violation": "max",
                "dx": "sum"}
 
 
-def gather_rows(mesh, t: Tensor) -> Tensor:
-    """All-gather every process's equal row block of `t` into the padded
-    global tensor, blocks in the mesh's order (`launch.mesh.fleet_ranks`),
-    on `t`'s device; every process gets the same tensor. The list form
-    of `all_gather`, which gloo takes for CPU and CUDA tensors alike."""
+def gather_rows(mesh, t: Tensor, dim: int = 0) -> Tensor:
+    """All-gather every process's equal row block of `t` along `dim` (0,
+    or 1 for lane-stacked tensors) into the padded global tensor, blocks
+    in the mesh's order (`launch.mesh.fleet_ranks`), on `t`'s device;
+    every process gets the same tensor. The list form of `all_gather`,
+    which gloo takes for CPU and CUDA tensors alike."""
     from repro_torch.launch.mesh import fleet_ranks
     ranks = fleet_ranks(mesh)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in ranks]
     dist.all_gather(parts, t)
-    return torch.cat([parts[r] for r in ranks])
+    return torch.cat([parts[r] for r in ranks], dim=dim)
 
 
 def _all_reduce(t: Tensor, how: str) -> Tensor:
@@ -374,19 +376,27 @@ def al_minimize_sharded(objective: Objective,
         [0, 0]: the iterates do not move), and the trace's means are over
         the true rows.
 
+    A lane-stacked `init` (x (N, W_pad, T), lam_eq (N, W_pad) or (N, 0),
+    mu (N,)) runs N solves on the block at once, rows on dim 1; telemetry
+    stays refused on lanes (`al_minimize`).
+
     Returns (x, aux) as `al_minimize`, with x, the row multipliers and
     `aux["state"]` all-gathered to padded global tensors and the
     telemetry all-reduced (`_telemetry_allreduce`): the same on every
     process. Over the true rows, the trace is the unsharded solve's.
     """
-    W_pad = init.x.shape[0]
+    dim = 0 if init.lanes is None else 1
+    W_pad = init.x.shape[dim]
     n = rows.stop - rows.start
     true_rows = W_pad if true_rows is None else true_rows
 
-    def block(a: Tensor) -> Tensor:
-        return a[rows] if a.dim() and a.shape[0] == W_pad else a
+    def rowed(a: Tensor, size: int) -> bool:
+        return a.dim() > dim and a.shape[dim] == size
 
-    local = EngineState(x=init.x[rows], lam_eq=block(init.lam_eq),
+    def block(a: Tensor) -> Tensor:
+        return a[(slice(None),) * dim + (rows,)] if rowed(a, W_pad) else a
+
+    local = EngineState(x=block(init.x), lam_eq=block(init.lam_eq),
                         lam_in=block(init.lam_in), mu=init.mu)
     if cfg.telemetry_every:
         keep = (torch.arange(rows.start, rows.stop, device=init.x.device)
@@ -400,7 +410,7 @@ def al_minimize_sharded(objective: Objective,
                          **pieces)
 
     def gather(a: Tensor) -> Tensor:
-        return gather_rows(mesh, a) if a.dim() and a.shape[0] == n else a
+        return gather_rows(mesh, a, dim) if rowed(a, n) else a
 
     x, lam_eq, lam_in = (gather(a) for a in (x, aux["lam_eq"],
                                              aux["lam_in"]))

@@ -36,8 +36,13 @@ loop lane's `solve()` does (`_apply_migration_credit`).
 Parity contract (the JAX package's): the batched lane matches the loop
 of `api.solve` within 0.01 pp on every scenario.
 
-Not ported yet: the fleet-mesh lanes (ROADMAP item 11a-ii), refused by
-name; `api.solve` shards one solve.
+Fleet meshes (`SolveContext.mesh`): `evaluate_ensemble` (and so
+`compare_policies`) runs the batched lane on this process's row block
+of the padded fleet, its stacked overlays padded with
+`fleet_solver.PAD_FILLS` (`_pad_overlays`), each scenario normalized on
+its whole fleet, and gathers the lanes; the lane is cold-only, as the
+JAX package's. The loop lane passes the mesh to `api.solve`.
+`run_streaming_ensemble` takes no mesh, in either package.
 """
 from __future__ import annotations
 
@@ -48,10 +53,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import (CR1, CR2, SolveContext, _cr1_lanes,
-                                  _cr2_lanes, cold_lanes, refuse_mesh,
-                                  resolve_policy, solve)
+                                  _cr2_lanes, _fleet_mesh, _shard,
+                                  cold_lanes, resolve_policy, solve)
 from repro_torch.core.engine import EngineState
-from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, FleetProblem,
+from repro_torch.core.fleet_solver import (CR1_MU0, CR2_MU0, PAD_FILLS,
+                                           FleetProblem,
                                            cr2_reference_fleet, device_view,
                                            fleet_penalties,
                                            single_region_view)
@@ -98,28 +104,67 @@ def _cr2_refs(policy, p: FleetProblem, stack: ScenarioStack,
     return [refs(q) for q in stack.problems(p)]
 
 
+def _pad_overlays(over: dict, W: int, W_pad: int) -> dict:
+    """Pad stacked per-workload overlays ((S, W, ...)) along their rows
+    with `pad_fleet`'s inert fills (`fleet_solver.PAD_FILLS`, shared so
+    that the conventions cannot drift); the MCI is not padded."""
+    if W_pad == W:
+        return over
+    out = {}
+    for k, v in over.items():
+        v = np.asarray(v)
+        out[k] = v if k == "mci" else np.concatenate(
+            [v, np.full((v.shape[0], W_pad - W) + v.shape[2:], PAD_FILLS[k],
+                        dtype=v.dtype)], axis=1)
+    return out
+
+
 def _run_batched(policy, p: FleetProblem, stack: ScenarioStack, *,
                  steps: int, use_kernel: bool, device,
                  init: EngineState | None = None, shift: int = 0,
-                 reset_mu: bool = False, moment_dtype: str = "float32"):
+                 reset_mu: bool = False, moment_dtype: str = "float32",
+                 mesh=None):
     """All S scenario solves under `policy` (CR1/CR2) as one batched run.
     Returns (D (S, W, T), penalties (S, W), stacked state), tensors on
     `device`. `init` (a stacked `EngineState`, e.g. the previous
     streaming tick's) warm-starts every lane; `shift`/`reset_mu` fold the
-    rolling-horizon tick entry into the same run."""
+    rolling-horizon tick entry into the same run.
+
+    Over a fleet `mesh` the lanes run on this process's row block of the
+    padded fleet and its padded overlays, each scenario normalized (CR2:
+    targeted) on its whole fleet, and are gathered: D and the penalties
+    cut to the fleet's W, the state padded. That lane is cold-only, as
+    the JAX package's: `init`, `shift` or `reset_mu` raise
+    `ValueError`."""
     S = stack.S
     view, views = _lane_view(p, stack, device)
+    sh = None
+    if mesh is not None:
+        if init is not None or shift or reset_mu:
+            raise ValueError(
+                "the sharded ensemble lane is cold-only (no warm, shift or "
+                "reset_mu); run the streaming ensemble without a mesh")
+        sh = _shard(p, mesh, device)
+        over = _pad_overlays(stack.overlay_fields(), p.W, sh.W_pad)
+        view = dataclasses.replace(sh.view, **{
+            k: torch.as_tensor(v, dtype=f32, device=device)[
+                (slice(None),) if k == "mci" else (slice(None), sh.rows)]
+            for k, v in over.items()})
+    W = p.W if sh is None else sh.W_pad
     if type(policy) is CR1:
         if init is None:
-            init = cold_lanes(S, p, device, 0, CR1_MU0)
+            init = cold_lanes(S, W, p.T, device, 0, CR1_MU0)
         lams = torch.full((S,), policy.lam, dtype=f32, device=device)
-        return _cr1_lanes(view, views, lams, init, steps, use_kernel, shift,
-                          reset_mu, moment_dtype)
-    if init is None:
-        init = cold_lanes(S, p, device, p.W, CR2_MU0)
-    return _cr2_lanes(view, views, _cr2_refs(policy, p, stack, device),
-                      init, steps, policy.outer, use_kernel, shift, reset_mu,
-                      moment_dtype)
+        out = _cr1_lanes(view, views, lams, init, steps, use_kernel, shift,
+                         reset_mu, moment_dtype, shard=sh)
+    else:
+        if init is None:
+            init = cold_lanes(S, W, p.T, device, W, CR2_MU0)
+        out = _cr2_lanes(view, views, _cr2_refs(policy, p, stack, device),
+                         init, steps, policy.outer, use_kernel, shift,
+                         reset_mu, moment_dtype, shard=sh)
+    D, pens, states = out
+    return D[:, :p.W], pens[:, :p.W], states
 
 
 def _batched_capable(policy) -> bool:
@@ -326,14 +371,16 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
     batched lane has no telemetry plumbing. `ctx.sanitize` raises
     (sanitize single scenarios through `api.solve`). `batched` forces
     the lane (True raises if there is no batched lane for the policy and
-    context; False forces the loop, the parity hook)."""
+    context; False forces the loop, the parity hook). Over a fleet mesh
+    (`ctx.mesh`) the batched lane shards the fleet's rows
+    (`_run_batched`) and the loop lane's `solve()`s shard each scenario;
+    every process returns the same result."""
     ctx = ctx or SolveContext()
     if ctx.sanitize:
         raise NotImplementedError(
             "SolveContext(sanitize=True) is a solo-solve debug lane — the "
             "batched ensemble lanes have no checked twins; sanitize "
             "single scenarios through solve()")
-    refuse_mesh(ctx)
     problem = single_region_view(problem)
     policy = resolve_policy(policy)
     stack = resolve_scenarios(scenarios, problem)
@@ -348,6 +395,7 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
             "telemetry)")
     device = resolve_device(ctx.device)
     use_kernel = resolve_use_kernel(ctx.use_kernel, device)
+    mesh = _fleet_mesh(ctx, device)
     if batched is False or not can_batch:
         probs = list(stack.problems(problem))
         results = [solve(ps, policy,
@@ -376,7 +424,7 @@ def evaluate_ensemble(problem: FleetProblem, policy, scenarios, *,
     D, pens, _ = _run_batched(policy, problem, stack,
                               steps=ctx.resolved_steps(policy),
                               use_kernel=use_kernel, device=device,
-                              moment_dtype=ctx.moment_dtype)
+                              moment_dtype=ctx.moment_dtype, mesh=mesh)
     res = _result_from_stacks(problem, stack, policy, D.cpu().numpy(),
                               pens.cpu().numpy(), batched=True)
     return _apply_migration_credit(problem, stack, res, device)

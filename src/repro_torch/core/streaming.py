@@ -43,10 +43,12 @@ replay), `telemetry` samples each solve's convergence, and
 seen under `analysis.recompile_guard(0)`: no graph capture, no kernel
 build.
 
-A port of the JAX package's `repro.core.streaming` on one device; a mesh
-raises `NotImplementedError` (ROADMAP item 11a-ii). CR3, B1 and B3
-run tick by tick (`step`/`run`); `run_scanned` takes CR1/CR2 only, as
-`api.solve_day`.
+A port of the JAX package's `repro.core.streaming`. CR3, B1 and B3 run
+tick by tick (`step`/`run`); `run_scanned` takes CR1/CR2 only, as
+`api.solve_day`. Over a fleet mesh (`mesh=`, SPMD: every process builds
+the same controller and steps it alike) each tick is a sharded `solve`
+and `run_scanned` a sharded `solve_day`; the solver's state is then the
+padded one, which the next tick or day takes as it is.
 """
 from __future__ import annotations
 
@@ -66,6 +68,7 @@ from repro_torch.core.engine import EngineState
 from repro_torch.core.fleet_solver import (FleetProblem, FleetSolveResult,
                                            single_region_view)
 from repro_torch.core.regional import region_totals
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.obs.events import EventWriter, TelemetryEvent, TickEvent
 from repro_torch.obs.telemetry import TelemetryConfig
 
@@ -171,8 +174,11 @@ class RollingHorizonSolver:
         `warm_steps // 4`).
       revision_ref: relative revision magnitude that earns the full
         `warm_steps` (default 0.05).
-      mesh: a fleet mesh; not ported yet for streaming (ROADMAP item
-        11a-ii), it raises `NotImplementedError`.
+      mesh: a fleet mesh (`launch.mesh.make_fleet_mesh`): every tick's
+        re-solve and `run_scanned`'s day shard the fleet's rows over its
+        processes (`SolveContext.mesh`); checked here
+        (`launch.mesh.check_fleet_mesh`). Only the first of the fleet's
+        ranks (`launch.mesh.fleet_ranks`) keeps `events`.
       guard_recompiles: enforce the warm-path claim at runtime. The
         first solve of each static configuration (a (steps, warm) tick,
         or a day of n ticks, cold or warm) may capture a graph or build
@@ -218,10 +224,12 @@ class RollingHorizonSolver:
                  events: EventWriter | str | None = None,
                  telemetry: TelemetryConfig | None = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "RollingHorizonSolver: a fleet mesh is not ported yet for "
-                "streaming (ROADMAP item 11a-ii); api.solve shards one "
-                "solve")
+            from repro_torch.launch.mesh import check_fleet_mesh, fleet_ranks
+            check_fleet_mesh(mesh, resolve_device(device))
+            # Every process steps the same controller: one tick ledger,
+            # kept by the first of the fleet's ranks.
+            if torch.distributed.get_rank() != fleet_ranks(mesh)[0]:
+                events = None
         streams = (tuple(stream) if isinstance(stream, (list, tuple))
                    else (stream,))
         # R = 1 canonicalizes up front: the whole streaming path, the
@@ -256,6 +264,7 @@ class RollingHorizonSolver:
         self.revision_ref = revision_ref
         self.use_kernel = use_kernel
         self.device = device
+        self.mesh = mesh
         self.donate = donate
         self.guard_recompiles = guard_recompiles
         if events is None or isinstance(events, EventWriter):
@@ -317,8 +326,8 @@ class RollingHorizonSolver:
                                    upper=roll(p.upper))
 
     def _ctx(self, **kw) -> SolveContext:
-        return SolveContext(device=self.device, donate=self.donate,
-                            use_kernel=self.use_kernel,
+        return SolveContext(device=self.device, mesh=self.mesh,
+                            donate=self.donate, use_kernel=self.use_kernel,
                             telemetry=self.telemetry, **kw)
 
     # -- guard and tick ledger ------------------------------------------------

@@ -37,7 +37,10 @@ chip_smoke's cases, `SSDScanFn` so through `ssd_chunked`, and mamba2-780m
 at full width and 2 layers: loss within 1e-3 and each gradient leaf
 within 0.05 relative L2 through the kernels of the plain path's, with the
 launches a remat step makes; a fleet solve over a world-1 NCCL mesh
-within 0.01 pp of the unsharded solve at the same launches.
+within 0.01 pp of the unsharded solve at the same launches, and a
+sharded 24-tick day (its own graph, captured then replayed), CR2 sweep
+and CR1 ensemble bitwise the unsharded calls at the same launches
+(`-k sharded`).
 """
 import importlib.util
 import pathlib
@@ -1771,3 +1774,90 @@ def test_sharded_solve_refuses_a_mesh_on_another_device_type(nccl_world1,
     mesh = make_fleet_mesh(device_type="cpu")
     with pytest.raises(ValueError, match="'cpu' devices but the solve"):
         solve(fleets[130], CR1(), ctx=SolveContext(mesh=mesh, steps=8))
+
+
+def _counts():
+    from repro_torch.core.daygraph import COUNTED
+    return {n: f.launches for n, f in COUNTED.items()}
+
+
+def _counted(call):
+    """`call()` with the kernels' launch counts reset just before and read
+    just after: (its result, the launches)."""
+    from repro_torch.core.daygraph import COUNTED
+    for f in COUNTED.values():
+        f.launches = 0
+    return call(), _counts()
+
+
+def test_sharded_world1_nccl_day_captures_and_replays(nccl_world1, fleets):
+    """A 24-tick CR1 day (cold 40 / warm 10) at W = 10,000 over a world-1
+    NCCL mesh: a graph of its own, captured on the first day and replayed
+    on the second; both days bitwise the unsharded day (committed, D,
+    state) and a replay's launches the unsharded replay's."""
+    from repro_torch.core.api import CR1, SolveContext, solve_day
+    from repro_torch.core.carbon import ForecastStream
+    from repro_torch.core.daygraph import DAY_GRAPHS
+    from repro_torch.launch.mesh import make_fleet_mesh
+    p = fleets[10_000]
+    stream = ForecastStream.caiso(n_ticks=24, horizon=T, seed=5,
+                                  revision_sigma=0.03)
+    stack = np.stack([stream.forecast(t) for t in range(24)])
+    budget = dict(cold_steps=40, warm_steps=10)
+    out = {}
+    for mesh in (None, make_fleet_mesh()):
+        ctx = SolveContext(mesh=mesh)
+        n0 = DAY_GRAPHS.captures
+        first = solve_day(p, CR1(lam=1.45), stack, ctx=ctx, **budget)
+        assert DAY_GRAPHS.captures == n0 + 1
+        again, launches = _counted(lambda: solve_day(
+            p, CR1(lam=1.45), stack, ctx=ctx, **budget))
+        assert DAY_GRAPHS.captures == n0 + 1
+        np.testing.assert_array_equal(first.committed, again.committed)
+        out[mesh is None] = (again, launches)
+    (got, got_n), (want, want_n) = out[False], out[True]
+    assert got_n == want_n and got_n["al_step"] > 0
+    np.testing.assert_array_equal(got.committed, want.committed)
+    np.testing.assert_array_equal(got.last.D, want.last.D)
+    for f in ("x", "lam_eq", "lam_in", "mu"):
+        assert torch.equal(getattr(got.last.state, f),
+                           getattr(want.last.state, f))
+
+
+def test_sharded_world1_nccl_sweep_cr2(nccl_world1, fleets):
+    """A CR2 sweep over cap_frac (0.74, 0.78), outer 2, 40 steps, at W =
+    10,000 over a world-1 NCCL mesh: every lane bitwise the unsharded
+    sweep's, at the same launches."""
+    from repro_torch.core.api import CR2, SolveContext, sweep
+    from repro_torch.launch.mesh import make_fleet_mesh
+    pols = [CR2(cap_frac=c, outer=2) for c in (0.74, 0.78)]
+    (want, want_n), (got, got_n) = (_counted(lambda m=m: sweep(
+        fleets[10_000], pols, ctx=SolveContext(steps=40, mesh=m)))
+        for m in (None, make_fleet_mesh()))
+    assert got_n == want_n and got_n["al_step"] > 0
+    for a, b in zip(got, want):
+        assert a.state is None
+        np.testing.assert_array_equal(a.D, b.D)
+        assert a.carbon_reduction_pct == b.carbon_reduction_pct
+
+
+def test_sharded_world1_nccl_ensemble_cr1(nccl_world1, fleets):
+    """A CR1 ensemble of S = 8 (DuckPerturb 4, FleetJitter 2, FlexMixShift
+    2; 40 steps) at W = 10,000 over a world-1 NCCL mesh: the batched lane,
+    every scenario bitwise the unsharded ensemble's, at the same
+    launches."""
+    from repro_torch.core.api import CR1, SolveContext
+    from repro_torch.core.ensemble import evaluate_ensemble
+    from repro_torch.core.scenario import (DuckPerturb, FleetJitter,
+                                           FlexMixShift)
+    from repro_torch.launch.mesh import make_fleet_mesh
+    scen = [DuckPerturb(4, seed=0), FleetJitter(2, seed=1),
+            FlexMixShift(2, seed=2)]
+    (want, want_n), (got, got_n) = (_counted(lambda m=m: evaluate_ensemble(
+        fleets[10_000], CR1(lam=1.45), scen,
+        ctx=SolveContext(steps=40, mesh=m)))
+        for m in (None, make_fleet_mesh()))
+    assert got.batched and want.batched
+    assert got_n == want_n and got_n["al_step"] > 0
+    np.testing.assert_array_equal(got.D, want.D)
+    np.testing.assert_array_equal(got.penalties, want.penalties)

@@ -326,7 +326,9 @@ def test_multiregion_streaming_and_lanes_refused_by_name(fleets, tmp_path):
     """The streaming and batched lanes take a multi-region fleet (held
     against the JAX package in `tests/test_torch_multiregion_streaming.py`
     and `tests/test_torch_multiregion_lanes.py`); what stays refused
-    around them is refused by name: the mesh (ROADMAP item 11a-ii).
+    around them is refused by name: a mesh that is not a `DeviceMesh`
+    (sharded regional days and ensembles are
+    `tests/test_torch_sharding_lanes.py`'s).
     The tick ledger, telemetry and recompile guard run on it: per-region
     committed and realized carbon on every tick, with the migration
     credit."""
@@ -363,7 +365,7 @@ def test_multiregion_streaming_and_lanes_refused_by_name(fleets, tmp_path):
                                            ctx=mesh),
             lambda: tstream.RollingHorizonSolver(tp, streams, mesh=object(),
                                                  device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 11a-ii"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
     from repro_torch.obs import TelemetryConfig, read_events
     path = tmp_path / "regions.jsonl"

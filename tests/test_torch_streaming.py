@@ -330,8 +330,10 @@ def test_policy_knobs_and_defaults(fleet16):
     assert tapi.configured_policy("cr2") == tapi.CR2(cap_frac=0.78, outer=4)
 
 
+# A mesh that is not a `DeviceMesh`, refused by the constructor (sharded
+# streaming is `test_torch_sharding_lanes.py`'s).
 REFUSALS = {
-    "mesh": (dict(mesh=object()), "item 11a-ii"),
+    "mesh": (dict(mesh=object(), device="cpu"), "DeviceMesh"),
 }
 # Options the port refused by name until the tick ledger, in-solve
 # telemetry and the recompile guard were ported: each now runs 2 ticks
@@ -359,7 +361,7 @@ def test_unported_options_refuse_by_name(fleet16, case, tmp_path):
     p, tp = fleet16
     if case in REFUSALS:
         kw, item = REFUSALS[case]
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(TypeError, match=item):
             tstream.RollingHorizonSolver(tp, _streams(n=2)[1], **kw)
         return
     if case in LEDGER:

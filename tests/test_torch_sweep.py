@@ -176,13 +176,15 @@ def test_stack_states_names_the_mismatched_lane(fleet16):
 
 @pytest.mark.parametrize("what", ["mesh", "cr3", "b1", "b3"])
 def test_unported_refused_by_name(fleet16, what):
-    """A mesh is still refused by name. CR3, B1 and B3, refused until
+    """A mesh that is not a `DeviceMesh` is refused
+    (`launch.mesh.check_fleet_mesh`; sharded sweeps are
+    `test_torch_sharding_lanes.py`'s). CR3, B1 and B3, refused until
     they were ported, now ride a mixed sweep's loop lane, held against
     the JAX package's (the CR3 rounds, `balanced` and rho as in
     `test_torch_cr3.py`)."""
     p, tp = fleet16
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match="item 11a-ii"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tapi.sweep(tp, [tapi.CR1()], ctx=tapi.SolveContext(
                 device="cpu", mesh=object()))
         return

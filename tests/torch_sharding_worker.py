@@ -14,6 +14,19 @@ for a 1-D mesh, R for an (R, world // R) one), "warm_state" (a numpy
 (x, lam_eq, lam_in, mu), the first solve's warm start) and "chain"
 (`SolveContext` fields of a second solve warm from the first one's
 sharded state, reported as "<name>/chain").
+
+"kind" picks the entry point (`KINDS`; default "solve"):
+  * "sweep": `api.sweep(fleet, policies)` ("warm_state" stacked);
+  * "day": `api.solve_day(fleet, policy, stack, cold_steps=,
+    warm_steps=)` and, with "chain", once more warm from its state
+    ("<name>/chain");
+  * "ensemble": `ensemble.evaluate_ensemble(fleet, policy, scenarios)`;
+  * "stream": `RollingHorizonSolver(fleet, streams, mesh=...,
+    events=, **solver)` through `run(ticks)` or `run_scanned(ticks)`
+    ("scanned"), "events" (a path, optional) its tick ledger;
+  * "refusals": what a mesh refuses, each message or None: the sharded
+    ensemble lane warm, shifted or with mu reset (`_run_batched`), and a
+    sharded day with telemetry or sanitize.
 """
 from __future__ import annotations
 
@@ -21,7 +34,6 @@ import os
 import pickle
 import shutil
 import tempfile
-import time
 
 import numpy as np
 
@@ -42,6 +54,144 @@ def _result(r) -> dict:
             k: np.asarray(getattr(tel, k)) for k in
             ("step", "objective", "grad_norm", "violation", "dx", "mu",
              "step_scale")}}
+
+
+def _state(st) -> dict:
+    return {"x": st.x.numpy(), "lam_eq": st.lam_eq.numpy(),
+            "lam_in": st.lam_in.numpy(), "mu": st.mu.numpy()}
+
+
+def _day_result(day) -> dict:
+    return dict(_state(day.last.state), committed=day.committed,
+                D=day.last.D, carbon=day.last.carbon_reduction_pct,
+                penalty=day.last.total_penalty_pct,
+                inner_steps=day.inner_steps)
+
+
+def _ensemble_result(res) -> dict:
+    return {"carbon": res.carbon_reduction_pct,
+            "penalty": res.total_penalty_pct, "D": res.D,
+            "penalties": res.penalties, "batched": res.batched}
+
+
+def _stream_result(rep, solver) -> dict:
+    return dict(_state(solver._state), committed=rep.committed,
+                realized=rep.realized_carbon,
+                reduction=rep.realized_reduction_pct,
+                inner_steps=rep.total_inner_steps)
+
+
+def _warm(job):
+    import torch
+    from repro_torch.core.engine import EngineState
+    return EngineState(*(torch.as_tensor(a) for a in job["warm_state"]))
+
+
+def _solve_job(name, job, mesh, results):
+    from repro_torch.core.api import SolveContext, solve
+    kw = dict(job.get("ctx", {}))
+    if "warm_state" in job:
+        kw["warm"] = _warm(job)
+    first = solve(job["fleet"], job["policy"], ctx=SolveContext(
+        device="cpu", mesh=mesh, **kw))
+    results[name] = _result(first)
+    if "chain" in job:
+        again = solve(job["fleet"], job["policy"], ctx=SolveContext(
+            device="cpu", mesh=mesh, warm=first.state, **job["chain"]))
+        results[name + "/chain"] = _result(again)
+
+
+def _sweep_job(name, job, mesh, results):
+    from repro_torch.core.api import SolveContext, sweep
+    kw = dict(job.get("ctx", {}))
+    if "warm_state" in job:
+        kw["warm"] = _warm(job)
+    out = sweep(job["fleet"], job["policies"], ctx=SolveContext(
+        device="cpu", mesh=mesh, **kw))
+    results[name] = [dict(_result(r) if r.state is not None else {},
+                          D=r.D, carbon=r.carbon_reduction_pct,
+                          penalty=r.total_penalty_pct, iters=r.iters,
+                          state=r.state is not None) for r in out]
+
+
+def _day_job(name, job, mesh, results):
+    from repro_torch.core.api import SolveContext, solve_day
+    kw = dict(job.get("ctx", {}))
+    steps = dict(cold_steps=job["cold_steps"], warm_steps=job["warm_steps"])
+    first = solve_day(job["fleet"], job["policy"], job["stack"],
+                      ctx=SolveContext(device="cpu", mesh=mesh, **kw),
+                      **steps)
+    results[name] = _day_result(first)
+    if "chain" in job:
+        day = solve_day(job["fleet"], job["policy"], job["stack"],
+                        ctx=SolveContext(device="cpu", mesh=mesh,
+                                         warm=first.last.state, **kw),
+                        **steps)
+        results[name + "/chain"] = _day_result(day)
+
+
+def _ensemble_job(name, job, mesh, results):
+    from repro_torch.core.api import SolveContext
+    from repro_torch.core.ensemble import evaluate_ensemble
+    res = evaluate_ensemble(job["fleet"], job["policy"], job["scenarios"],
+                            ctx=SolveContext(device="cpu", mesh=mesh,
+                                             **job.get("ctx", {})))
+    results[name] = _ensemble_result(res)
+
+
+def _stream_job(name, job, mesh, results):
+    from repro_torch.core.streaming import RollingHorizonSolver
+    solver = RollingHorizonSolver(job["fleet"], job["streams"], mesh=mesh,
+                                  device="cpu", events=job.get("events"),
+                                  **job["solver"])
+    run = solver.run_scanned if job.get("scanned") else solver.run
+    results[name] = _stream_result(run(job["ticks"]), solver)
+
+
+def _refusals_job(name, job, mesh, results):
+    import torch
+    from repro_torch.core.api import CR1, SolveContext, cold_lanes, solve_day
+    from repro_torch.core.ensemble import _run_batched
+    from repro_torch.core.scenario import resolve_scenarios
+    from repro_torch.obs.telemetry import TelemetryConfig
+    p = job["fleet"]
+    stack = resolve_scenarios(job["scenarios"], p)
+    dev = torch.device("cpu")
+    init = cold_lanes(stack.S, p.W, p.T, dev, 0, 10.0)
+    calls = {
+        "warm": lambda: _run_batched(CR1(), p, stack, steps=2,
+                                     use_kernel=False, device=dev,
+                                     init=init, mesh=mesh),
+        "shift": lambda: _run_batched(CR1(), p, stack, steps=2,
+                                      use_kernel=False, device=dev, shift=1,
+                                      mesh=mesh),
+        "reset_mu": lambda: _run_batched(CR1(), p, stack, steps=2,
+                                         use_kernel=False, device=dev,
+                                         reset_mu=True, mesh=mesh),
+        "telemetry": lambda: solve_day(p, CR1(), job["stack"],
+                                       ctx=SolveContext(
+                                           device="cpu", mesh=mesh,
+                                           telemetry=TelemetryConfig(2)),
+                                       cold_steps=4),
+        "sanitize": lambda: solve_day(p, CR1(), job["stack"],
+                                      ctx=SolveContext(device="cpu",
+                                                       mesh=mesh,
+                                                       sanitize=True),
+                                      cold_steps=4)}
+    out = {}
+    for key, call in calls.items():
+        try:
+            call()
+            out[key] = None
+        except (ValueError, NotImplementedError) as e:
+            out[key] = (type(e).__name__, str(e))
+    results[name] = out
+
+
+#: Job kind -> its runner (name, job, mesh, results).
+KINDS = {"solve": _solve_job, "sweep": _sweep_job, "day": _day_job,
+         "ensemble": _ensemble_job, "stream": _stream_job,
+         "refusals": _refusals_job}
 
 
 def _mesh_facts(world: int) -> dict:
@@ -94,8 +244,6 @@ def _rank(rank: int, world: int, store: str, jobs: list, out: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        from repro_torch.core.api import SolveContext, solve
-        from repro_torch.core.engine import EngineState
         from repro_torch.launch.mesh import make_fleet_mesh
         meshes = {}
         results = {"mesh": _mesh_facts(world)}
@@ -104,20 +252,8 @@ def _rank(rank: int, world: int, store: str, jobs: list, out: str) -> None:
             if regions not in meshes:
                 meshes[regions] = make_fleet_mesh(regions=regions,
                                                   device_type="cpu")
-            kw = dict(job.get("ctx", {}))
-            if "warm_state" in job:
-                kw["warm"] = EngineState(*(torch.as_tensor(a)
-                                           for a in job["warm_state"]))
-            t0 = time.perf_counter()
-            first = solve(job["fleet"], job["policy"], ctx=SolveContext(
-                device="cpu", mesh=meshes[regions], **kw))
-            results[name] = dict(_result(first),
-                                 wall=time.perf_counter() - t0)
-            if "chain" in job:
-                again = solve(job["fleet"], job["policy"], ctx=SolveContext(
-                    device="cpu", mesh=meshes[regions], warm=first.state,
-                    **job["chain"]))
-                results[name + "/chain"] = _result(again)
+            KINDS[job.get("kind", "solve")](name, job, meshes[regions],
+                                            results)
         with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
     finally:

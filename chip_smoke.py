@@ -274,6 +274,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
    free routing misses with an expert set flipped) and 2 steps each:
    jamba-v0.1-52b (one 8-layer group, 3 experts), qwen3-moe-30b-a3b (4
    layers) and deepseek-v3-671b (1 layer and its MTP head, 12 experts);
+   8e, training on a model mesh: stablelm-3b at full width and 2 layers
+   (remat), a global batch of 4 x 1024, unsharded through
+   `make_train_step` for 3 steps (the yardstick, run once); then over a
+   world-1 NCCL mesh in this process (`elastic.build`, 2 sharded steps,
+   `resize` onto another 1 x 1 mesh), the loss and every p, m and v leaf
+   bitwise the yardstick's after 2 steps and after the resize, launches
+   a step the unsharded counts (4L + 1 rmsnorm, 2L flash attention); and
+   on 4 gloo processes sharing the card, spawned at the start of phase 8
+   and holding nothing on it until 8e begins (8d peaks at 69 GiB): 2
+   steps on a 2 x 2 mesh, each loss within 1e-3 relative of the
+   yardstick's, each leaf's update (p after - p before) within relative
+   L2 0.05 of the yardstick's, each rank's launches a step the unsharded
+   counts and its state bytes the rules' count, the gathered state
+   bitwise across ranks; `resize` to a 1 x 2 mesh (ranks 2 and 3 leave),
+   the new blocks bitwise the gathered state, a third step within 1e-3
+   of the yardstick's third; `compressed_psum_pod` on CUDA tensors over
+   the pod axis of a (pod 2, data 1, model 2) mesh of the same ranks on
+   the reference test's case (error and residual < 0.05); each rank's
+   walls, gather and reduction bytes and peak memory logged;
 9. print the kernels' JSON line and, last, the device line.
 
 Imports nothing of the JAX package.
@@ -568,6 +587,19 @@ TRAIN_CUTS = (
      "and 3.45 GiB asked, on an H100 80GB; 8 would route every token to "
      "every expert)"),
 )
+# Phase 8e: training on a model mesh. stablelm-3b at full width, MESH_LAYERS
+# layers and remat, a global batch of MESH_BATCH x MESH_SEQ: a rank of the
+# 2 x 2 mesh holds ~1.25 GB of p, m and v (416e6 parameters x 12 bytes /
+# 4). MESH_RANKS gloo processes share the card (NCCL refuses two ranks on
+# one device); the yardstick is this process's unsharded step. Bounds set
+# before any run: bf16 losses within MESH_LOSS_RTOL, each
+# leaf's update within MESH_UPDATE_L2 relative L2 (8a/8b's yardstick),
+# compression error and residual below MESH_COMPRESS_TOL (the reference
+# test's, `tests/test_runtime.py:150-158`).
+MESH_LAYERS, MESH_BATCH, MESH_SEQ, MESH_SEED = 2, 4, 1024, 8
+MESH_RANKS = 4
+MESH_LOSS_RTOL, MESH_UPDATE_L2, MESH_COMPRESS_TOL = 1e-3, 0.05, 0.05
+MESH_WAIT_S = 1500             # a rank's wait for each signal
 
 
 def log(*a):
@@ -4801,6 +4833,330 @@ def phase_train_ssm(np, torch):
     return totals
 
 
+def _mesh_cfg():
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    return dc.replace(get_config("stablelm-3b"), num_layers=MESH_LAYERS,
+                      remat=True)
+
+
+def _mesh_batches():
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synthetic_batch
+    shape = ShapeCell("mesh", MESH_SEQ, MESH_BATCH, "train")
+    return [synthetic_batch(_mesh_cfg(), shape, step=i) for i in range(3)]
+
+
+def _mesh_opt():
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(total_steps=10)
+
+
+def _signal_wait(tmp, name, limit):
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(tmp, name)):
+        if time.perf_counter() - t0 > limit:
+            raise TimeoutError(f"no {name} signal")
+        time.sleep(0.05)
+
+
+def _host_digest(np, tree):
+    import hashlib
+
+    import torch
+    from repro_torch.optim.adamw import tree_items
+    h = hashlib.sha256()
+    for k, t in tree_items(tree):
+        h.update(k.encode())
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(np.ascontiguousarray(t.numpy()).tobytes())
+    return h.hexdigest()
+
+
+def _mesh_rank(rank, world, tmp):
+    """One gloo rank of phase 8e on the card, spawned at the start of phase
+    8: it joins the group at once and touches the card only once
+    `tmp`/go exists; its results to `tmp`/rank<r>.pkl."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "gloo"), world), rank=rank, world_size=world)
+    try:
+        _signal_wait(tmp, "go", MESH_WAIT_S)
+        torch.cuda.set_device(0)
+        res = _mesh_rank_work(np, torch, rank, tmp)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank_work(np, torch, rank, tmp):
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import adamw_init, tree_items
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.compression import (compressed_psum_pod,
+                                                 init_error)
+    cfg, opt_cfg, batches = _mesh_cfg(), _mesh_opt(), _mesh_batches()
+    kernels = {"rmsnorm": rmsnorm_cuda,
+               "flash_attention": flash_attention_cuda}
+    out = {"steps": []}
+    t_all = time.perf_counter()
+    mesh = make_test_mesh(2, 2)
+    full = tf.init_params(cfg, seed=MESH_SEED, device="cuda")
+    p0 = {k: v.cpu() for k, v in tree_items(full)} if rank == 0 else None
+    st = elastic.build(cfg, mesh, full, adamw_init(full, opt_cfg), opt_cfg)
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(st, batch):
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        sh.COMM.update(gather_bytes=0, reduce_bytes=0)
+        t0 = time.perf_counter()
+        st.params, st.opt_state, loss = st.step_fn(st.params, st.opt_state,
+                                                   batch)
+        torch.cuda.synchronize()
+        out["steps"].append({
+            "loss": loss, "wall": time.perf_counter() - t0,
+            "launches": {n: f.launches for n, f in kernels.items()},
+            **dict(sh.COMM)})
+
+    for batch in batches[:2]:
+        step(st, batch)
+    pspecs = sh.legalize(st.params, sh.param_specs(st.params), mesh)
+    out["bytes"] = sh.state_bytes(st.params) + sh.state_bytes(st.opt_state)
+    out["rule_bytes"] = sh.rule_bytes(
+        {"p": st.params, "m": st.opt_state["m"], "v": st.opt_state["v"],
+         "s": st.opt_state["step"]},
+        {"p": pspecs, "m": pspecs, "v": pspecs, "s": ()}, mesh)
+    t0 = time.perf_counter()
+    snapshot = (sh.gather_tree(st.params), sh.gather_tree(st.opt_state))
+    out["gather_s"] = time.perf_counter() - t0
+    out["digest"] = _host_digest(np, {"p": snapshot[0], "o": snapshot[1]})
+    if rank == 0:
+        # Each leaf's update against the yardstick's, which this process's
+        # parent wrote after its 2 unsharded steps.
+        _signal_wait(tmp, "yard", MESH_WAIT_S)
+        want, _ = CheckpointManager(os.path.join(tmp, "yard")).restore(
+            {"params": snapshot[0]}, 2, device="cpu")
+        want = dict(tree_items(want["params"]))
+        out["update_l2"] = {}
+        for k, got in tree_items(snapshot[0]):
+            du, ds = want[k] - p0[k], got - p0[k]
+            out["update_l2"][k] = float(torch.linalg.vector_norm(ds - du)
+                                        / torch.linalg.vector_norm(du))
+        del want, p0
+    small = elastic.mesh_from_devices([0, 1], 1, 2)
+    t0 = time.perf_counter()
+    st = elastic.resize(st, cfg, small, opt_cfg, snapshot=snapshot)
+    out["resize_s"] = time.perf_counter() - t0
+    out["member"] = st.member
+    if st.member:
+        flat = dict(tree_items({"p": snapshot[0], "o": snapshot[1]}))
+        out["resized_bitwise"] = all(
+            torch.equal(t.to_local().cpu(), sh.local_slice(
+                flat[k], tuple(t.placements), small))
+            for k, t in tree_items({"p": st.params, "o": st.opt_state}))
+        step(st, batches[2])
+    del snapshot
+    pods = make_test_mesh(data=1, model=2, pod=2)
+    g = np.random.default_rng(0).standard_normal((2, 64)).astype(np.float32)
+    pod = pods.get_coordinate()[0]
+    grads = {"w": torch.tensor(g[pod:pod + 1], device="cuda")}
+    got, err = compressed_psum_pod(grads, init_error(grads), pods, "pod")
+    exact = torch.tensor((g[0] + g[1]) / 2)
+    out["compress_err"] = float((got["w"][0].cpu() - exact).abs().max())
+    out["compress_resid"] = float(err["w"].float().abs().max())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall"] = time.perf_counter() - t_all
+    return out
+
+
+def _mesh_spawn():
+    """Start phase 8e's MESH_RANKS gloo ranks (`_mesh_rank`) with a fresh
+    temporary directory. -> (procs, tmp); `_shard_stop` ends them."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="model_mesh_")
+    procs = mp.start_processes(_mesh_rank, args=(MESH_RANKS, tmp),
+                               nprocs=MESH_RANKS, join=False,
+                               start_method="spawn")
+    return procs, tmp
+
+
+def mesh_check_ranks(ranks, yard, per_step, tag):
+    """Phase 8e's checks of the 2 x 2 -> 1 x 2 ranks' results
+    (`_mesh_rank_work`, rank order) against the unsharded losses `yard`
+    and launches `per_step`; logs each rank's numbers."""
+    for r, res in enumerate(ranks):
+        steps = res["steps"]
+        require(len(steps) == (3 if r < 2 else 2),
+                f"8e {tag} rank {r}: {len(steps)} steps")
+        for i, s_ in enumerate(steps):
+            rel = abs(s_["loss"] - yard[i]) / abs(yard[i])
+            require(rel <= MESH_LOSS_RTOL, f"8e {tag} rank {r} step "
+                    f"{i + 1}: loss {s_['loss']:.6f} vs {yard[i]:.6f}, "
+                    f"{rel:.3e}")
+            require(s_["launches"] == per_step, f"8e {tag} rank {r} step "
+                    f"{i + 1}: launches {s_['launches']} != {per_step}")
+        require(res["bytes"] == res["rule_bytes"], f"8e {tag} rank {r}: "
+                f"{res['bytes']} state bytes, the rules {res['rule_bytes']}")
+        require(res["digest"] == ranks[0]["digest"],
+                f"8e {tag} rank {r}: gathered state differs from rank 0's")
+        require(res["member"] == (r < 2), f"8e {tag} rank {r}: membership")
+        if r < 2:
+            require(res["resized_bitwise"], f"8e {tag} rank {r}: the 1 x 2 "
+                    f"blocks differ from the gathered state")
+        require(res["compress_err"] < MESH_COMPRESS_TOL
+                and res["compress_resid"] < MESH_COMPRESS_TOL,
+                f"8e {tag} rank {r}: compression error "
+                f"{res['compress_err']:.3e}, residual "
+                f"{res['compress_resid']:.3e}")
+        log(f"[train 8e] {tag} rank {r}: losses "
+            + ", ".join(f"{s_['loss']:.6f}" for s_ in steps)
+            + " (unsharded " + ", ".join(f"{y:.6f}" for y in yard)
+            + "), walls " + ", ".join(f"{s_['wall']:.3f}" for s_ in steps)
+            + " s, gathered "
+            + ", ".join(f"{s_['gather_bytes'] / 1e9:.3f}" for s_ in steps)
+            + " GB and reduced "
+            + ", ".join(f"{s_['reduce_bytes'] / 1e9:.3f}" for s_ in steps)
+            + f" GB a step, state {res['bytes'] / 1e9:.4f} GB (rules "
+            f"{res['rule_bytes'] / 1e9:.4f}), state gather "
+            f"{res['gather_s']:.2f} s, resize {res['resize_s']:.2f} s, "
+            f"peak {res['peak_gib']:.2f} GiB, compression error "
+            f"{res['compress_err']:.3e} residual "
+            f"{res['compress_resid']:.3e}, wall {res['wall']:.2f} s")
+    l2 = sorted(ranks[0]["update_l2"].items(), key=lambda kv: -kv[1])
+    require(l2[0][1] <= MESH_UPDATE_L2, f"8e {tag}: {l2[0][0]}'s update "
+            f"{l2[0][1]:.3e} relative L2 from the unsharded one")
+    log(f"[train 8e] {tag} (2 x 2 -> 1 x 2): each leaf's update within "
+        f"{l2[0][1]:.3e} relative L2 of the unsharded steps' (worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in l2[:3])
+        + f"; median {statistics.median(v for _, v in l2):.3e} over "
+        f"{len(l2)} leaves); ranks bitwise")
+
+
+def phase_train_mesh(np, torch, mesh_ranks):
+    """Phase 8e: training stablelm-3b at full width and MESH_LAYERS layers
+    on a model mesh, against this process's unsharded step (the
+    yardstick, run once): a world-1 NCCL mesh here, MESH_RANKS gloo ranks
+    on the one card (`_mesh_rank`). Returns this process's launches."""
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import adamw_init, tree_items
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    t_phase = time.perf_counter()
+    procs, tmp = mesh_ranks
+    cfg, opt_cfg, batches = _mesh_cfg(), _mesh_opt(), _mesh_batches()
+    L = cfg.num_layers
+    per_step = {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L}
+    # The ranks start now, beside the yardstick and the NCCL steps.
+    pathlib.Path(tmp, "go").touch()
+    totals = {}
+    counted = _counter(torch, totals)
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
+    p = tf.init_params(cfg, seed=MESH_SEED, device="cuda")
+    o = adamw_init(p, opt_cfg)
+    p_n, o_n = clone(p), clone(o)
+    step = make_train_step(cfg, opt_cfg)
+    yard = []
+    for batch in batches[:2]:
+        (p, o, loss), got, ms = counted(lambda: step(p, o, batch))
+        require(got == per_step, f"8e unsharded launches {got} != "
+                f"{per_step}")
+        yard.append(loss)
+        log(f"[train 8e] unsharded step: loss {loss:.6f}, {ms:.1f} ms, "
+            f"launches {got}")
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "nccl"), 1), rank=0, world_size=1)
+    try:
+        st = elastic.build(cfg, make_test_mesh(1, 1), p_n, o_n, opt_cfg)
+        del p_n, o_n
+        for i, batch in enumerate(batches[:2]):
+            (st.params, st.opt_state, loss), got, ms = counted(
+                lambda: st.step_fn(st.params, st.opt_state, batch))
+            require(got == per_step, f"8e NCCL x1 launches {got} != "
+                    f"{per_step}")
+            require(loss == yard[i], f"8e NCCL x1 step {i + 1}: loss "
+                    f"{loss!r} != unsharded {yard[i]!r}")
+            log(f"[train 8e] NCCL world 1 step {i + 1}: loss {loss:.6f} "
+                f"(bitwise), {ms:.1f} ms, launches {got}")
+
+        def bitwise(st, what):
+            want = dict(tree_items({"p": p, "m": o["m"], "v": o["v"]}))
+            got = dict(tree_items({"p": st.params, "m": st.opt_state["m"],
+                                   "v": st.opt_state["v"]}))
+            bad = [k for k in want if not torch.equal(got[k].to_local(),
+                                                      want[k])]
+            require(not bad, f"8e NCCL x1 {what}: {len(bad)} leaves differ "
+                    f"from the unsharded step's, first {bad[:3]}")
+            require(int(st.opt_state["step"].to_local()) == int(o["step"]),
+                    f"8e NCCL x1 {what}: the step counter differs")
+
+        bitwise(st, "after 2 steps")
+        t0 = time.perf_counter()
+        st = elastic.resize(st, cfg, elastic.mesh_from_devices([0], 1, 1),
+                            opt_cfg)
+        bitwise(st, "after resize")
+        log(f"[train 8e] NCCL world 1: p, m, v bitwise the unsharded "
+            f"step's after 2 steps and after resize "
+            f"({time.perf_counter() - t0:.2f} s)")
+        del st
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    ckpt = CheckpointManager(os.path.join(tmp, "yard"), keep=1)
+    ckpt.save(2, {"params": p}, blocking=True)
+    pathlib.Path(tmp, "yard").touch()
+    log(f"[train 8e] the yardstick's params after 2 steps written for the "
+        f"ranks ({ckpt.timings[-1]['bytes'] / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.2f} s)")
+    (p, o, loss), got, ms = counted(lambda: step(p, o, batches[2]))
+    require(got == per_step, f"8e unsharded launches {got} != {per_step}")
+    yard.append(loss)
+    del p, o
+    torch.cuda.empty_cache()
+
+    t_gloo = time.perf_counter()
+    while not procs.join(timeout=1.0):
+        pass
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    mesh_check_ranks(ranks, yard, per_step, f"gloo x{MESH_RANKS}")
+    log(f"[train 8e] {time.perf_counter() - t_gloo:.2f} s waited for the "
+        f"ranks; phase wall {time.perf_counter() - t_phase:.2f} s")
+    return totals
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4866,14 +5222,21 @@ def _run_phases(np, torch, smi, wall0):
         torch.cuda.empty_cache()
     for name, n in phase_observability(np, torch, fleets[0]).items():
         launches[name] += n
-    phase_train_grads(np, torch)
-    for name, n in phase_train(np, torch).items():
-        launches[name] += n
-    for name, n in phase_train_whisper(np, torch).items():
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in phase_train_ssm(np, torch).items():
-        launches[name] = launches.get(name, 0) + n
+    mesh_ranks = _mesh_spawn()
+    try:
+        phase_train_grads(np, torch)
+        for name, n in phase_train(np, torch).items():
+            launches[name] += n
+        for name, n in phase_train_whisper(np, torch).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
+        for name, n in phase_train_ssm(np, torch).items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()
+        for name, n in phase_train_mesh(np, torch, mesh_ranks).items():
+            launches[name] += n
+    finally:
+        _shard_stop(mesh_ranks)
     torch.cuda.empty_cache()
     # 6d and then 6e run last, so that the phases before them run as
     # they did before 6d was added: in one run with 6d between 6c and 7,

@@ -2,16 +2,20 @@
 
 `get_config(arch_id)` returns the full config; `reduced(cfg)` shrinks it
 as the JAX package's `repro.configs.reduced` does; every config of the
-reference is registered.
+reference is registered. `input_specs(cfg, shape)` gives a cell's inputs
+as tensors on the `meta` device (shapes and dtypes, no storage), as the
+reference's `jax.ShapeDtypeStruct` stand-ins.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
+import torch
+
 from repro_torch.configs.base import (SHAPES, ArchConfig,  # noqa: F401
                                       MLAConfig, MoEConfig, ShapeCell,
-                                      SSMConfig)
+                                      SSMConfig, shape_by_name)
 
 _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
@@ -81,3 +85,42 @@ def reduced(cfg: ArchConfig, layers: int = 2, d_model: int = 64,
         updates["encoder_layers"] = layers
         updates["encoder_seq"] = 16
     return dataclasses.replace(cfg, **updates)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell | str) -> dict:
+    """`meta` tensors standing in for every model input of the cell, with
+    the reference's shapes and dtypes: a train cell's tokens and labels
+    (the encoder-decoder's frames, the vlm's text tail, vision embeddings
+    and M-RoPE positions), a prefill cell's the same without labels, a
+    decode cell's one token (B, 1) and the cache of S tokens from the
+    model's `init_cache` on `meta`."""
+    if isinstance(shape, str):
+        shape = shape_by_name(shape)
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    adtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            out = {"frames": sds((B, cfg.encoder_seq, cfg.d_model), adtype),
+                   "tokens": sds((B, S), i32)}
+        elif cfg.family == "vlm":
+            sv = int(S * cfg.vision_tokens_frac)
+            out = {"tokens": sds((B, S - sv), i32),
+                   "vision_embeds": sds((B, sv, cfg.d_model), adtype),
+                   "mrope_positions": sds((3, B, S), i32)}
+        else:
+            out = {"tokens": sds((B, S), i32)}
+        if shape.kind == "train":
+            out["labels"] = sds(out["tokens"].shape, i32)
+        return out
+
+    # decode: one new token against a cache of S tokens.
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    mod = encdec if cfg.family == "encdec" else tf
+    return {"token": sds((B, 1), i32),
+            "cache": mod.init_cache(cfg, B, S, device="meta")}

@@ -265,3 +265,11 @@ SHAPES = (
     ShapeCell("decode_32k", 32768, 128, "decode"),
     ShapeCell("long_500k", 524288, 1, "decode"),
 )
+
+
+def shape_by_name(name: str) -> ShapeCell:
+    """The `SHAPES` cell called `name`; `KeyError` for any other."""
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

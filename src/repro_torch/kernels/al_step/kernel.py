@@ -52,6 +52,9 @@ def al_step_cuda(x, m, v, usage, jobs, lo, hi, rowp, cvec, scal, *,
     """`k_steps` fused AL inner steps on CUDA tensors; returns new
     (x, m, v). Same arguments and semantics as `ref.al_step_ref`, with
     an optional leading lane axis (the module docstring)."""
+    build.refuse_dtensors("al_step_cuda", x=x, m=m, v=v, usage=usage,
+                          jobs=jobs, lo=lo, hi=hi, rowp=rowp, cvec=cvec,
+                          scal=scal)
     if mode not in MODES:
         raise ValueError(f"mode must be cr1|cr2, got {mode!r}")
     if x.device.type != "cuda":

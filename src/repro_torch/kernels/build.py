@@ -109,6 +109,22 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err} ({msg})")
 
 
+def refuse_dtensors(what: str, **operands) -> None:
+    """A kernel takes plain tensors: each rank's own rows and gathered
+    weights. `TypeError` naming the launcher and the operand for a
+    DTensor (its pointer would be the wrapper's, not a block's)."""
+    import torch.distributed
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+    for name, t in operands.items():
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{what} takes plain tensors; operand {name!r} is a "
+                f"DTensor (pass its to_local() block or a gathered "
+                f"tensor)")
+
+
 def check_operand(name: str, t, dtype, shape, device) -> None:
     """Validate one kernel operand before its pointer goes to C."""
     if t.device != device:

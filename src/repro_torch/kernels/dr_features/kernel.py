@@ -31,6 +31,7 @@ def dr_features_cuda(d: torch.Tensor, usage: torch.Tensor,
                      jobs: torch.Tensor) -> torch.Tensor:
     """(W, T) f32 CUDA tensors -> (W, 4) f32 features, on the current
     stream. Raises on anything the kernel does not take."""
+    build.refuse_dtensors("dr_features_cuda", d=d, usage=usage, jobs=jobs)
     if d.device.type != "cuda":
         raise ValueError(
             f"dr_features_cuda needs CUDA tensors; got {d.device}")

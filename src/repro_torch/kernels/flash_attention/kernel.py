@@ -57,6 +57,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     also returns each query row's f32 log-sum-exp of its scaled scores,
     (B, H, Sq), which the backward reads; the output is the same bits
     with or without it."""
+    build.refuse_dtensors("flash_attention_cuda", q=q, k=k, v=v)
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention_cuda needs CUDA tensors; got {q.device}")

@@ -37,6 +37,7 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     """(N, d) float32 or bfloat16 CUDA rows, (d,) float32 scale -> (N, d)
     in x's dtype, on the current stream. Raises on anything the kernel
     does not take."""
+    build.refuse_dtensors("rmsnorm_cuda", x=x, scale=scale)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_cuda needs CUDA tensors; got {x.device}")
     if x.dim() != 2:

@@ -73,6 +73,8 @@ def ssd_scan_cuda(states: torch.Tensor, chunk_decay: torch.Tensor,
     or None: contiguous float32 CUDA tensors -> (h_prev (B, NC, H, P, N),
     h_last (B, H, P, N)) float32, on the current stream. Raises on
     anything the kernel does not take."""
+    build.refuse_dtensors("ssd_scan_cuda", states=states,
+                          chunk_decay=chunk_decay, h0=h0)
     B, NC, H, P, N = _check_dims(states, "states")
     dev, f32 = states.device, torch.float32
     build.check_operand("states", states, f32, (B, NC, H, P, N), dev)
@@ -115,6 +117,8 @@ def ssd_scan_bwd_cuda(g_prev: torch.Tensor | None,
     dstates and dh0 are bitwise `ssd_scan_bwd_ref`'s; ddecay sums the
     same f32 products in double. Raises on anything the kernel does not
     take."""
+    build.refuse_dtensors("ssd_scan_bwd_cuda", g_prev=g_prev, g_last=g_last,
+                          chunk_decay=chunk_decay, h_prev=h_prev)
     B, NC, H, P, N = _check_dims(h_prev, "h_prev")
     dev, f32 = h_prev.device, torch.float32
     build.check_operand("h_prev", h_prev, f32, (B, NC, H, P, N), dev)

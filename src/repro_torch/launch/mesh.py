@@ -1,5 +1,5 @@
-"""Fleet meshes on `torch.distributed`: the fleet part of the JAX
-package's `launch/mesh.py`.
+"""Meshes on `torch.distributed`: the port of the JAX package's
+`launch/mesh.py`, its fleet part and its model part.
 
 The (W, T) fleet solves are row-separable over workloads, so they shard
 W over a mesh of processes, one per card. The port runs SPMD: every
@@ -26,9 +26,14 @@ silent world of one): `torchrun` with `dist.init_process_group("nccl")`
 on the cards, or the `gloo` backend with `device_type="cpu"` for the
 CPU. A fleet mesh spans the whole group: every process takes a block.
 
-The model part of the JAX module (`make_production_mesh`,
-`make_test_mesh`, `dp_axes`, `has_pod_axis`) is not ported yet (ROADMAP
-queue 1, item 11b).
+The model meshes hold a model's training state as DTensors
+(`launch/sharding.py`): `make_production_mesh` is (16, 16) `("data",
+"model")` or (2, 16, 16) `("pod", "data", "model")` over a group of
+exactly 256 or 512 processes, `make_test_mesh(data, model, pod)` the same
+axes at any size that spans the group. `dp_axes` and `has_pod_axis` read
+the axis names of a `DeviceMesh` or of any mesh-like object with `.shape`
+(a dict of axis sizes) and `.axis_names`, as the JAX functions do, so the
+partition rules run on shapes alone.
 """
 from __future__ import annotations
 
@@ -43,11 +48,15 @@ FLEET_AXIS = "fleet"
 #: Mesh axis name of the region dimension of a 2-D fleet mesh.
 REGION_AXIS = "region"
 
+#: Axis names of a model mesh, single-pod and multi-pod.
+MODEL_AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
+
 
 def _require_group() -> None:
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
-            "a fleet mesh needs an initialized default process group: call "
+            "a mesh needs an initialized default process group: call "
             "torch.distributed.init_process_group (torchrun, or a store) "
             "on every process first")
 
@@ -157,3 +166,88 @@ def check_fleet_mesh(mesh, device: torch.device) -> None:
             f"W shards over every axis of a fleet mesh; axes "
             f"{_names(mesh)} of shape {tuple(mesh.shape)} would replicate "
             f"rows over some of them")
+
+
+# ---------------------------------------------------------------------------
+# Model meshes
+# ---------------------------------------------------------------------------
+def model_mesh(ranks, shape: tuple, names: tuple, device_type: str = "cuda"):
+    """A `DeviceMesh` of `shape` with axes `names` over `ranks` of the
+    default group, row-major. Creating it is collective over the default
+    group: every process calls it, and a process outside `ranks` gets a
+    mesh whose `get_coordinate()` is None. Raises `RuntimeError` without a
+    default group and `ValueError` when the shape's size is not the
+    number of ranks or a rank is not in the group."""
+    from torch.distributed.device_mesh import DeviceMesh
+    _require_group()
+    ranks = [int(r) for r in ranks]
+    if math.prod(shape) != len(ranks):
+        raise ValueError(
+            f"a mesh of shape {tuple(shape)} holds {math.prod(shape)} "
+            f"processes; {len(ranks)} ranks were given")
+    world = dist.get_world_size()
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world
+                                                 for r in ranks):
+        raise ValueError(f"ranks {ranks} are not distinct ranks of the "
+                         f"{world}-process group")
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """(16, 16) `("data", "model")`, or with `multi_pod` (2, 16, 16)
+    `("pod", "data", "model")`, over the whole default group, which must
+    hold exactly 256 or 512 processes (`ValueError` otherwise; there is no
+    silent world)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    _require_group()
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(
+            f"make_production_mesh(multi_pod={multi_pod}) needs a group of "
+            f"{math.prod(shape)} processes; the group has {world}")
+    return model_mesh(range(world), shape,
+                      POD_AXES if multi_pod else MODEL_AXES, device_type)
+
+
+def make_test_mesh(data: int = 2, model: int = 2, pod: int = 1,
+                   device_type: str = "cuda"):
+    """A small model mesh over the whole default group: (data, model), or
+    (pod, data, model) when pod > 1. `ValueError` when data x model x pod
+    is not the group's size."""
+    shape = (pod, data, model) if pod > 1 else (data, model)
+    _require_group()
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"make_test_mesh(data={data}, model={model}, pod={pod}) spans "
+            f"{math.prod(shape)} processes; the group has {world}")
+    return model_mesh(range(world), shape,
+                      POD_AXES if pod > 1 else MODEL_AXES, device_type)
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """The axis names of a `DeviceMesh` or of a mesh-like object
+    (`.axis_names`, else the keys of its `.shape` dict)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return _names(mesh)
+    if hasattr(mesh, "axis_names"):
+        return tuple(mesh.axis_names)
+    return tuple(mesh.shape)
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a `DeviceMesh` or a mesh-like object."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(_names(mesh), (int(n) for n in mesh.mesh.shape)))
+    return {a: int(mesh.shape[a]) for a in axis_names(mesh)}
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """Axes that shard the batch (pure data parallelism)."""
+    return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))
+
+
+def has_pod_axis(mesh) -> bool:
+    return "pod" in axis_names(mesh)

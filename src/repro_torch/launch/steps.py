@@ -1,5 +1,5 @@
 """Step builders: train / prefill / decode; the port of
-`repro/launch/steps.py` for one device.
+`repro/launch/steps.py`.
 
 `make_train_step` returns (params, opt_state, batch) -> (params,
 opt_state, loss), the reference's signature; the batch may be numpy (the
@@ -8,21 +8,52 @@ autograd's through `loss_fn`, the reference's `jax.value_and_grad`. The
 step updates params and opt_state in place (`adamw_step_`), the memory
 of the reference's jit with `donate_argnums=(0, 1)`: 32-layer
 stablelm-3b with f32 masters does not fit on one card twice.
-`make_step_bundle` and `lower_cell` lower a step over a device mesh for
-XLA and wait for the model mesh (ROADMAP item 11b).
+
+`make_sharded_train_step` is the same step over a model mesh, SPMD (one
+process a card): params and moments are DTensors placed by the partition
+rules (`launch/sharding.py`); the reference leaves the computation to
+GSPMD, the port computes so:
+  * the batch: the global batch enters whole; each rank takes its rows
+    by `batch_specs` (rows over the dp axes) and, where a dp shard's rows
+    divide by "model", its "model" share of them (a local slice);
+    otherwise the "model" ranks compute the same rows;
+  * the weights: each block group's are gathered to full weights at use,
+    in their compute dtype, inside the group's checkpoint, so the
+    backward pass gathers them again (ZeRO-3; `sharding.GatherFn`); the
+    leaves outside the stacks are gathered once a step;
+  * the gradients: each rank's loss is scaled by its share of the global
+    rows (the sum over ranks is the global mean), and each weight's
+    gradient, a partial sum on every rank, is reduced in f32 to the
+    leaf's own blocks (reduce-scatter over a sharded mesh dim, all-reduce
+    over a replicated one);
+  * AdamW on the local blocks (`adamw_step_` on DTensors).
+Activations are not split over "model": that is tensor-parallel compute,
+which this step does not do. On a mesh of one process every number is
+`make_train_step`'s bit for bit.
+
+`make_step_bundle` gives a train cell's step with the shapes (`meta`
+tensors) and placements of its arguments; prefill and decode bundles and
+`lower_cell` are ROADMAP item 11b-ii.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs import input_specs
+from repro_torch.configs.base import ArchConfig, ShapeCell, shape_by_name
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tf
-from repro_torch.optim.adamw import (AdamWConfig, adamw_step_, tree_items,
-                                     tree_map)
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_step_,
+                                     tree_items, tree_map)
+
+_NOT_YET = ("prefill and decode bundles and lower_cell are ROADMAP item "
+            "11b-ii (not ported yet); make_step_bundle builds train cells")
 
 
 def model_module(cfg: ArchConfig):
@@ -120,3 +151,162 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
         return mod.decode_step(params, cfg, cache, token, length)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# The model mesh
+# ---------------------------------------------------------------------------
+def _stacked_view(placements: tuple) -> tuple:
+    """Placements of one layer's view of a stacked leaf (the layer axis,
+    never sharded, taken away)."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim - 1) if p.is_shard() else p
+                 for p in placements)
+
+
+def _subtree(tree: dict, path: str):
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _row_plan(batch: dict, mesh) -> tuple[dict, float]:
+    """({key: (dim, start, stop)} of the rows this rank computes, its
+    share of the global rows: its rows over the global rows times the
+    number of ranks that compute the same rows, so the shares of the
+    mesh's ranks sum to 1)."""
+    specs = sh.legalize(batch, sh.batch_specs(batch, mesh), mesh)
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    dp = dp_axes(mesh)
+    plan = {}
+    for key, spec in specs.items():
+        dim = 1 if key == "mrope_positions" else 0
+        B = batch[key].shape[dim]
+        start, n, blocks = 0, B, 1
+        if spec[dim] is not None:               # rows over the dp axes
+            index = 0
+            for a in dp:
+                index = index * sizes[a] + coord[a]
+            blocks = math.prod(sizes[a] for a in dp)
+            n = B // blocks
+            start = index * n
+        if n % sizes["model"] == 0:             # and over "model"
+            n //= sizes["model"]
+            start += coord["model"] * n
+            blocks *= sizes["model"]
+        plan[key] = (dim, start, start + n)
+    return plan, n / (B * (mesh.size() // blocks))
+
+
+def make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh,
+                            pspecs: dict, use_kernel: bool | None = None,
+                            ) -> Callable:
+    """The train step over `mesh` (module docstring): (params, opt_state,
+    batch) -> (params, opt_state, loss), params and opt_state DTensor
+    trees placed by the legalized `pspecs` (`elastic.build`), updated in
+    place; `batch` the global batch (numpy or tensors). The loss is the
+    global mean, read to the host on every rank before anything is
+    written: a non-finite one raises `FloatingPointError` and leaves the
+    state as it was."""
+    mod = model_module(cfg)
+    placements = tree_map(lambda s: sh.to_placements(s, mesh), pspecs)
+
+    def compute_dtypes(sub: dict) -> dict:
+        """The dtypes `compute_params` casts a subtree's leaves to."""
+        like = tree_map(lambda t: torch.empty(0, dtype=t.dtype,
+                                              device="meta"), sub)
+        return tree_map(lambda t: t.dtype, tf.compute_params(like, cfg))
+
+    def gather(path: str, sub: dict) -> dict:
+        head = path.split(".")[0]
+        pl = _subtree(placements, path)
+        if head in sh.STACKS:
+            pl = tree_map(_stacked_view, pl)
+        return tree_map(lambda t, d, p: sh.gather_leaf(t, d, p, mesh), sub,
+                        compute_dtypes(sub), pl)
+
+    def train_step(params, opt_state, batch):
+        device = sh.mesh_device(mesh)
+        plan, share = _row_plan(batch, mesh)
+        local = {}
+        for k, v in batch.items():
+            dim, a, b = plan[k]
+            local[k] = torch.as_tensor(v).narrow(dim, a, b - a).to(device)
+        keys = [k for k, _ in tree_items(params)]
+        flat = dict(tree_items(params))
+        with torch.enable_grad():
+            live = {k: flat[k].to_local().detach().requires_grad_()
+                    for k in keys}
+            loss = mod.loss_fn(_rebuild(params, live), cfg, local,
+                               use_kernel=use_kernel, gather=gather)
+            if share != 1:
+                loss = loss * share
+            grads = torch.autograd.grad(loss, [live[k] for k in keys])
+        total = sh.mesh_all_reduce(loss.detach().clone(), mesh)
+        value = float(total)
+        if not math.isfinite(value):
+            raise FloatingPointError(f"non-finite loss {value}: nothing "
+                                     f"written")
+        gtree = _rebuild(params, {
+            k: sh.wrap_local(g, mesh, flat[k].placements, flat[k].shape)
+            for k, g in zip(keys, grads)})
+        return params, adamw_step_(params, gtree, opt_state, opt_cfg), value
+
+    return train_step
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """Everything needed to run one (arch × shape × mesh) cell: the step,
+    its arguments' shapes (`meta` tensors) and placements
+    (`sharding.NamedPlacement` trees). `donate_argnums=(0, 1)`: the step
+    updates those arguments in place."""
+    fn: Callable
+    args_shape: tuple
+    in_shardings: tuple
+    out_shardings: Any
+    donate_argnums: tuple = ()
+
+
+def params_shape_of(cfg: ArchConfig) -> dict:
+    """The param tree on the `meta` device: shapes and dtypes only."""
+    return model_module(cfg).init_params(cfg, device="meta")
+
+
+def make_step_bundle(cfg: ArchConfig, shape: ShapeCell | str, mesh,
+                     policy: sh.ShardingPolicy = sh.ShardingPolicy(),
+                     opt_cfg: AdamWConfig = AdamWConfig(),
+                     use_kernel: bool | None = None) -> StepBundle:
+    """A train cell's bundle on `mesh` (a `DeviceMesh`; a mesh-like object
+    gives the shapes and placements, and a step that cannot run). bf16
+    params take bf16 moments, as the reference's. `NotImplementedError`
+    for prefill and decode cells (ROADMAP 11b-ii)."""
+    if isinstance(shape, str):
+        shape = shape_by_name(shape)
+    if shape.kind != "train":
+        raise NotImplementedError(f"{shape.kind} cell {shape.name!r}: "
+                                  f"{_NOT_YET}")
+    specs = input_specs(cfg, shape)
+    params_shape = params_shape_of(cfg)
+    pspecs = sh.legalize(params_shape, sh.param_specs(params_shape, policy),
+                         mesh)
+    psh = sh.to_named(pspecs, mesh)
+    if cfg.param_dtype == "bfloat16":
+        opt_cfg = dataclasses.replace(opt_cfg, moment_dtype="bfloat16")
+    opt_shape = adamw_init(params_shape, opt_cfg)
+    scalar = sh.NamedPlacement(mesh, sh.to_placements((), mesh))
+    osh = {"m": psh, "v": psh, "step": scalar}
+    bsh = sh.to_named(sh.batch_specs(specs, mesh), mesh)
+    return StepBundle(
+        fn=make_sharded_train_step(cfg, opt_cfg, mesh, pspecs, use_kernel),
+        args_shape=(params_shape, opt_shape, specs),
+        in_shardings=(psh, osh, bsh), out_shardings=(psh, osh, scalar),
+        donate_argnums=(0, 1))
+
+
+def lower_cell(cfg: ArchConfig, shape: ShapeCell | str, mesh,
+               policy: sh.ShardingPolicy = sh.ShardingPolicy()):
+    """The reference lowers a cell for XLA; the port's counterpart is
+    ROADMAP item 11b-ii: `NotImplementedError`."""
+    raise NotImplementedError(f"lower_cell: {_NOT_YET}")

@@ -103,14 +103,17 @@ def _enc_layer(p: dict, x, cfg: ArchConfig, layer: int, positions,
 
 
 def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
-           use_kernel: bool | None = None) -> torch.Tensor:
+           use_kernel: bool | None = None, gather=None) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed frame embeddings (conv stub) ->
-    the normed encoder output (B, S_enc, d) in cfg.dtype."""
+    the normed encoder output (B, S_enc, d) in cfg.dtype. `gather` as
+    `loss_fn`'s."""
     x = _with_positions(frames.to(dtype_of(cfg.dtype)), cfg.d_model)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x = run_layers(_enc_layer, {"l0": params["enc_blocks"]},
-                   cfg.encoder_layers, x, cfg, positions, use_kernel)
+                   cfg.encoder_layers, x, cfg, positions, use_kernel,
+                   gather=None if gather is None
+                   else lambda j, p: gather("enc_blocks", p))
     return common.rmsnorm(params["enc_ln"], x, use_kernel=use_kernel)
 
 
@@ -145,34 +148,43 @@ def _dec_layer(p: dict, x, cfg: ArchConfig, layer: int, enc_out, positions,
 
 def decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
            enc_out: torch.Tensor, use_kernel: bool | None = None,
-           ) -> torch.Tensor:
+           gather=None) -> torch.Tensor:
     """Teacher-forced decoder -> f32 logits (B, S_dec, V)."""
     x = common.embed(params["embed"], tokens, dtype_of(cfg.dtype))
     x = _with_positions(x, cfg.d_model)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x = run_layers(_dec_layer, {"l0": params["dec_blocks"]},
-                   cfg.num_layers, x, cfg, enc_out, positions, use_kernel)
+                   cfg.num_layers, x, cfg, enc_out, positions, use_kernel,
+                   gather=None if gather is None
+                   else lambda j, p: gather("dec_blocks", p))
     x = common.rmsnorm(params["dec_ln"], x, use_kernel=use_kernel)
     return common.lm_head(params["embed"], x)
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict,
-            use_kernel: bool | None = None) -> torch.Tensor:
+            use_kernel: bool | None = None, gather=None) -> torch.Tensor:
     """batch: {frames (B, S_enc, d), tokens (B, S)} -> f32 logits (B, S,
     V). `use_kernel=False` takes the kernels' plain versions on the
-    card."""
-    enc_out = encode(params, cfg, batch["frames"], use_kernel)
-    return decode(params, cfg, batch["tokens"], enc_out, use_kernel)
+    card. `gather` as `loss_fn`'s."""
+    enc_out = encode(params, cfg, batch["frames"], use_kernel, gather)
+    return decode(params, cfg, batch["tokens"], enc_out, use_kernel, gather)
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
-            use_kernel: bool | None = None) -> torch.Tensor:
+            use_kernel: bool | None = None, gather=None) -> torch.Tensor:
     """Next-token cross-entropy from the f32 masters, which reach the
     products through `compute_params`' cast. batch: {frames, tokens,
-    labels}."""
-    logits = forward(compute_params(params, cfg), cfg, batch,
-                     use_kernel=use_kernel)
+    labels}. `gather(path, subtree)`, where given (the sharded train
+    step's), turns this rank's blocks into the weights in their compute
+    dtypes: the subtrees outside the stacks here, each encoder and
+    decoder layer's inside its checkpoint (`run_layers`)."""
+    if gather is None:
+        cp = compute_params(params, cfg)
+    else:
+        cp = {k: v if k in ("enc_blocks", "dec_blocks") else gather(k, v)
+              for k, v in params.items()}
+    logits = forward(cp, cfg, batch, use_kernel=use_kernel, gather=gather)
     return common.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 

@@ -82,11 +82,15 @@ def _requires_grad(tree: dict) -> bool:
 
 
 def run_layers(layer_fn, blocks: dict, n: int, x: torch.Tensor,
-               cfg: ArchConfig, *args) -> torch.Tensor:
+               cfg: ArchConfig, *args, gather=None) -> torch.Tensor:
     """x through the n groups of `blocks` ({"l0": ..., "l{G-1}": ...},
     each position stacked over the groups), `layer_fn(p, x, cfg, j,
     *args)` for position j of each group in turn; each group under
-    `torch.utils.checkpoint` when cfg.remat is set and autograd is on."""
+    `torch.utils.checkpoint` when cfg.remat is set and autograd is on.
+    `gather(j, p)`, where given (the sharded train step's), maps position
+    j's layer views to the weights the layer computes with (ZeRO-3: this
+    rank's blocks gathered to full weights); it runs inside the
+    checkpoint, so the backward pass gathers again. None: the views."""
     remat = (cfg.remat and torch.is_grad_enabled()
              and (x.requires_grad or _requires_grad(blocks)
                   or any(isinstance(a, torch.Tensor) and a.requires_grad
@@ -94,6 +98,8 @@ def run_layers(layer_fn, blocks: dict, n: int, x: torch.Tensor,
     positions = [_unstack(blocks[f"l{j}"], n) for j in range(len(blocks))]
 
     def group(ps, x, *args):
+        if gather is not None:
+            ps = [gather(j, p) for j, p in enumerate(ps)]
         for j, p in enumerate(ps):
             x = layer_fn(p, x, cfg, j, *args)
         return x
@@ -206,9 +212,11 @@ def _ffn(p: dict, h, cfg: ArchConfig, ffn: str):
 
 
 def _hidden_states(params: dict, cfg: ArchConfig, batch: dict,
-                   use_kernel: bool | None = None) -> torch.Tensor:
+                   use_kernel: bool | None = None, gather=None
+                   ) -> torch.Tensor:
     """The forward up to and including the final norm (B, S_total, d),
-    which the MTP head reads (reference `transformer.py:168-183`)."""
+    which the MTP head reads (reference `transformer.py:168-183`);
+    `gather` as `loss_fn`'s."""
     adtype = dtype_of(cfg.dtype)
     x = common.embed(params["embed"], batch["tokens"], adtype)
     if cfg.family == "vlm" and "vision_embeds" in batch:
@@ -218,7 +226,9 @@ def _hidden_states(params: dict, cfg: ArchConfig, batch: dict,
     mrope_positions = batch.get("mrope_positions")
     x = run_layers(_apply_layer, params["blocks"],
                    cfg.num_layers // cfg.block_group_size(), x, cfg,
-                   positions, mrope_positions, use_kernel)
+                   positions, mrope_positions, use_kernel,
+                   gather=None if gather is None
+                   else lambda j, p: gather(f"blocks.l{j}", p))
     return common.rmsnorm(params["ln_f"], x, use_kernel=use_kernel)
 
 
@@ -233,7 +243,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
-            use_kernel: bool | None = None) -> torch.Tensor:
+            use_kernel: bool | None = None, gather=None) -> torch.Tensor:
     """Next-token cross-entropy of every decoder family, from the f32
     masters: they reach the products through `compute_params`' cast, and
     the gradients flow back through it. batch: {tokens, labels} (B, S),
@@ -243,10 +253,20 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
     DeepSeek-V3's multi-token-prediction loss, as the reference's
     (`transformer.py:186-207`): token t + 2 predicted from [ln_h(h_t);
     ln_e(emb(t + 1))] projected to d and through the MTP layer (as layer
-    0, outside the remat checkpoints) and the shared output table."""
-    cp = compute_params(params, cfg)
+    0, outside the remat checkpoints) and the shared output table.
+
+    `gather(path, subtree)`, where given (the sharded train step's,
+    `launch/steps.py`), turns a subtree of this rank's blocks at dotted
+    `path` into the weights in their compute dtypes (`compute_params`'
+    casts): the subtrees outside `blocks` here, each block group's inside
+    its checkpoint (`run_layers`)."""
+    if gather is None:
+        cp = compute_params(params, cfg)
+    else:
+        cp = {k: v if k == "blocks" else gather(k, v)
+              for k, v in params.items()}
     tokens, labels = batch["tokens"], batch["labels"]
-    h = _hidden_states(cp, cfg, batch, use_kernel)
+    h = _hidden_states(cp, cfg, batch, use_kernel, gather)
     if cfg.family == "vlm" and "vision_embeds" in batch:
         h = h[:, batch["vision_embeds"].shape[1]:]
     table = cp.get("unembed", cp["embed"])

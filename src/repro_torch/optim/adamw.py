@@ -13,6 +13,15 @@ leave their inputs as they were. `adamw_step_` is the same update done in
 place, the memory of the reference's donated jit step: each leaf's
 moments and parameters are overwritten as soon as its update is known,
 so no second copy of the parameters or moments exists.
+
+`global_norm` and `adamw_step_` also take trees of DTensors (the sharded
+train step's, `launch/steps.py`): params, moments and gradients share
+placements, so each rank updates its own blocks (`to_local()` views)
+element by element as the unsharded step does. The norm sums each
+leaf's local squares in the unsharded leaf order, counts a leaf
+replicated over a mesh axis once (on the rank at coordinate 0 of that
+axis), and all-reduces the vector of per-leaf sums over the mesh; on
+one rank every number is the unsharded one bit for bit.
 """
 from __future__ import annotations
 
@@ -21,6 +30,9 @@ import math
 from typing import Iterator
 
 import torch
+
+from repro_torch.launch.sharding import (is_dtensor, mesh_all_reduce,
+                                         wrap_local)
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -63,9 +75,29 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _counted_once(t) -> bool:
+    """Whether this rank counts DTensor `t`'s block in a sum over the
+    mesh: it sits at coordinate 0 of every axis `t` is replicated over."""
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, t.placements)
+               if pl.is_replicate())
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for _, x in tree_items(tree)))
+    leaves = [x for _, x in tree_items(tree)]
+    if not any(is_dtensor(x) for x in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    sums = torch.stack([
+        torch.sum(torch.square(x.to_local().float())) if _counted_once(x)
+        else torch.zeros((), dtype=torch.float32, device=x.device)
+        for x in leaves])
+    mesh_all_reduce(sums, leaves[0].device_mesh)
+    return torch.sqrt(sum(sums.unbind(0)))
 
 
 def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
@@ -136,15 +168,18 @@ def adamw_step_(params: dict, grads: dict, state: dict,
                 cfg: AdamWConfig) -> dict:
     """`adamw_update` then `apply_updates`, in place: params, m and v are
     overwritten leaf by leaf. Returns the state with the new step."""
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     lr, scale, bc1, bc2 = _scalars(grads, step, cfg)
     m_tree, v_tree = dict(tree_items(state["m"])), dict(tree_items(state["v"]))
     g_tree = dict(tree_items(grads))
     for key, p in tree_items(params):
-        m, v = m_tree[key], v_tree[key]
-        upd, m_new, v_new = _leaf(g_tree[key], m, v, p, cfg, lr, scale, bc1,
-                                  bc2)
+        m, v, p = _local(m_tree[key]), _local(v_tree[key]), _local(p)
+        upd, m_new, v_new = _leaf(_local(g_tree[key]), m, v, p, cfg, lr,
+                                  scale, bc1, bc2)
         m.copy_(m_new)
         v.copy_(v_new)
         p.add_(upd)
+    if is_dtensor(state["step"]):
+        old = state["step"]
+        step = wrap_local(step, old.device_mesh, old.placements, old.shape)
     return {"m": state["m"], "v": state["v"], "step": step}

@@ -17,6 +17,14 @@ reference writes them (2-byte raw values, numpy type `<V2`, meta dtype
   * atomic: writes go to step_<N>.tmp and are then renamed, so a crash
     mid-write never corrupts the latest checkpoint.
   * `restore(..., device=...)` puts the leaves onto a given device.
+  * sharded state: `save()` of a tree of DTensors (`launch/sharding.py`)
+    gathers each leaf (every rank of the mesh calls it), the mesh's first
+    rank writes the layout above, and the save blocks and ends in a
+    barrier of the mesh's ranks, so every rank then sees the checkpoint.
+    `restore(..., shardings=...)` (a tree of `sharding.NamedPlacement`)
+    places each leaf with the target placements; the mesh may differ from
+    the one that saved (the elastic resize path). A rank reads only its
+    block of each file (`np.load(mmap_mode="r")`).
   * GC: the most recent `keep` checkpoints stay.
   * `timings`: each save's step, bytes, seconds to snapshot to the host
     and seconds to write (filled in when the write ends).
@@ -33,7 +41,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch import sharding as sh
 from repro_torch.optim.adamw import tree_items
 
 
@@ -71,7 +81,19 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: dict, blocking: bool = False) -> None:
-        """Snapshot to host memory now; write to disk asynchronously."""
+        """Snapshot to host memory now; write to disk asynchronously. A
+        tree of DTensors is gathered, written by its mesh's first rank
+        only, and saved blocking (module docstring)."""
+        meshes = [v.device_mesh for _, v in tree_items(tree)
+                  if sh.is_dtensor(v)]
+        if meshes:
+            mesh = meshes[0]
+            tree = sh.gather_tree(tree)
+            if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+                self.save(step, tree, blocking=True)
+            sh.mesh_all_reduce(torch.zeros(1, device=sh.mesh_device(mesh)),
+                               mesh)
+            return
         t0 = time.perf_counter()
         host = {k: _to_host(v) for k, v in tree_items(tree)}
         timing = {"step": step,
@@ -131,26 +153,44 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like: dict, step: int | None = None,
-                device=None) -> tuple[dict, int]:
+                device=None, shardings: dict | None = None
+                ) -> tuple[dict, int]:
         """A tree of `tree_like`'s structure and dtypes from checkpoint
         `step` (the latest by default), each leaf on `device` (by default
-        the device of its `tree_like` leaf)."""
+        the device of its `tree_like` leaf), or, with `shardings` (a
+        matching tree of `sharding.NamedPlacement`), a DTensor with those
+        placements holding this rank's block, read alone from the file.
+        `ValueError` when this rank is not in a placement's mesh."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = self.dir / f"step_{step:08d}"
 
-        def walk(node, prefix):
+        def leaf(key, like, placed):
+            if placed is None:
+                return _to_tensor(np.load(path / f"{key}.npy"), like,
+                                  like.device if device is None else device)
+            mesh = placed.mesh
+            if not sh.is_member(mesh):
+                raise ValueError(
+                    f"restore(shardings=): rank {dist.get_rank()} is not in "
+                    f"the mesh of {key!r} (ranks "
+                    f"{mesh.mesh.flatten().tolist()})")
+            full = np.load(path / f"{key}.npy", mmap_mode="r")
+            block = sh.local_slice(full, placed.placements, mesh)
+            # A copy: the block of a read-only map must not back a tensor.
+            local = _to_tensor(np.array(block, order="C"), like,
+                               sh.mesh_device(mesh))
+            return sh.wrap_local(local, mesh, placed.placements, full.shape)
+
+        def walk(node, placed, prefix):
             out = {}
             for k, v in node.items():
                 key = f"{prefix}{k}"
-                if isinstance(v, dict):
-                    out[k] = walk(v, key + ".")
-                else:
-                    out[k] = _to_tensor(np.load(path / f"{key}.npy"), v,
-                                        v.device if device is None
-                                        else device)
+                p = None if placed is None else placed[k]
+                out[k] = (walk(v, p, key + ".") if isinstance(v, dict)
+                          else leaf(key, v, p))
             return out
 
-        return walk(tree_like, ""), step
+        return walk(tree_like, shardings, ""), step

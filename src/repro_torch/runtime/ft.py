@@ -16,8 +16,10 @@ than `straggler_factor` × the trailing median are counted; after
 `straggler_patience` consecutive slow steps the runner records an
 escalation. `FailurePlan` injects failures and slow steps for tests.
 The loss is read back to the host once a step, as in the reference.
-The elastic resize (`repro/runtime/elastic.py`) is multi-device and not
-ported.
+On a model mesh (`runtime/elastic.py`: a sharded step and DTensor state)
+every rank runs the runner; `run(..., shardings=(params, opt))` (trees
+of `launch/sharding.NamedPlacement`) restores a checkpoint onto those
+placements, the mesh the state lives on now.
 """
 from __future__ import annotations
 
@@ -74,6 +76,7 @@ class FaultTolerantRunner:
     # ------------------------------------------------------------------
     def run(self, params: Any, opt_state: Any, batches: Iterable,
             start_step: int = 0, num_steps: int = 100,
+            shardings: tuple = (None, None),
             ) -> tuple[Any, Any, list[float]]:
         losses: list[float] = []
         state = {"params": params, "opt": opt_state}
@@ -105,15 +108,17 @@ class FaultTolerantRunner:
                     raise RuntimeError(
                         f"step {step} failed {failures[step]} times "
                         f"(max_retries {self.cfg.max_retries})") from e
-                state, step = self._recover(state, step, params, opt_state)
+                state, step = self._recover(state, step, params, opt_state,
+                                            shardings)
         self.ckpt.save(step, state, blocking=True)
         return state["params"], state["opt"], losses
 
-    def _recover(self, state, step, params0, opt0):
+    def _recover(self, state, step, params0, opt0, shardings=(None, None)):
         """Restore the latest checkpoint (or the initial state) onto the
-        state's devices after a failure; without a checkpoint, a state
-        that is still the given params object (updated in place, or no
-        step done) is kept and the failed step retried."""
+        state's devices, or onto `shardings` where given, after a failure;
+        without a checkpoint, a state that is still the given params
+        object (updated in place, or no step done) is kept and the failed
+        step retried."""
         latest = self.ckpt.latest_step()
         if latest is None and state["params"] is params0:
             self.events.append({"step": step, "event": "retry"})
@@ -121,7 +126,9 @@ class FaultTolerantRunner:
         if latest is None:
             self.events.append({"step": 0, "event": "restart_from_init"})
             return {"params": params0, "opt": opt0}, 0
-        restored, step = self.ckpt.restore(state, latest)
+        sh = ({"params": shardings[0], "opt": shardings[1]}
+              if shardings[0] is not None else None)
+        restored, step = self.ckpt.restore(state, latest, shardings=sh)
         self.events.append({"step": step, "event": "restored"})
         return restored, step
 

@@ -1861,3 +1861,60 @@ def test_sharded_world1_nccl_ensemble_cr1(nccl_world1, fleets):
     assert got_n == want_n and got_n["al_step"] > 0
     np.testing.assert_array_equal(got.D, want.D)
     np.testing.assert_array_equal(got.penalties, want.penalties)
+
+
+# ---------------------------------------------------------------------------
+# The model mesh (training)
+# ---------------------------------------------------------------------------
+def test_model_mesh_world1_nccl_step_is_the_unsharded_step(nccl_world1):
+    """Two sharded train steps of a reduced stablelm-3b (remat) over a
+    world-1 NCCL mesh (`elastic.build`): the loss and every p, m and v
+    leaf bitwise the unsharded `make_train_step`'s, at the same rmsnorm
+    and flash-attention launches a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_items
+    from repro_torch.runtime import elastic
+    cfg = dataclasses.replace(reduced(get_config("stablelm-3b")), remat=True)
+    oc = AdamWConfig(total_steps=10)
+    p = tf.init_params(cfg, seed=1, device="cuda")
+    o = adamw_init(p, oc)
+    st = elastic.build(cfg, make_test_mesh(1, 1), p, o, oc)
+    step = make_train_step(cfg, oc)
+    for i in range(2):
+        batch = synthetic_batch(cfg, ShapeCell("t", 64, 4, "train"), step=i)
+        counts = []
+        for run in (lambda: step(p, o, batch),
+                    lambda: st.step_fn(st.params, st.opt_state, batch)):
+            rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+            counts.append((run(), rmsnorm_cuda.launches,
+                           flash_attention_cuda.launches))
+        (p, o, want), *n_want = counts[0]
+        (st.params, st.opt_state, got), *n_got = counts[1]
+        assert got == want and n_got == n_want and n_got[0] > 0
+    flat = dict(tree_items({"p": st.params, "m": st.opt_state["m"],
+                            "v": st.opt_state["v"]}))
+    for key, w in tree_items({"p": p, "m": o["m"], "v": o["v"]}):
+        assert torch.equal(flat[key].to_local(), w), key
+
+
+def test_model_mesh_compressed_psum_pod_on_cuda_over_two_gloo_ranks(dev):
+    """`compressed_psum_pod` on CUDA tensors over the pod axis of a (pod 2,
+    data 1, model 1) mesh of 2 gloo ranks on the card, on the reference
+    test's case: error < 0.05, residual < 0.05, the ranks' sums equal."""
+    import torch_model_mesh_worker as worker
+    g = np.random.default_rng(0).standard_normal((2, 64)).astype(np.float32)
+    res = worker.Group(2, lambda tmp: [("c", dict(
+        kind="compress", g=g, mesh=(1, 1, 2), device="cuda"))]).results()
+    exact = (g[0] + g[1]) / 2
+    for r in res:
+        assert r["c"]["device"] == "cuda"
+        assert float(np.abs(r["c"]["out"][0] - exact).max()) < 0.05
+        assert float(np.abs(r["c"]["error"]).max()) < 0.05
+    np.testing.assert_array_equal(res[0]["c"]["out"], res[1]["c"]["out"])

@@ -101,9 +101,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    every call below) against the generic engine (0.05 pp), with the
    fused CR1's device idle share from `torch.profiler`; R = 1 of the
    main fleet bitwise equal to its single-region solves; a CR1 sweep over
-   lam in {1.0, 1.45, 2.2} against its loop (0.01 pp); CR3 at its
-   defaults through dr_features, and at 150 steps through dr_features
-   and plain (the same rounds, each region's rho within 1e-4); CR1 with
+   lam in {1.0, 1.45, 2.2} against its loop (0.01 pp); CR3 at 150 steps
+   (not its default 600: chip_smoke's wall) through dr_features and
+   plain (the same rounds, each region's rho within 1e-4); CR1 with
    the migration post-stage (the plan unchanged, the flows within every
    cap) and with coupled migration (no less carbon at equal
    curtailment), and CR1 priced on one region's signal for the whole
@@ -509,8 +509,8 @@ CR3_SWEEP_STEPS = 150
 CR3_LANE_RHO_RTOL = 1e-3
 # Multi-region (phase 5e): the R = 3 CA/TX/NY fleet on the UTC clock
 # (the JAX package's acceptance fleet, tests/test_multiregion.py), a lam
-# sweep over its Pareto range, CR3's short budget for its kernel-vs-plain
-# check; per-region rho within CR3_RHO_RTOL there.
+# sweep over its Pareto range, CR3 at a short budget through the kernels
+# and its kernel-vs-plain check; per-region rho within CR3_RHO_RTOL there.
 REGION_STATES = ("CA", "TX", "NY")
 REGION_LAMS = (1.0, 1.45, 2.2)
 CR3_REGION_STEPS = 150
@@ -2017,24 +2017,22 @@ def phase_regions(np, torch, p_single, p):
         f"max {max(gaps):.2e} pp (limit {LANE_PP})")
     require(max(gaps) < LANE_PP, f"regions sweep vs loop {max(gaps):.4f}")
 
-    # CR3: a market per region.
-    steps, outer = CR3.default_steps, CR3.outer
+    # CR3: a market per region, at CR3_REGION_STEPS (not its default
+    # budget: chip_smoke's wall), through the kernels and then plain.
+    outer = CR3.outer
     solve(bare, CR3(), ctx=SolveContext(steps=2))         # warm-up
-    r3, _ = counted(f"CR3 at {steps} x {outer} steps a round",
-                    lambda: solve(bare, CR3()),
-                    lambda r: expected_cr3_launches(
-                        steps, outer, _cr3_rounds(r, steps, outer)))
-    log(f"[regions] CR3: rounds {_cr3_rounds(r3, steps, outer)}, rho "
-        f"{np.array2string(r3.extras['rho'], precision=6)}, balanced "
-        f"{r3.balanced}, {report('CR3', r3)}")
-    require(r3.preservation_violation < PRESERVATION_TOL,
-            "regions CR3 preservation")
     short = SolveContext(steps=CR3_REGION_STEPS)
     k3, _ = counted(f"CR3 at {CR3_REGION_STEPS} x {outer} steps a round",
                     lambda: solve(bare, CR3(), ctx=short),
                     lambda r: expected_cr3_launches(
                         CR3_REGION_STEPS, outer,
                         _cr3_rounds(r, CR3_REGION_STEPS, outer)))
+    log(f"[regions] CR3: rounds "
+        f"{_cr3_rounds(k3, CR3_REGION_STEPS, outer)}, rho "
+        f"{np.array2string(k3.extras['rho'], precision=6)}, balanced "
+        f"{k3.balanced}, {report('CR3', k3)}")
+    require(k3.preservation_violation < PRESERVATION_TOL,
+            "regions CR3 preservation")
     g3, g3w = _timed(torch, lambda: solve(bare, CR3(), ctx=dataclasses.replace(
         short, use_kernel=False)))
     drho = np.abs(k3.extras["rho"] / g3.extras["rho"] - 1.0)
@@ -4905,6 +4903,7 @@ def _mesh_rank_work(np, torch, rank, tmp):
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import transformer as tf
     from repro_torch.optim.adamw import adamw_init, tree_items
+    from repro_torch.runtime import dtensor as dt
     from repro_torch.runtime import elastic
     from repro_torch.runtime.checkpoint import CheckpointManager
     from repro_torch.runtime.compression import (compressed_psum_pod,
@@ -4921,12 +4920,13 @@ def _mesh_rank_work(np, torch, rank, tmp):
     del full
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    out["setup_s"] = time.perf_counter() - t_all
 
     def step(st, batch):
         torch.cuda.synchronize()
         for f in kernels.values():
             f.launches = 0
-        sh.COMM.update(gather_bytes=0, reduce_bytes=0)
+        dt.COMM.update(gather_bytes=0, reduce_bytes=0)
         t0 = time.perf_counter()
         st.params, st.opt_state, loss = st.step_fn(st.params, st.opt_state,
                                                    batch)
@@ -4934,24 +4934,25 @@ def _mesh_rank_work(np, torch, rank, tmp):
         out["steps"].append({
             "loss": loss, "wall": time.perf_counter() - t0,
             "launches": {n: f.launches for n, f in kernels.items()},
-            **dict(sh.COMM)})
+            **dict(dt.COMM)})
 
     for batch in batches[:2]:
         step(st, batch)
     pspecs = sh.legalize(st.params, sh.param_specs(st.params), mesh)
-    out["bytes"] = sh.state_bytes(st.params) + sh.state_bytes(st.opt_state)
+    out["bytes"] = dt.state_bytes(st.params) + dt.state_bytes(st.opt_state)
     out["rule_bytes"] = sh.rule_bytes(
         {"p": st.params, "m": st.opt_state["m"], "v": st.opt_state["v"],
          "s": st.opt_state["step"]},
         {"p": pspecs, "m": pspecs, "v": pspecs, "s": ()}, mesh)
     t0 = time.perf_counter()
-    snapshot = (sh.gather_tree(st.params), sh.gather_tree(st.opt_state))
+    snapshot = (dt.gather_tree(st.params), dt.gather_tree(st.opt_state))
     out["gather_s"] = time.perf_counter() - t0
     out["digest"] = _host_digest(np, {"p": snapshot[0], "o": snapshot[1]})
+    t0 = time.perf_counter()
     if rank == 0:
         # Each leaf's update against the yardstick's, which this process's
         # parent wrote after its 2 unsharded steps.
-        _signal_wait(tmp, "yard", MESH_WAIT_S)
+        _signal_wait(tmp, "yard.done", MESH_WAIT_S)
         want, _ = CheckpointManager(os.path.join(tmp, "yard")).restore(
             {"params": snapshot[0]}, 2, device="cpu")
         want = dict(tree_items(want["params"]))
@@ -4961,6 +4962,7 @@ def _mesh_rank_work(np, torch, rank, tmp):
             out["update_l2"][k] = float(torch.linalg.vector_norm(ds - du)
                                         / torch.linalg.vector_norm(du))
         del want, p0
+    out["check_s"] = time.perf_counter() - t0
     small = elastic.mesh_from_devices([0, 1], 1, 2)
     t0 = time.perf_counter()
     st = elastic.resize(st, cfg, small, opt_cfg, snapshot=snapshot)
@@ -4969,7 +4971,7 @@ def _mesh_rank_work(np, torch, rank, tmp):
     if st.member:
         flat = dict(tree_items({"p": snapshot[0], "o": snapshot[1]}))
         out["resized_bitwise"] = all(
-            torch.equal(t.to_local().cpu(), sh.local_slice(
+            torch.equal(t.to_local().cpu(), dt.local_slice(
                 flat[k], tuple(t.placements), small))
             for k, t in tree_items({"p": st.params, "o": st.opt_state}))
         step(st, batches[2])
@@ -5037,8 +5039,9 @@ def mesh_check_ranks(ranks, yard, per_step, tag):
             + " GB and reduced "
             + ", ".join(f"{s_['reduce_bytes'] / 1e9:.3f}" for s_ in steps)
             + f" GB a step, state {res['bytes'] / 1e9:.4f} GB (rules "
-            f"{res['rule_bytes'] / 1e9:.4f}), state gather "
-            f"{res['gather_s']:.2f} s, resize {res['resize_s']:.2f} s, "
+            f"{res['rule_bytes'] / 1e9:.4f}), set-up {res['setup_s']:.2f} s, "
+            f"state gather {res['gather_s']:.2f} s, rank 0's update check "
+            f"{res['check_s']:.2f} s, resize {res['resize_s']:.2f} s, "
             f"peak {res['peak_gib']:.2f} GiB, compression error "
             f"{res['compress_err']:.3e} residual "
             f"{res['compress_resid']:.3e}, wall {res['wall']:.2f} s")
@@ -5134,7 +5137,9 @@ def phase_train_mesh(np, torch, mesh_ranks):
     t0 = time.perf_counter()
     ckpt = CheckpointManager(os.path.join(tmp, "yard"), keep=1)
     ckpt.save(2, {"params": p}, blocking=True)
-    pathlib.Path(tmp, "yard").touch()
+    # The manager makes its directory at once; the signal is a file of
+    # its own, written once the checkpoint is complete.
+    pathlib.Path(tmp, "yard.done").touch()
     log(f"[train 8e] the yardstick's params after 2 steps written for the "
         f"ranks ({ckpt.timings[-1]['bytes'] / 1e9:.2f} GB, "
         f"{time.perf_counter() - t0:.2f} s)")

@@ -10,7 +10,7 @@ result line for DTensor.
 
     python3 scripts/port_gloo_cuda_probe.py
 
-Needs a CUDA device. `launch/sharding.py` calls the c10d collectives,
+Needs a CUDA device. `runtime/dtensor.py` calls the c10d collectives,
 not DTensor's redistribution, from what this prints on the H100 machine.
 """
 import os

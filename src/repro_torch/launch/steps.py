@@ -19,7 +19,7 @@ GSPMD, the port computes so:
     otherwise the "model" ranks compute the same rows;
   * the weights: each block group's are gathered to full weights at use,
     in their compute dtype, inside the group's checkpoint, so the
-    backward pass gathers them again (ZeRO-3; `sharding.GatherFn`); the
+    backward pass gathers them again (ZeRO-3; `dtensor.GatherFn`); the
     leaves outside the stacks are gathered once a step;
   * the gradients: each rank's loss is scaled by its share of the global
     rows (the sum over ranks is the global mean), and each weight's
@@ -50,7 +50,9 @@ from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_step_,
-                                     tree_items, tree_map)
+                                     tree_get, tree_items, tree_map,
+                                     tree_rebuild)
+from repro_torch.runtime import dtensor as dt
 
 _NOT_YET = ("prefill and decode bundles and lower_cell are ROADMAP item "
             "11b-ii (not ported yet); make_step_bundle builds train cells")
@@ -77,15 +79,9 @@ def value_and_grad(loss_fn: Callable, params: dict, batch: dict):
     keys = [k for k, _ in tree_items(params)]
     with torch.enable_grad():
         live = {k: p.detach().requires_grad_() for k, p in tree_items(params)}
-        loss = loss_fn(_rebuild(params, live), batch)
+        loss = loss_fn(tree_rebuild(params, live), batch)
         grads = torch.autograd.grad(loss, [live[k] for k in keys])
-    return loss.detach(), _rebuild(params, dict(zip(keys, grads)))
-
-
-def _rebuild(tree: dict, flat: dict, prefix: str = "") -> dict:
-    """`tree`'s structure with the leaves of `flat` (dotted keys)."""
-    return {k: _rebuild(v, flat, f"{prefix}{k}.") if isinstance(v, dict)
-            else flat[f"{prefix}{k}"] for k, v in tree.items()}
+    return loss.detach(), tree_rebuild(params, dict(zip(keys, grads)))
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
@@ -164,12 +160,6 @@ def _stacked_view(placements: tuple) -> tuple:
                  for p in placements)
 
 
-def _subtree(tree: dict, path: str):
-    for k in path.split("."):
-        tree = tree[k]
-    return tree
-
-
 def _row_plan(batch: dict, mesh) -> tuple[dict, float]:
     """({key: (dim, start, stop)} of the rows this rank computes, its
     share of the global rows: its rows over the global rows times the
@@ -200,8 +190,7 @@ def _row_plan(batch: dict, mesh) -> tuple[dict, float]:
 
 
 def make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh,
-                            pspecs: dict, use_kernel: bool | None = None,
-                            ) -> Callable:
+                            pspecs: dict) -> Callable:
     """The train step over `mesh` (module docstring): (params, opt_state,
     batch) -> (params, opt_state, loss), params and opt_state DTensor
     trees placed by the legalized `pspecs` (`elastic.build`), updated in
@@ -220,14 +209,14 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh,
 
     def gather(path: str, sub: dict) -> dict:
         head = path.split(".")[0]
-        pl = _subtree(placements, path)
+        pl = tree_get(placements, path)
         if head in sh.STACKS:
             pl = tree_map(_stacked_view, pl)
-        return tree_map(lambda t, d, p: sh.gather_leaf(t, d, p, mesh), sub,
+        return tree_map(lambda t, d, p: dt.GatherFn.apply(t, d, p, mesh), sub,
                         compute_dtypes(sub), pl)
 
     def train_step(params, opt_state, batch):
-        device = sh.mesh_device(mesh)
+        device = dt.mesh_device(mesh)
         plan, share = _row_plan(batch, mesh)
         local = {}
         for k, v in batch.items():
@@ -238,18 +227,18 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh,
         with torch.enable_grad():
             live = {k: flat[k].to_local().detach().requires_grad_()
                     for k in keys}
-            loss = mod.loss_fn(_rebuild(params, live), cfg, local,
-                               use_kernel=use_kernel, gather=gather)
+            loss = mod.loss_fn(tree_rebuild(params, live), cfg, local,
+                               gather=gather)
             if share != 1:
                 loss = loss * share
             grads = torch.autograd.grad(loss, [live[k] for k in keys])
-        total = sh.mesh_all_reduce(loss.detach().clone(), mesh)
+        total = dt.mesh_all_reduce(loss.detach().clone(), mesh)
         value = float(total)
         if not math.isfinite(value):
             raise FloatingPointError(f"non-finite loss {value}: nothing "
                                      f"written")
-        gtree = _rebuild(params, {
-            k: sh.wrap_local(g, mesh, flat[k].placements, flat[k].shape)
+        gtree = tree_rebuild(params, {
+            k: dt.wrap_local(g, mesh, flat[k].placements, flat[k].shape)
             for k, g in zip(keys, grads)})
         return params, adamw_step_(params, gtree, opt_state, opt_cfg), value
 
@@ -276,8 +265,7 @@ def params_shape_of(cfg: ArchConfig) -> dict:
 
 def make_step_bundle(cfg: ArchConfig, shape: ShapeCell | str, mesh,
                      policy: sh.ShardingPolicy = sh.ShardingPolicy(),
-                     opt_cfg: AdamWConfig = AdamWConfig(),
-                     use_kernel: bool | None = None) -> StepBundle:
+                     opt_cfg: AdamWConfig = AdamWConfig()) -> StepBundle:
     """A train cell's bundle on `mesh` (a `DeviceMesh`; a mesh-like object
     gives the shapes and placements, and a step that cannot run). bf16
     params take bf16 moments, as the reference's. `NotImplementedError`
@@ -299,7 +287,7 @@ def make_step_bundle(cfg: ArchConfig, shape: ShapeCell | str, mesh,
     osh = {"m": psh, "v": psh, "step": scalar}
     bsh = sh.to_named(sh.batch_specs(specs, mesh), mesh)
     return StepBundle(
-        fn=make_sharded_train_step(cfg, opt_cfg, mesh, pspecs, use_kernel),
+        fn=make_sharded_train_step(cfg, opt_cfg, mesh, pspecs),
         args_shape=(params_shape, opt_shape, specs),
         in_shardings=(psh, osh, bsh), out_shardings=(psh, osh, scalar),
         donate_argnums=(0, 1))

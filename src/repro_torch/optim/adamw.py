@@ -31,7 +31,7 @@ from typing import Iterator
 
 import torch
 
-from repro_torch.launch.sharding import (is_dtensor, mesh_all_reduce,
+from repro_torch.runtime.dtensor import (is_dtensor, mesh_all_reduce,
                                          wrap_local)
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -59,6 +59,19 @@ def tree_items(tree: dict, prefix: str = "") -> Iterator[tuple[str, object]]:
             yield from tree_items(v, key + ".")
         else:
             yield key, v
+
+
+def tree_rebuild(tree: dict, flat: dict, prefix: str = "") -> dict:
+    """`tree`'s structure with the leaves of `flat` (dotted keys)."""
+    return {k: tree_rebuild(v, flat, f"{prefix}{k}.") if isinstance(v, dict)
+            else flat[f"{prefix}{k}"] for k, v in tree.items()}
+
+
+def tree_get(tree: dict, key: str):
+    """The subtree or leaf at dotted `key`."""
+    for k in key.split("."):
+        tree = tree[k]
+    return tree
 
 
 def tree_map(fn, tree: dict, *rest: dict) -> dict:

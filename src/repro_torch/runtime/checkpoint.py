@@ -17,7 +17,7 @@ reference writes them (2-byte raw values, numpy type `<V2`, meta dtype
   * atomic: writes go to step_<N>.tmp and are then renamed, so a crash
     mid-write never corrupts the latest checkpoint.
   * `restore(..., device=...)` puts the leaves onto a given device.
-  * sharded state: `save()` of a tree of DTensors (`launch/sharding.py`)
+  * sharded state: `save()` of a tree of DTensors (`runtime/dtensor.py`)
     gathers each leaf (every rank of the mesh calls it), the mesh's first
     rank writes the layout above, and the save blocks and ends in a
     barrier of the mesh's ranks, so every rank then sees the checkpoint.
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch import sharding as sh
+from repro_torch.runtime import dtensor as dt
 from repro_torch.optim.adamw import tree_items
 
 
@@ -85,13 +85,13 @@ class CheckpointManager:
         tree of DTensors is gathered, written by its mesh's first rank
         only, and saved blocking (module docstring)."""
         meshes = [v.device_mesh for _, v in tree_items(tree)
-                  if sh.is_dtensor(v)]
+                  if dt.is_dtensor(v)]
         if meshes:
             mesh = meshes[0]
-            tree = sh.gather_tree(tree)
+            tree = dt.gather_tree(tree)
             if dist.get_rank() == int(mesh.mesh.flatten()[0]):
                 self.save(step, tree, blocking=True)
-            sh.mesh_all_reduce(torch.zeros(1, device=sh.mesh_device(mesh)),
+            dt.mesh_all_reduce(torch.zeros(1, device=dt.mesh_device(mesh)),
                                mesh)
             return
         t0 = time.perf_counter()
@@ -172,17 +172,17 @@ class CheckpointManager:
                 return _to_tensor(np.load(path / f"{key}.npy"), like,
                                   like.device if device is None else device)
             mesh = placed.mesh
-            if not sh.is_member(mesh):
+            if not dt.is_member(mesh):
                 raise ValueError(
                     f"restore(shardings=): rank {dist.get_rank()} is not in "
                     f"the mesh of {key!r} (ranks "
                     f"{mesh.mesh.flatten().tolist()})")
             full = np.load(path / f"{key}.npy", mmap_mode="r")
-            block = sh.local_slice(full, placed.placements, mesh)
+            block = dt.local_slice(full, placed.placements, mesh)
             # A copy: the block of a read-only map must not back a tensor.
             local = _to_tensor(np.array(block, order="C"), like,
-                               sh.mesh_device(mesh))
-            return sh.wrap_local(local, mesh, placed.placements, full.shape)
+                               dt.mesh_device(mesh))
+            return dt.wrap_local(local, mesh, placed.placements, full.shape)
 
         def walk(node, placed, prefix):
             out = {}

@@ -45,6 +45,7 @@ from repro_torch.configs.base import shape_by_name
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding as sh
 from repro_torch.launch import steps
+from repro_torch.runtime.dtensor import local_slice
 from repro_torch.runtime.compression import _dequantize, _quantize
 
 
@@ -242,7 +243,7 @@ def test_axis_order_on_a_shared_dim():
     assert pl[:2] == (Shard(0), Shard(0))
     for p in range(P_):
         for d in range(D_):
-            got = sh.local_slice(full, pl, _Coord((P_, D_, 1), (p, d, 0)))
+            got = local_slice(full, pl, _Coord((P_, D_, 1), (p, d, 0)))
             block = p * D_ + d
             assert torch.equal(got[:, 0], torch.arange(block * 4,
                                                        block * 4 + 4))
@@ -253,11 +254,11 @@ def test_axis_order_on_a_shared_dim():
     flat = torch.arange(8)
     for d in range(2):
         for mm in range(2):
-            got = sh.local_slice(flat, pl, _Coord((2, 2), (d, mm)))
+            got = local_slice(flat, pl, _Coord((2, 2), (d, mm)))
             assert torch.equal(got, flat[(d * 2 + mm) * 2:
                                          (d * 2 + mm) * 2 + 2])
     with pytest.raises(ValueError, match="does not divide"):
-        sh.local_slice(torch.arange(7), pl, _Coord((2, 2), (0, 0)))
+        local_slice(torch.arange(7), pl, _Coord((2, 2), (0, 0)))
 
 
 @pytest.mark.parametrize("n", [7, 255, 256, 1000, 4096 + 17])

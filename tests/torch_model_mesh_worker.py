@@ -95,13 +95,14 @@ def _step(st, batch) -> float:
 
 
 def _gathered(st):
-    from repro_torch.launch.sharding import gather_tree
+    from repro_torch.runtime.dtensor import gather_tree
     return gather_tree({"params": st.params, "m": st.opt_state["m"],
                         "v": st.opt_state["v"]})
 
 
 def _train_job(name, job, rank, results):
     from repro_torch.launch import sharding as sh
+    from repro_torch.runtime.dtensor import state_bytes
     st = _build(job, _mesh(job["mesh"]))
     losses = []
     for batch in job["batches"]:
@@ -115,8 +116,8 @@ def _train_job(name, job, rank, results):
                           "step": ()}, st.mesh)
     full = _gathered(st)
     out = {"losses": losses, "digest": _digest(full),
-           "bytes": sh.state_bytes(st.params)
-           + sh.state_bytes(st.opt_state), "rule_bytes": want,
+           "bytes": state_bytes(st.params) + state_bytes(st.opt_state),
+           "rule_bytes": want,
            "step": int(st.opt_state["step"].to_local())}
     if rank == 0:
         out["state"] = {k: _np(v) for k, v in _flat(full).items()}
@@ -193,6 +194,7 @@ def _checkpoint_job(name, job, rank, results):
 def _runner_job(name, job, rank, results):
     from repro_torch.launch import sharding as sh
     from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.dtensor import is_dtensor
     from repro_torch.runtime.ft import FailurePlan, FaultTolerantRunner, \
         FTConfig
     st = _build(job, _mesh((2, 2, 1)))
@@ -210,7 +212,7 @@ def _runner_job(name, job, rank, results):
     full = _gathered(st)
     out = {"losses": losses, "events": [e["event"] for e in runner.events],
            "digest": _digest(full),
-           "sharded": all(sh.is_dtensor(v) for v in _flat(p).values())}
+           "sharded": all(is_dtensor(v) for v in _flat(p).values())}
     if rank == 0:
         out["state"] = {k: _np(v) for k, v in _flat(full).items()}
     results[name] = out
